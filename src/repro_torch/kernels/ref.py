@@ -1,0 +1,97 @@
+"""Plain-PyTorch versions of the port's kernels — port of
+``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``conv2d_ref``).
+
+Each ``*_ref`` computes what its hand-written CUDA kernel computes, in the
+reference's layouts, with ordinary torch ops:
+
+  * conv activations ``(c_in, H, W)``, conv weights
+    ``(k1, k2, c_in / groups, c_out)``;
+  * ELL ``(S1, L)`` index/value arrays with ``val == 0`` in padding slots.
+
+They serve three roles: the CPU path of every kernel wrapper, the ``torch_*``
+realizations of the Step-4b lattice, and the yardstick ``chip_smoke.py``
+holds each kernel against on the card.  ``conv2d_ref`` is written as the
+explicit shift-GEMM (one strided slice per tap, one matmul per group) so it
+repeats the kernel's arithmetic rather than calling a library convolution.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# jax.nn.gelu defaults to the tanh approximation; the port keeps it.
+ACTS = {
+    None: lambda x: x,
+    "relu": torch.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def conv_geometry(h: int, w: int, k1: int, k2: int, *, stride, padding: str,
+                  dilation) -> tuple[int, int, int, int, int, int]:
+    """-> ``(ho, wo, pad_top, pad_bottom, pad_left, pad_right)``.
+
+    SAME follows the reference's arithmetic (``shift_conv.py``): total pad
+    ``max((ceil(H/s) - 1)·s + ke - H, 0)`` with ``ke`` the dilated kernel
+    extent, split TF-style (``before = total // 2``)."""
+    sh, sw = pair(stride)
+    dh, dw = pair(dilation)
+    ke1, ke2 = (k1 - 1) * dh + 1, (k2 - 1) * dw + 1
+    if padding == "SAME":
+        ho, wo = -(-h // sh), -(-w // sw)
+        ph = max((ho - 1) * sh + ke1 - h, 0)
+        pw = max((wo - 1) * sw + ke2 - w, 0)
+        return ho, wo, ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
+    if padding == "VALID":
+        return (h - ke1) // sh + 1, (w - ke2) // sw + 1, 0, 0, 0, 0
+    raise ValueError(padding)
+
+
+def ddmm_ref(x, y, *, bias=None, residual=None, act=None):
+    """``act(x @ y + bias) + residual``; x ``(M, K)``, y ``(K, N)``."""
+    out = x @ y
+    if bias is not None:
+        out = out + bias
+    out = ACTS[act](out)
+    if residual is not None:
+        out = out + residual
+    return out
+
+
+def spdmm_ref(idx, val, y):
+    """ELL sparse @ dense: ``Z[i] = Σ_l val[i, l] · y[idx[i, l]]``."""
+    rows = y[idx.long()]                                 # (S1, L, N)
+    return (rows * val[..., None]).sum(1)
+
+
+def conv2d_ref(x, w, *, stride=1, padding="SAME", groups=1,
+               dilation=(1, 1)):
+    """x: ``(c_in, H, W)``, w: ``(k1, k2, c_in_per_group, c_out)`` ->
+    ``(c_out, H', W')``.  ``groups`` splits channels into independent
+    convolutions (group-major output channels), ``dilation`` spaces the
+    taps."""
+    k1, k2, cin, cout = w.shape
+    _, h, wd = x.shape
+    sh, sw = pair(stride)
+    dh, dw = pair(dilation)
+    ho, wo, pt, pb, pl, pr = conv_geometry(h, wd, k1, k2, stride=stride,
+                                           padding=padding,
+                                           dilation=dilation)
+    xp = F.pad(x, (pl, pr, pt, pb))
+    og = cout // groups
+    outs = []
+    for g in range(groups):
+        xg = xp[g * cin:(g + 1) * cin]
+        taps = [xg[:, dy * dh:dy * dh + (ho - 1) * sh + 1:sh,
+                   dx * dw:dx * dw + (wo - 1) * sw + 1:sw]
+                for dy in range(k1) for dx in range(k2)]  # (cin, ho, wo)
+        patches = torch.stack(taps, 0).reshape(k1 * k2 * cin, ho * wo)
+        wm = w[..., g * og:(g + 1) * og].reshape(k1 * k2 * cin, og)
+        outs.append((wm.T @ patches).reshape(og, ho, wo))
+    return outs[0] if groups == 1 else torch.cat(outs, 0)
