@@ -7,12 +7,12 @@ agree, so a kind that lowers but has no handler fails at import time.
 
     registry.py     @register_op decorator, run_op, not_ported
     residency.py    device-resident weights (collected once per runner)
-    matmul.py       mm (right / right_t / left / both_runtime sides)
+    matmul.py       mm (every side but left_runtime); sddmm not yet
     conv.py         Fig. 7 shift-add convolution
-    elementwise.py  the shared fused epilogue
+    elementwise.py  ew + the shared fused epilogue + segment reductions
     pooling.py      globalpool
-    shape.py        layout ops (not ported yet)
-    graph_build.py  knn_graph (not ported yet)
+    shape.py        DM transpose/identity, reshape, concat
+    graph_build.py  knn_graph
 """
 from repro_torch.core.plan import MATOP_KINDS
 from repro_torch.core.runtime.registry import (OpHandler,  # noqa: F401

@@ -3,14 +3,19 @@
 Port of ``src/repro/core/runtime/matmul.py``.  ``mm`` sub-dispatches on
 ``weight_side`` — where the compile-time operand sits — and then on the
 op's Step-4b kernel: ELL-family kernels run the SpDMM kernel or its plain
-twin, dense-family kernels the DDMM kernel or a plain matmul.  The sides
-ported so far are ``right``, ``right_t`` (ST-GCN's (C,T,V) x Aᵀ),
-``left`` and ``both_runtime``.
+twin, dense-family kernels the DDMM kernel or a plain matmul, and the
+gather sides (``left_coo``, ``left_knn``, bound to ``coo_scatter``) run
+torch indexing and segment reductions.  The sides ported so far are
+``right``, ``right_t`` (ST-GCN's (C,T,V) x Aᵀ), ``left``, ``left_coo``,
+``left_knn`` and ``both_runtime``.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.plan import ELL_KERNELS, MatOp
-from repro_torch.core.runtime.elementwise import apply_epilogue
+from repro_torch.core.runtime.elementwise import (apply_epilogue,
+                                                  segment_max, segment_sum)
 from repro_torch.core.runtime.registry import (not_ported, op_kernel,
                                                register_op)
 from repro_torch.core.runtime.residency import ell_pair, weight
@@ -19,8 +24,6 @@ from repro_torch.kernels.ddmm import ddmm
 from repro_torch.kernels.spdmm import spdmm
 
 _NOT_PORTED_SIDES = {
-    "left_coo": "COO scatter aggregation (ROADMAP queue 1 item 2: b5/b6)",
-    "left_knn": "runtime-KNN gather aggregation (ROADMAP queue 1 item 7)",
     "left_runtime": "runtime-adjacency aggregation (ROADMAP queue 1 "
                     "item 2: b1/b3)",
 }
@@ -38,6 +41,22 @@ def _sparse(kern: str, idx, val, y):
     if kern == "cuda_ell_spdmm":
         return spdmm(idx, val, y.contiguous())
     return ref.spdmm_ref(idx, val, y)
+
+
+def _coo_aggregate(op: MatOp, env, x, params):
+    """COO scatter message passing: rho({e_uv * h_u}) over static edges."""
+    rows = weight(op, "coo_rows", params)
+    cols = weight(op, "coo_cols", params).long()
+    vals = (env[op.inputs[1]] if op.attrs.get("runtime_edge")
+            else weight(op, "coo_vals", params))
+    n = op.attrs["n"]
+    msg = vals[:, None] * x[cols]
+    if op.attrs.get("reduce", "sum") == "max":
+        agg = segment_max(msg, rows, n)
+        # Empty neighborhoods (segment_max's -inf identity) keep the node's
+        # own feature; NaN messages propagate.
+        return torch.where(torch.isneginf(agg), x, agg)
+    return segment_sum(msg, rows, n)
 
 
 @register_op("mm")
@@ -63,6 +82,19 @@ def run_mm(op: MatOp, env, params=None):
             out = _sparse(kern, idx, val, x)
         else:
             out = _dense(kern, weight(op, "adj", params), x)
+    elif side == "left_coo":
+        out = _coo_aggregate(op, env, x, params)
+    elif side == "left_knn":
+        # runtime (N, k) neighbor indices from a knn_graph op: unweighted
+        # gather + reduce over each row's k neighbors
+        msg = x[env[op.inputs[1]].long()]                # (N, k, F)
+        red = op.attrs.get("reduce", "sum")
+        if red == "max":
+            out = msg.amax(1)
+        elif red == "mean":
+            out = msg.mean(1)
+        else:
+            out = msg.sum(1)
     elif side == "both_runtime":
         y = env[op.inputs[1]]
         y2 = y.reshape(y.shape[0], -1)

@@ -36,9 +36,13 @@ def _conv(b, x, rng, cin, cout, k, *, stride=1, padding="SAME", bn=True,
     return h
 
 
+def _fc_w(rng, fin, fout):
+    return (rng.standard_normal((fin, fout)) *
+            np.sqrt(2.0 / fin)).astype(np.float32)
+
+
 def _fc(b, x, rng, fin, fout, act="relu"):
-    w = (rng.standard_normal((fin, fout)) *
-         np.sqrt(2.0 / fin)).astype(np.float32)
+    w = _fc_w(rng, fin, fout)
     h = b.linear(x, w, b=np.zeros(fout, np.float32))
     if act:
         h = b.act(h, act)

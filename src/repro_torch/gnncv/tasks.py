@@ -9,6 +9,9 @@ Port of ``src/repro/gnncv/tasks.py`` (numpy/stdlib only; imports rewritten).
   b5  SAR automatic target classification (MSTAR)    CNN + GNN  [31]
   b6  point cloud classification       (ModelNet40)  GNN        [10]
 
+plus ``b6-dyn``, b6 with its KNN graph built per request
+(``build_dynamic_task``).
+
 Models are reconstructions from the cited task papers sized to match the
 paper's workload statistics (Table IV graph shapes, Table VI model sizes,
 Fig. 2 CNN/GNN workload mix). Weights are random — the paper's evaluation is
@@ -20,14 +23,19 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.ir import GraphBuilder
-from repro_torch.gnncv.cnn_zoo import _conv, _fc, add_resnet_backbone
+from repro_torch.gnncv.cnn_zoo import (_conv, _fc, _fc_w,
+                                       add_resnet_backbone)
 from repro_torch.gnncv.graphs import (grid_coo, knn_coo, label_graph,
                                       skeleton_adjacency)
 
 
+def _lin_w(rng, fin, fout):
+    return (rng.standard_normal((fin, fout)) *
+            np.sqrt(1.0 / fin)).astype(np.float32)
+
+
 def _lin(b, x, rng, fin, fout, act=None, bias=True):
-    w = (rng.standard_normal((fin, fout)) *
-         np.sqrt(1.0 / fin)).astype(np.float32)
+    w = _lin_w(rng, fin, fout)
     h = b.linear(x, w, b=np.zeros(fout, np.float32) if bias else None)
     if act:
         h = b.act(h, act)
@@ -226,6 +234,52 @@ def b6_pointcloud(*, n_points: int = 1024, knn: int = 20, classes: int = 40,
     return b.output(logits)
 
 
+# ------------------------------------------ b6-dyn: dynamic point cloud ---
+def b6_pointcloud_dynamic(*, n_points: int = 1024, knn: int = 20,
+                          classes: int = 40, dims=(64, 64, 128, 256),
+                          feat_out: int = 1024, seed: int = 0):
+    """Variable-topology b6: the KNN graph is built per request from the
+    runtime point coordinates (``knn_graph``) instead of being baked in as
+    a compile-time COO.  A runtime ``(N,)`` validity mask supports
+    graph-size bucketing: padded nodes are never selected as neighbors and
+    their features are zeroed before the global max pool.
+
+    The port has no tracing frontend yet, so this builder stands in for the
+    reference's traced ``jax_tasks.b6_pointcloud_dynamic_jax``: it replays
+    that function's weight draws and names its graph, layers and portions
+    as the tracer does, so the compiled plan equals the reference's
+    ``build_traced_task("b6-dyn")`` plan op for op (``knn.1`` … the
+    classifier ``dot.*``)."""
+    rng = np.random.default_rng(seed)
+    ws, fin = [], 3
+    for d in dims:
+        ws.append(_lin_w(rng, fin, d))
+        fin = d
+    w_feat = _lin_w(rng, fin, feat_out)
+    w_cls = _fc_w(rng, feat_out, classes)
+    b = GraphBuilder("b6-dyn_traced")
+    pts = b.input((n_points, 3), name="points")
+    mask = b.input((n_points,), name="mask")
+    idx = b.knn_graph(pts, k=knn, mask=mask, name="knn.1")
+    # the tracer numbers every equation; the bias adds (c + 1) fold away
+    h, c = pts, 2
+    for w in ws:
+        h = b.linear(h, w, b=np.zeros(w.shape[1], np.float32),
+                     name=f"dot.{c}")
+        h = b.act(h, "relu", name=f"ew.{c + 2}")
+        h = b.mp(h, knn_input=idx, reduce="max", name=f"mp.{c + 3}")
+        c += 4
+    h = b.linear(h, w_feat, b=np.zeros(feat_out, np.float32),
+                 name=f"dot.{c}")
+    h = b.act(h, "relu", name=f"ew.{c + 2}")
+    m = b.reshape(mask, (n_points, 1), name=f"bcast.{c + 3}")
+    h = b.mul(h, m, name=f"ew.{c + 4}")               # zero padded nodes
+    h = b.globalpool(h, kind="max", name=f"reduce.{c + 5}")
+    logits = b.linear(h, w_cls, b=np.zeros(classes, np.float32),
+                      name=f"dot.{c + 6}")
+    return b.output(logits)
+
+
 TASKS = {
     "b1": b1_fewshot,
     "b2": b2_mlgcn,
@@ -249,6 +303,20 @@ SMALL_CONFIGS = {
     "b5": dict(input_hw=16, feat=8),
     "b6": dict(n_points=64, knn=5, dims=(8, 16), feat_out=32),
 }
+
+
+DYNAMIC_TASKS = {"b6-dyn": b6_pointcloud_dynamic}
+DYNAMIC_SMALL_CONFIGS = {
+    "b6-dyn": dict(n_points=64, knn=5, dims=(8, 16), feat_out=32),
+}
+
+
+def build_dynamic_task(task: str, *, small: bool = False, **overrides):
+    """Build a dynamic-graph task (``b6-dyn``), optionally at the reduced
+    test scale of the reference's ``TRACED_SMALL_CONFIGS``."""
+    kwargs = dict(DYNAMIC_SMALL_CONFIGS[task]) if small else {}
+    kwargs.update(overrides)
+    return DYNAMIC_TASKS[task](**kwargs)
 
 
 def build_task(task: str, *, small: bool = False, **overrides):

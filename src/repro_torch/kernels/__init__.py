@@ -5,7 +5,8 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
   shift_conv.py  shift_conv2d  <- kernels/shift_conv.py (Pallas)
   ddmm.py        ddmm          <- kernels/ddmm.py (Pallas)
   spdmm.py       spdmm         <- kernels/spdmm.py (Pallas)
-  ref.py         plain-PyTorch versions of all three
+  knn.py         knn           <- kernels/knn.py (Pallas)
+  ref.py         plain-PyTorch versions of all four
   _build.py      nvcc build of csrc/*.cu into one ctypes-loaded library
   csrc/          the CUDA sources
 
@@ -13,5 +14,6 @@ Each wrapper runs its plain version for CPU tensors, launches its kernel
 for CUDA tensors (or raises), and counts its launches in ``<fn>.launches``.
 """
 from repro_torch.kernels.ddmm import ddmm                  # noqa: F401
+from repro_torch.kernels.knn import knn                    # noqa: F401
 from repro_torch.kernels.shift_conv import shift_conv2d    # noqa: F401
 from repro_torch.kernels.spdmm import spdmm                # noqa: F401

@@ -36,6 +36,8 @@ SIGNATURES = {
     "repro_shift_conv2d": [_P, _P, _P] + [_I] * 15 + [_P],
     "repro_ddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ell_spdmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_knn_max_k": [],
 }
 
 _LIB: ctypes.CDLL | None = None

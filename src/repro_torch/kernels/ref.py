@@ -6,7 +6,8 @@ reference's layouts, with ordinary torch ops:
 
   * conv activations ``(c_in, H, W)``, conv weights
     ``(k1, k2, c_in / groups, c_out)``;
-  * ELL ``(S1, L)`` index/value arrays with ``val == 0`` in padding slots.
+  * ELL ``(S1, L)`` index/value arrays with ``val == 0`` in padding slots;
+  * KNN points ``(N, F)``, int32 ``(N, k)`` neighbor indices.
 
 They serve three roles: the CPU path of every kernel wrapper, the ``torch_*``
 realizations of the Step-4b lattice, and the yardstick ``chip_smoke.py``
@@ -95,3 +96,34 @@ def conv2d_ref(x, w, *, stride=1, padding="SAME", groups=1,
         wm = w[..., g * og:(g + 1) * og].reshape(k1 * k2 * cin, og)
         outs.append((wm.T @ patches).reshape(og, ho, wo))
     return outs[0] if groups == 1 else torch.cat(outs, 0)
+
+
+def knn_ref(x, k, mask=None, self_loops=False):
+    """``(N, F)`` points -> int32 ``(N, k)`` nearest-neighbor indices.
+
+    The pinned semantics of ``src/repro/kernels/knn.py``: the ``k``
+    smallest squared-L2 distances, ascending, ties toward the lower index;
+    no self match unless ``self_loops``; candidates with ``mask <= 0`` are
+    never chosen while others remain (their distance is +inf, like the
+    self match's), and masked rows still emit indices.  Distances are the
+    reference's expansion ``(|x_i|² − 2·x_i·x_j) + |x_j|²``, each sum taken
+    over F in index order by separate fp32 multiplies and adds, so the CUDA
+    kernel (``csrc/knn.cu``) can repeat the arithmetic bit for bit.  bf16
+    points are upcast to fp32."""
+    n, f = x.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"knn: k={k} out of range for {n} points")
+    x = x.float()
+    sq = torch.zeros(n, dtype=torch.float32, device=x.device)
+    dot = torch.zeros((n, n), dtype=torch.float32, device=x.device)
+    for c in range(f):
+        col = x[:, c]
+        sq = sq + col * col
+        dot = dot + col[:, None] * col[None, :]
+    d = (sq[:, None] - 2.0 * dot) + sq[None, :]
+    if not self_loops:
+        d.fill_diagonal_(float("inf"))
+    if mask is not None:
+        d = torch.where(mask.reshape(1, n) > 0, d, float("inf"))
+    # a stable sort, not topk: topk leaves the order of ties unspecified
+    return torch.sort(d, dim=1, stable=True).indices[:, :k].to(torch.int32)

@@ -5,8 +5,8 @@ runs its plain version: the port's output must match the reference's
 ``build_runner(plan)`` under ``kernels="xla"`` and ``kernels="pallas"``
 (interpret mode) within ``max|Δ| <= 1e-5 · max|ref|`` — reference drift
 on this tree is ~1e-6 relative.  Also: parameters carried across with
-``load_weights``, the no-CUDA guard, and the loud failure of kinds outside
-this slice.
+``load_weights``, the no-CUDA guard, and the loud failure of kinds not
+ported yet (b1-b3; b5, b6 and b6-dyn are in ``test_torch_dynamic.py``).
 """
 import numpy as np
 import pytest
@@ -156,7 +156,7 @@ def test_registry_covers_lowering_vocabulary():
     assert registered_kinds() == MATOP_KINDS
 
 
-@pytest.mark.parametrize("task", ["b1", "b2", "b3-r50", "b5", "b6"])
+@pytest.mark.parametrize("task", ["b1", "b2", "b3-r50"])
 def test_out_of_slice_kinds_raise(task):
     plan = compile_graph(build_task(task, small=True))
     run = build_runner(plan, device="cpu")
