@@ -4,24 +4,27 @@
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
-four full-width tasks give it (b4 ST-GCN, b6-dyn dynamic point cloud, b6
-point cloud, b5 SAR), serves 8 requests of each task through its compiled
-plan with the CUDA kernels bound, checks the launch counts and the outputs
-against the same plan bound to the plain versions (on the card and, for one
-request, on the CPU), and times kernels and requests.  Every number printed
-is measured in this run.  The last line is the JSON result; any failure
-exits nonzero before it.  Imports the port only (``repro_torch``), never
-JAX.
+full-width paths give it (b4 ST-GCN, b6-dyn dynamic point cloud, b6 point
+cloud, b5 SAR, b1 few-shot, b2 ML-GCN, b3 DualGCN on ResNet-50 and -101,
+and the masked VIP at b3's spatial width), serves 8 requests of each path
+through its compiled plan with the CUDA kernels bound, checks the launch
+counts and the outputs against the same plan bound to the plain versions
+(on the card and, for one request, on the CPU), and times kernels and
+requests.  Every number printed is measured in this run.  The last line is
+the JSON result; any failure exits nonzero before it.  Imports the port
+only (``repro_torch``), never JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -50,12 +53,43 @@ REQUESTS = 8
 # b6-dyn requests: a 960-point cloud padded to a 1024-point bucket, as
 # graph-bucketed serving sends it.
 PAD_POINTS = 64
-# Launches per request of each task's main path (the plan's bindings).
+# The masked VIP path: b3-r50's spatial branch (14x14 patches of 512
+# channels), each patch sampling its 5x5 window (nnz 4096, density 0.107).
+VIP_SIDE, VIP_FEAT, VIP_WIN = 14, 512, 5
+# b3's random-weight ResNet has zero biases and identity BN statistics, so
+# its features grow through depth (to ~1e4 at a standard-normal 224x224
+# image for ResNet-50) and its VIP affinities reach 1e10 and more: the
+# softmax over them is a hard argmax, and any two fp32 orders of summation
+# flip its near-ties.  The backbone is positively homogeneous (conv, ReLU,
+# max pool, residual add), so scaling the image by s scales the affinities
+# by s²: b3's requests are scaled by the power of two that brings their
+# largest affinity to at most AFFINITY_PEAK, where the softmax is smooth
+# and the comparison with the plain versions means something.
+# The work, and so every time, does not depend on the data.  The masked
+# VIP's standard-normal 512-feature nodes have self-affinities near 512
+# against neighbours' ±23, so its softmax would collapse to the diagonal
+# and the path would return its input: its requests are scaled the same
+# way.
+SCALED_TASKS = ("b3-r50", "b3-r101", "vip-masked")
+AFFINITY_PEAK = 4.0
+# Launches per request of each task's main path (the plan's bindings).  An
+# unmasked VIP runs the DDMM kernel on x @ xᵀ, as the reference does.
 PER_REQUEST = {
-    "b4": {"shift_conv2d": 18, "spdmm": 9, "ddmm": 1, "knn": 0},
-    "b6-dyn": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 6, "knn": 1},
-    "b6": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 6, "knn": 0},
-    "b5": {"shift_conv2d": 2, "spdmm": 0, "ddmm": 3, "knn": 0},
+    "b4": {"shift_conv2d": 18, "spdmm": 9, "ddmm": 1, "knn": 0, "sddmm": 0},
+    "b6-dyn": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 6, "knn": 1,
+               "sddmm": 0},
+    "b6": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 6, "knn": 0, "sddmm": 0},
+    "b5": {"shift_conv2d": 2, "spdmm": 0, "ddmm": 3, "knn": 0, "sddmm": 0},
+    # 4 convs on the (26, c, H, W) stack; 5 linears, 3 runtime-adjacency
+    # MPs and 3 unmasked VIPs
+    "b1": {"shift_conv2d": 4, "spdmm": 0, "ddmm": 11, "knn": 0, "sddmm": 0},
+    "b2": {"shift_conv2d": 53, "spdmm": 0, "ddmm": 5, "knn": 0, "sddmm": 0},
+    "b3-r50": {"shift_conv2d": 55, "spdmm": 0, "ddmm": 6, "knn": 0,
+               "sddmm": 0},
+    "b3-r101": {"shift_conv2d": 106, "spdmm": 0, "ddmm": 6, "knn": 0,
+                "sddmm": 0},
+    "vip-masked": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 1, "knn": 0,
+                   "sddmm": 1},
 }
 SOURCES = {
     "shift_conv2d": ("src/repro_torch/kernels/csrc/shift_conv.cu",
@@ -66,6 +100,8 @@ SOURCES = {
              "src/repro/kernels/ddmm.py:103"),
     "knn": ("src/repro_torch/kernels/csrc/knn.cu",
             "src/repro/kernels/knn.py:128"),
+    "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
+              "src/repro/kernels/sddmm.py:81"),
 }
 
 
@@ -117,12 +153,41 @@ class Case:
     exact: bool = False
 
 
+def mm_operands(op, xin, shapes, rng):
+    """The ``(x, y)`` a ``cuda_ddmm`` mm op hands the DDMM kernel, by its
+    side: compile-time operands from the plan, runtime ones random."""
+    side = op.attrs["weight_side"]
+
+    def rand(*shape):
+        return rng.standard_normal(shape)
+
+    def rows(shape):                               # (..., F) -> (M, F)
+        return int(np.prod(shape[:-1] or (1,))), shape[-1]
+
+    if side == "right":
+        return rand(*rows(xin)), op.weights["w"]
+    if side == "left":
+        return op.weights["adj"], rand(*xin)
+    if side == "left_runtime":
+        return rand(*shapes[op.inputs[1]]), rand(*xin)
+    if side == "both_runtime":
+        y = shapes[op.inputs[1]]
+        return rand(*rows(xin)), rand(y[0], int(np.prod(y[1:])))
+    raise AssertionError(f"{op.name}: no DDMM case for side {side!r}")
+
+
 def task_cases(task, plan, rng, dev) -> list[Case]:
     """Every distinct kernel call ``plan`` makes, with the plan's own
     weights and random activations, plus how often one request makes it;
     then, per task, shapes beyond the main path."""
     def t(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def ddmm_at(x, y, gram=False):
+        key = ("ddmm", tuple(x.shape), tuple(y.shape), gram)
+        if key not in cases:
+            cases[key] = ddmm_case(x, y, gram=gram, per_request=0)
+        cases[key].per_request += 1
 
     shapes = dict(plan.meta["input_shapes"])
     cases: dict[tuple, Case] = {}
@@ -146,14 +211,18 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                 cases[key] = spdmm_case(idx, val, y, per_request=0)
             cases[key].per_request += 1
         elif op.kernel == "cuda_ddmm" and op.kind == "mm":
-            # the runtime calls the kernel as x @ w; bias and activation
-            # follow in the shared epilogue
-            w = op.weights["w"]
-            x = t(rng.standard_normal((int(np.prod(xin[:-1] or (1,))),
-                                       xin[-1])))
-            key = ("ddmm", tuple(x.shape), w.shape)
+            # the runtime calls the kernel without epilogue; bias and
+            # activation follow in the shared epilogue
+            ddmm_at(*map(t, mm_operands(op, xin, shapes, rng)))
+        elif op.kernel == "cuda_sddmm" and "mask" not in op.weights:
+            x = t(rng.standard_normal(xin))            # VIP: x @ xᵀ
+            ddmm_at(x, x.T.contiguous(), gram=True)
+        elif op.kernel == "cuda_sddmm":
+            x = t(rng.standard_normal(xin))
+            key = ("sddmm", xin, op.attrs["nnz"])
             if key not in cases:
-                cases[key] = ddmm_case(x, t(w), per_request=0)
+                cases[key] = sddmm_case(x, x.T, t(op.weights["mask"]),
+                                        per_request=0)
             cases[key].per_request += 1
         elif op.kernel == "cuda_knn":
             n = xin[0]
@@ -197,7 +266,62 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                           per_request=0),
                  knn_case(t(rng.standard_normal((196, 192))), 9, mask=None,
                           self_loops=False, per_request=0)]
+    elif task == "vip-masked":
+        # beyond the path: the reference's three shapes, ragged M, N and K,
+        # a mask of density 1 and one of density 0, y stored k-major
+        for m, k, n, density in ((128, 64, 128, 0.2), (256, 128, 256, 0.05),
+                                 (100, 50, 70, 0.4), (33, 17, 65, 0.3),
+                                 (37, 1, 31, 1.0), (64, 40, 96, 0.0)):
+            y = t(rng.standard_normal((k, n)))
+            extra.append(sddmm_case(
+                t(rng.standard_normal((m, k))), y,
+                t(rng.random((m, n)) < density), per_request=0))
+        x = t(rng.standard_normal((100, 50)))
+        extra.append(sddmm_case(x, x.T, t(rng.random((100, 100)) < 0.4),
+                                per_request=0))
     return list(cases.values()) + extra
+
+
+def exact_checks(task, rng, dev) -> None:
+    """Kernel results beyond the main path that must hold exactly: a
+    batched conv equals its per-image calls (same arithmetic order, b1);
+    SDDMM's dead tiles come out as exact zeros (vip-masked)."""
+    from repro_torch.kernels import sddmm, shift_conv2d
+    from repro_torch.kernels.sddmm import live_tiles
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    if task == "b1":
+        for xs, ws, kw in (
+                ((26, 1, 28, 28), (3, 3, 1, 64), dict(stride=1)),
+                ((26, 64, 14, 14), (3, 3, 64, 64), dict(stride=1)),
+                ((5, 8, 15, 25), (3, 2, 2, 8),
+                 dict(stride=(2, 1), padding="VALID", groups=4,
+                      dilation=(1, 2)))):
+            x, w = t(rng.standard_normal(xs)), t(rng.standard_normal(ws))
+            got = shift_conv2d(x, w, **kw)
+            each = torch.stack([shift_conv2d(xi, w, **kw) for xi in x])
+            torch.cuda.synchronize()
+            differ = int((got != each).sum().item())
+            log(f"check batched shift_conv2d x{xs} w{ws} {kw}: one launch "
+                f"vs {xs[0]} per-image launches, {differ} elements differ"
+                + ("" if not differ else "  FAIL"))
+            assert not differ, "batched conv differs from per-image calls"
+    elif task == "vip-masked":
+        x, y = t(rng.standard_normal((256, 64))), t(rng.standard_normal(
+            (64, 256)))
+        mask = torch.zeros((256, 256), device=dev)
+        mask[:128, :128] = 1.0
+        got = sddmm(x, y, mask)
+        torch.cuda.synchronize()
+        dead = torch.cat([got[128:].flatten(), got[:128, 128:].flatten()])
+        nonzero = int((dead != 0).sum().item())
+        log(f"check sddmm dead tiles: mask live on [:128, :128] of 256x256, "
+            f"{int(live_tiles(mask).sum())}/{live_tiles(mask).numel()} tiles "
+            f"live, {nonzero} nonzero outputs outside"
+            + ("" if not nonzero else "  FAIL"))
+        assert not nonzero, "sddmm: a dead tile is not exactly zero"
 
 
 def pad_mask(n: int) -> np.ndarray:
@@ -211,11 +335,13 @@ def conv_case(x, w, kw, per_request) -> Case:
     from repro_torch.kernels import ref, shift_conv2d
     k1, k2, cin_g, cout = w.shape
     ho, wo, pt, pb, pl, pr = ref.conv_geometry(
-        x.shape[1], x.shape[2], k1, k2, stride=kw["stride"],
+        x.shape[-2], x.shape[-1], k1, k2, stride=kw["stride"],
         padding=kw["padding"], dilation=kw.get("dilation", (1, 1)))
+    batch = x.shape[0] if x.ndim == 4 else 1
     # the library yardstick gets the pre-padded input (set-up, untimed):
     # F.conv2d's own padding is symmetric, the reference's SAME split is not
-    xp = F.pad(x, (pl, pr, pt, pb))[None]
+    xp = F.pad(x, (pl, pr, pt, pb))
+    xp = xp.reshape(batch, *xp.shape[-3:])
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
     groups = kw.get("groups", 1)
     label = (f"shift_conv2d x{tuple(x.shape)} w{tuple(w.shape)} "
@@ -228,9 +354,9 @@ def conv_case(x, w, kw, per_request) -> Case:
         lambda: ref.conv2d_ref(x, w, **kw),
         lambda: F.conv2d(xp, w_oihw, stride=ref.pair(kw["stride"]),
                          dilation=ref.pair(kw.get("dilation", 1)),
-                         groups=groups)[0],
-        4.0 * (x.numel() + w.numel() + cout * ho * wo),
-        2.0 * k1 * k2 * cin_g * cout * ho * wo, per_request)
+                         groups=groups).reshape(*x.shape[:-3], cout, ho, wo),
+        4.0 * (x.numel() + w.numel() + batch * cout * ho * wo),
+        2.0 * batch * k1 * k2 * cin_g * cout * ho * wo, per_request)
 
 
 def spdmm_case(idx, val, y, per_request) -> Case:
@@ -250,8 +376,37 @@ def spdmm_case(idx, val, y, per_request) -> Case:
         2.0 * nnz * y.shape[1], per_request)
 
 
-def ddmm_case(x, y, *, bias=None, residual=None, act=None,
+def sddmm_case(x, y, mask, per_request) -> Case:
+    from repro_torch.kernels import ref, sddmm
+    from repro_torch.kernels.sddmm import live_tiles
+    m, k = x.shape
+    n = y.shape[1]
+    # the VIP passes y = xᵀ, a view of x's memory: x is read once
+    y_is_x = y.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    mask = mask.float().contiguous()
+    nnz = int((mask != 0).sum().item())
+    live = live_tiles(mask)
+    with warnings.catch_warnings():                # "CSR support is beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = mask.to_sparse_csr()                 # set-up, untimed
+    label = (f"sddmm ({m},{k})@({k},{n}) y_strides={tuple(y.stride())} "
+             f"nnz={nnz} density={nnz / (m * n):.4f} live tiles "
+             f"{int(live.sum())}/{live.numel()} = "
+             f"{live.float().mean().item():.4f}"
+             + (" y=xᵀ" if y_is_x else ""))
+    # bytes: x, y (unless it is x's view), the mask and the output once
+    # each; operations: the sampled products only, 2·nnz·K
+    return Case(
+        "sddmm", label, lambda: sddmm(x, y, mask),
+        lambda: ref.sddmm_ref(x, y, mask),
+        lambda: torch.sparse.sampled_addmm(csr, x, y, beta=0.0),
+        4.0 * (m * k + (0 if y_is_x else k * n) + 2 * m * n),
+        2.0 * nnz * k, per_request)
+
+
+def ddmm_case(x, y, *, bias=None, residual=None, act=None, gram=False,
               per_request=0) -> Case:
+    """``gram``: y is xᵀ (a VIP's x @ xᵀ), so the function reads x once."""
     from repro_torch.kernels import ddmm, ref
     m, k = x.shape
     n = y.shape[1]
@@ -259,11 +414,12 @@ def ddmm_case(x, y, *, bias=None, residual=None, act=None,
     if act is None and residual is None:
         library = ((lambda: torch.mm(x, y)) if bias is None  # noqa: E731
                    else (lambda: torch.addmm(bias, x, y)))
-    nbytes = 4.0 * (x.numel() + y.numel() + m * n
+    nbytes = 4.0 * (x.numel() + (0 if gram else y.numel()) + m * n
                     + (n if bias is not None else 0)
                     + (m * n if residual is not None else 0))
     label = (f"ddmm ({m},{k})@({k},{n}) bias={bias is not None} "
-             f"act={act} residual={residual is not None}")
+             f"act={act} residual={residual is not None}"
+             + (" y=xᵀ" if gram else ""))
     return Case(
         "ddmm", label,
         lambda: ddmm(x, y, bias=bias, residual=residual, act=act),
@@ -306,7 +462,9 @@ def check_case(case: Case) -> float:
     ok = rel <= KERNEL_RTOL
     msg = f"check {case.label}: max|d|={err:.3e} rel={rel:.3e}"
     if case.library is not None:
-        _, lrel = rel_err(case.library(), want)
+        lib = case.library()
+        _, lrel = rel_err(lib if lib.layout == torch.strided
+                          else lib.to_dense(), want)
         msg += f" (library rel={lrel:.3e})"
     log(msg + ("" if ok else "  FAIL"))
     assert ok, f"{case.label}: kernel disagrees with its plain version"
@@ -354,27 +512,88 @@ def profile_requests(run, requests, card, task) -> None:
             f"{name[:90]}")
 
 
+def window_mask(side: int, win: int) -> np.ndarray:
+    """0/1 ``(side², side²)`` mask joining each cell of a ``side x side``
+    grid to the cells of its ``win x win`` window (clipped at the edges)."""
+    r, c = np.divmod(np.arange(side * side), side)
+    h = win // 2
+    near = ((np.abs(r[:, None] - r[None, :]) <= h)
+            & (np.abs(c[:, None] - c[None, :]) <= h))
+    return near.astype(np.float32)
+
+
+def vip_masked_graph(builder, side=VIP_SIDE, feat=VIP_FEAT, win=VIP_WIN):
+    """The masked VIP path: ``vip(mask=M)`` -> ``softmax(mask=M)`` -> MP
+    over that runtime affinity, on ``side²`` nodes of ``feat`` features,
+    M = ``window_mask(side, win)`` (defaults: b3-r50's spatial branch).
+    ``builder`` is a ``GraphBuilder`` class: the port's here, either
+    package's in the tests, which share this one definition."""
+    mask = window_mask(side, win)
+    b = builder("vip_masked")
+    x = b.input((side * side, feat), name="nodes")
+    aff = b.vip(x, mask=mask, name="aff")
+    aff = b.softmax(aff, axis=-1, mask=mask, name="aff_sm")
+    return b.output(b.mp(x, adj_input=aff, name="agg"))
+
+
 def task_plans(task):
     """-> (plan with the CUDA kernels bound, the same plan bound to the
     plain versions)."""
     from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.core.ir import GraphBuilder
     from repro_torch.gnncv.tasks import build_dynamic_task, build_task
-    build = build_dynamic_task if task == "b6-dyn" else build_task
-    return tuple(compile_graph(build(task), CompileOptions(kernels=mode))
+
+    def graph():
+        if task == "vip-masked":
+            return vip_masked_graph(GraphBuilder)
+        return (build_dynamic_task if task == "b6-dyn" else build_task)(task)
+
+    return tuple(compile_graph(graph(), CompileOptions(kernels=mode))
                  for mode in ("cuda", "torch"))
 
 
-def task_requests(task, plan) -> list[dict]:
+def task_requests(task, plan, plan_torch) -> list[dict]:
     """``REQUESTS`` requests from seeds 0..REQUESTS-1.  b6-dyn: standard
-    normal points and the padding mask; the others: the plan's random
-    inputs."""
+    normal points and the padding mask; b3 and vip-masked: the plan's
+    random inputs, scaled (``request_scale``); the others: the plan's
+    random inputs."""
     from repro_torch.core.executor import random_inputs
     if task != "b6-dyn":
-        return [random_inputs(plan, seed=s) for s in range(REQUESTS)]
+        reqs = [random_inputs(plan, seed=s) for s in range(REQUESTS)]
+        if task in SCALED_TASKS:
+            scale = np.float32(request_scale(task, plan, plan_torch,
+                                             reqs))
+            reqs = [{k: v * scale for k, v in r.items()} for r in reqs]
+        return reqs
     n, f = plan.meta["input_shapes"]["points"]
     return [dict(points=np.random.default_rng(s).standard_normal(
         (n, f)).astype(np.float32), mask=pad_mask(n))
         for s in range(REQUESTS)]
+
+
+def request_scale(task, plan, plan_torch, reqs) -> float:
+    """The power of two s that brings the largest VIP affinity over
+    ``reqs`` to at most ``AFFINITY_PEAK``.  Also prints what unscaled
+    requests show: the cuda plan against the torch plan, and, for the
+    request where they differ most, the torch plan on the card against
+    the same plan on the CPU."""
+    from repro_torch.core import build_runner
+    vips = [op.name for op in plan_torch.ops if op.kind == "sddmm"]
+    probe = build_runner(dataclasses.replace(plan_torch, outputs=vips),
+                         free_dead=False)
+    peak = max(a.abs().max().item() for r in reqs for a in probe(**r))
+    scale = 2.0 ** math.floor(0.5 * math.log2(AFFINITY_PEAK / peak))
+    run_cuda, run_torch = build_runner(plan), build_runner(plan_torch)
+    rels = [rel_err(run_cuda(**r)[0], run_torch(**r)[0])[1] for r in reqs]
+    worst = int(np.argmax(rels))
+    cpu = build_runner(plan_torch, device="cpu")(**reqs[worst])[0]
+    _, rel_cpu = rel_err(run_torch(**reqs[worst])[0].cpu(), cpu)
+    log(f"{task}: standard-normal requests give max|affinity| {peak:.3e} "
+        f"({', '.join(vips)}); unscaled, cuda vs torch plan rel up to "
+        f"{rels[worst]:.3e} (request {worst}), where the torch plan on the "
+        f"card vs on the CPU gives rel={rel_cpu:.3e}; requests scaled by "
+        f"2^{math.log2(scale):.0f}")
+    return scale
 
 
 def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
@@ -382,11 +601,16 @@ def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
     before, read just after.  Checks counts and outputs; returns the
     counts."""
     from repro_torch.core import build_runner
-    binding = [(op.kind, op.kernel) for op in plan.ops]
-    per_req = {"shift_conv2d": binding.count(("conv", "cuda_ddmm")),
-               "spdmm": binding.count(("mm", "cuda_ell_spdmm")),
-               "ddmm": binding.count(("mm", "cuda_ddmm")),
-               "knn": binding.count(("knn_graph", "cuda_knn"))}
+    per_req = dict.fromkeys(kernels, 0)
+    for op in plan.ops:
+        if op.kernel == "cuda_ddmm":
+            per_req["shift_conv2d" if op.kind == "conv" else "ddmm"] += 1
+        elif op.kernel == "cuda_ell_spdmm":
+            per_req["spdmm"] += 1
+        elif op.kernel == "cuda_knn":
+            per_req["knn"] += 1
+        elif op.kernel == "cuda_sddmm":     # unmasked: DDMM on x @ xᵀ
+            per_req["sddmm" if "mask" in op.weights else "ddmm"] += 1
     assert per_req == PER_REQUEST[task], (task, per_req)
     run_cuda = build_runner(plan)
     run_torch = build_runner(plan_torch)
@@ -500,10 +724,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, ddmm, knn, shift_conv2d, spdmm
+    from repro_torch.kernels import (_build, ddmm, knn, sddmm, shift_conv2d,
+                                     spdmm)
     from repro_torch.kernels.knn import MAX_K
+    from repro_torch.kernels.sddmm import BLOCK
     kernels = {"shift_conv2d": shift_conv2d, "spdmm": spdmm, "ddmm": ddmm,
-               "knn": knn}
+               "knn": knn, "sddmm": sddmm}
 
     # ---- phase 1: card, numerics, build ---------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -524,6 +750,8 @@ def main() -> int:
                 or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     assert lib.repro_knn_max_k() == MAX_K, "csrc/knn.cu and knn.py disagree"
+    assert lib.repro_sddmm_block() == BLOCK, \
+        "csrc/sddmm.cu and sddmm.py disagree"
 
     tasks = list(PER_REQUEST)
     plans = {task: task_plans(task) for task in tasks}
@@ -537,9 +765,10 @@ def main() -> int:
         for case in cases[task]:
             max_err[task][case.kernel] = max(max_err[task][case.kernel],
                                              check_case(case))
+        exact_checks(task, rng, dev)
 
     # ---- phase 3: serve each task's requests through the CUDA kernels ---
-    requests = {task: task_requests(task, plans[task][0]) for task in tasks}
+    requests = {task: task_requests(task, *plans[task]) for task in tasks}
     launches = {task: serve(task, *plans[task], requests[task], kernels)
                 for task in tasks}
 

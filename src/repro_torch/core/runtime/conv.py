@@ -2,7 +2,9 @@
 
 Port of the per-sample path of ``src/repro/core/runtime/conv.py``: a
 ``cuda_ddmm`` conv runs the shift-conv kernel (``kernels/shift_conv.py``),
-a ``torch_dense`` conv its plain version.  Bias, fused activation and fused
+a ``torch_dense`` conv its plain version.  The input is ``(c_in, H, W)`` or
+a ``(B, c_in, H, W)`` stack of images (b1's support and query set), which
+the kernel takes in one launch.  Bias, fused activation and fused
 residual ride the shared epilogue either way.
 """
 from __future__ import annotations
@@ -19,10 +21,6 @@ from repro_torch.kernels.shift_conv import shift_conv2d
 def run_conv(op: MatOp, env, params=None):
     kern = op_kernel(op)
     x = env[op.inputs[0]]
-    if x.ndim != 3:
-        raise NotImplementedError(
-            f"op {op.name!r}: batched conv input {tuple(x.shape)} is not "
-            f"ported yet (ROADMAP queue 1 item 4)")
     conv = shift_conv2d if kern == "cuda_ddmm" else ref.conv2d_ref
     out = conv(x.contiguous(), weight(op, "w", params),
                stride=op.attrs["stride"], padding=op.attrs["padding"],

@@ -1,13 +1,16 @@
-"""Matmul-family handlers: dense/sparse ``mm`` (and, not yet, ``sddmm``).
+"""Matmul-family handlers: dense/sparse ``mm`` and sampled ``sddmm``.
 
 Port of ``src/repro/core/runtime/matmul.py``.  ``mm`` sub-dispatches on
-``weight_side`` — where the compile-time operand sits — and then on the
-op's Step-4b kernel: ELL-family kernels run the SpDMM kernel or its plain
-twin, dense-family kernels the DDMM kernel or a plain matmul, and the
-gather sides (``left_coo``, ``left_knn``, bound to ``coo_scatter``) run
-torch indexing and segment reductions.  The sides ported so far are
-``right``, ``right_t`` (ST-GCN's (C,T,V) x Aᵀ), ``left``, ``left_coo``,
-``left_knn`` and ``both_runtime``.
+``weight_side`` — where the compile-time operand sits (right weight, left
+adjacency, runtime adjacency, COO scatter, KNN gather, runtime x runtime,
+and ST-GCN's (C,T,V) x Aᵀ) — and then on the op's Step-4b kernel:
+ELL-family kernels run the SpDMM kernel or its plain twin, dense-family
+kernels the DDMM kernel or a plain matmul, and the gather sides
+(``left_coo``, ``left_knn``, bound to ``coo_scatter``) run torch indexing
+and segment reductions.  ``sddmm`` (the VIP) runs per-edge COO scores in
+plain torch, a masked product through the SDDMM kernel or its plain twin,
+and an unmasked ``x @ xᵀ`` through the DDMM kernel or a plain matmul, as
+the reference runs it.
 """
 from __future__ import annotations
 
@@ -16,17 +19,12 @@ import torch
 from repro_torch.core.plan import ELL_KERNELS, MatOp
 from repro_torch.core.runtime.elementwise import (apply_epilogue,
                                                   segment_max, segment_sum)
-from repro_torch.core.runtime.registry import (not_ported, op_kernel,
-                                               register_op)
+from repro_torch.core.runtime.registry import op_kernel, register_op
 from repro_torch.core.runtime.residency import ell_pair, weight
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm
+from repro_torch.kernels.sddmm import sddmm
 from repro_torch.kernels.spdmm import spdmm
-
-_NOT_PORTED_SIDES = {
-    "left_runtime": "runtime-adjacency aggregation (ROADMAP queue 1 "
-                    "item 2: b1/b3)",
-}
 
 
 def _dense(kern: str, x2, y2):
@@ -63,9 +61,6 @@ def _coo_aggregate(op: MatOp, env, x, params):
 def run_mm(op: MatOp, env, params=None):
     kern = op_kernel(op)
     side = op.attrs["weight_side"]
-    if side in _NOT_PORTED_SIDES:
-        raise NotImplementedError(f"op {op.name!r}: mm side {side!r} — "
-                                  f"{_NOT_PORTED_SIDES[side]}")
     x = env[op.inputs[0]]
     if side == "right":
         x2 = x.reshape(-1, x.shape[-1])
@@ -95,6 +90,8 @@ def run_mm(op: MatOp, env, params=None):
             out = msg.mean(1)
         else:
             out = msg.sum(1)
+    elif side == "left_runtime":               # runtime (N, N) adjacency
+        out = _dense(kern, env[op.inputs[1]], x)
     elif side == "both_runtime":
         y = env[op.inputs[1]]
         y2 = y.reshape(y.shape[0], -1)
@@ -114,5 +111,20 @@ def run_mm(op: MatOp, env, params=None):
     return apply_epilogue(out, op, env, params)
 
 
-register_op("sddmm")(not_ported("sampled dense-dense products (VIP)",
-                                "ROADMAP queue 1 item 2, queue 2 item 4"))
+@register_op("sddmm")
+def run_sddmm(op: MatOp, env, params=None):
+    kern = op_kernel(op)
+    x = env[op.inputs[0]]
+    if kern == "coo_scatter":                  # per-edge inner products
+        rows = weight(op, "coo_rows", params).long()
+        cols = weight(op, "coo_cols", params).long()
+        return (x[rows] * x[cols]).sum(-1)
+    if "mask" in op.weights:
+        mask = weight(op, "mask", params).float()
+        if kern == "cuda_sddmm":
+            x = x.contiguous()
+            return sddmm(x, x.T, mask.contiguous())
+        return ref.sddmm_ref(x, x.T, mask)
+    if kern == "cuda_sddmm":                   # the reference's DDMM path
+        return ddmm(x.contiguous(), x.T.contiguous())
+    return x @ x.T

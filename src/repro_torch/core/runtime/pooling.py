@@ -1,11 +1,40 @@
 """Pooling-family handlers.  Port of ``src/repro/core/runtime/pooling.py``:
-``globalpool`` only so far; windowed ``pool2d`` and the ELL ``maxagg``
-come with the slices that run them.
+windowed ``pool2d`` and ``globalpool``; the ELL ``maxagg`` comes with the
+slice that runs it.
+
+Both ported kinds have one plain-torch realization (Step 4b records them as
+``torch_ew``).  Windows and strides may be scalars or ``(kh, kw)`` pairs.
 """
 from __future__ import annotations
 
+import torch.nn.functional as F
+
 from repro_torch.core.plan import MatOp
 from repro_torch.core.runtime.registry import not_ported, register_op
+from repro_torch.kernels import ref
+
+
+@register_op("pool2d")
+def run_pool2d(op: MatOp, env, params=None):
+    """Max or average pooling over the last two axes, any leading axes.
+
+    SAME padding as ``lax.reduce_window`` pads it: the TF split
+    (``before = total // 2``), so a 3x3/2 pool on 112x112 pads (0, 1) —
+    ``F.max_pool2d(padding=1)`` would pad (1, 1).  The pad is explicit:
+    ``-inf`` for max; zeros for average, which divides by ``k1·k2``
+    counting the padded zeros, as the reference does."""
+    x = env[op.inputs[0]]
+    k1, k2 = ref.pair(op.attrs["window"])
+    s1, s2 = ref.pair(op.attrs["stride"])
+    h, w = x.shape[-2:]
+    _, _, pt, pb, pl, pr = ref.conv_geometry(
+        h, w, k1, k2, stride=(s1, s2), padding="SAME", dilation=(1, 1))
+    is_max = op.attrs["pool"] == "max"
+    xp = F.pad(x.reshape(-1, h, w), (pl, pr, pt, pb),
+               value=float("-inf") if is_max else 0.0)
+    pool = F.max_pool2d if is_max else F.avg_pool2d
+    out = pool(xp, (k1, k2), (s1, s2))
+    return out.reshape(*x.shape[:-2], *out.shape[-2:])
 
 
 @register_op("globalpool")
@@ -18,7 +47,5 @@ def run_globalpool(op: MatOp, env, params=None):
     return x.amax(axes) if op.attrs["pool"] == "max" else x.mean(axes)
 
 
-register_op("pool2d")(not_ported("windowed pool2d",
-                                 "ROADMAP queue 1 item 2: b1"))
 register_op("maxagg")(not_ported("ELL max-aggregation",
                                  "ROADMAP queue 1 item 2"))

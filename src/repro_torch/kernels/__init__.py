@@ -6,7 +6,8 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
   ddmm.py        ddmm          <- kernels/ddmm.py (Pallas)
   spdmm.py       spdmm         <- kernels/spdmm.py (Pallas)
   knn.py         knn           <- kernels/knn.py (Pallas)
-  ref.py         plain-PyTorch versions of all four
+  sddmm.py       sddmm         <- kernels/sddmm.py (Pallas)
+  ref.py         plain-PyTorch versions of all five
   _build.py      nvcc build of csrc/*.cu into one ctypes-loaded library
   csrc/          the CUDA sources
 
@@ -15,5 +16,6 @@ for CUDA tensors (or raises), and counts its launches in ``<fn>.launches``.
 """
 from repro_torch.kernels.ddmm import ddmm                  # noqa: F401
 from repro_torch.kernels.knn import knn                    # noqa: F401
+from repro_torch.kernels.sddmm import sddmm                # noqa: F401
 from repro_torch.kernels.shift_conv import shift_conv2d    # noqa: F401
 from repro_torch.kernels.spdmm import spdmm                # noqa: F401

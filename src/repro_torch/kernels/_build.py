@@ -29,15 +29,18 @@ GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported launcher: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int.
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int,
+# strides as c_longlong.
 SIGNATURES = {
-    "repro_shift_conv2d": [_P, _P, _P] + [_I] * 15 + [_P],
+    "repro_shift_conv2d": [_P, _P, _P] + [_I] * 16 + [_P],
     "repro_ddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ell_spdmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_knn_max_k": [],
+    "repro_sddmm": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    "repro_sddmm_block": [],
 }
 
 _LIB: ctypes.CDLL | None = None

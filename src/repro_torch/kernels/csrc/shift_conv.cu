@@ -1,4 +1,4 @@
-// Shift-conv: 2-D correlation of one (c_in, H, W) image with a
+// Shift-conv: 2-D correlation of a batch of (c_in, H, W) images with a
 // (k1, k2, c_in/groups, c_out) weight as an implicit GEMM, fp32 accumulation.
 //
 // Replaces the TPU kernel src/repro/kernels/shift_conv.py (shift_conv2d /
@@ -22,8 +22,12 @@
 // on b4's two stride-(2,1) convs.  A block of 256 threads owns a 64
 // (out channels) x 64 (output pixels) tile, stages a 16-deep W tile and
 // gathered X tile through shared memory per K step, and keeps a 4x4
-// accumulator per thread.  Groups run as grid.z; dilation only scales the
-// tap offsets.  The ragged W = 25 plane and every partial tile are masked.
+// accumulator per thread.  grid.z runs batch x groups (z = b * groups + g),
+// so a batch of images is one launch (the TPU kernel is vmapped over the
+// batch); each block walks K in the same order whatever its image, so an
+// image's output is the same bit for bit in a batch as alone.  Dilation only
+// scales the tap offsets.  The ragged W = 25 plane and every partial tile
+// are masked.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,7 +36,8 @@ constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
 
 struct ConvArgs {
-  int cin_g, H, W, k2, cout, og, ho, wo, sh, sw, dh, dw, pad_t, pad_l, ktot;
+  int cin_g, H, W, k2, cout, og, ho, wo, sh, sw, dh, dw, pad_t, pad_l, ktot,
+      groups;
 };
 
 __global__ void __launch_bounds__(THREADS)
@@ -42,11 +47,12 @@ shift_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ float xs[BK][BN];
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int g = blockIdx.z;
+  const int img = blockIdx.z / a.groups, g = blockIdx.z % a.groups;
   const int co0 = blockIdx.y * BM;           // within the group
   const int p0 = blockIdx.x * BN;
   const int npix = a.ho * a.wo;
-  const float* xg = x + (size_t)g * a.cin_g * a.H * a.W;
+  const float* xg = x + ((size_t)img * a.groups + g) * a.cin_g * a.H * a.W;
+  out += (size_t)img * a.cout * npix;
 
   // Each thread always loads the same tile column (THREADS % 64 == 0), so
   // its output pixel and its output channel are fixed for the whole K loop.
@@ -114,11 +120,12 @@ shift_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
-// x: (cin, H, W); w: (k1, k2, cin/groups, cout); out: (cout, ho, wo).
-// The wrapper computes ho, wo and the SAME split (pad_t, pad_l).
+// x: (batch, cin, H, W); w: (k1, k2, cin/groups, cout); out: (batch, cout,
+// ho, wo).  The wrapper computes ho, wo and the SAME split (pad_t, pad_l).
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_shift_conv2d(const float* x, const float* w, float* out,
-                                  int cin, int H, int W, int k1, int k2,
+                                  int batch, int cin, int H, int W, int k1,
+                                  int k2,
                                   int cout, int groups, int ho, int wo,
                                   int sh, int sw, int dh, int dw, int pad_t,
                                   int pad_l, void* stream) {
@@ -138,9 +145,10 @@ extern "C" int repro_shift_conv2d(const float* x, const float* w, float* out,
   a.pad_t = pad_t;
   a.pad_l = pad_l;
   a.ktot = k1 * k2 * a.cin_g;
+  a.groups = groups;
   const int npix = ho * wo;
-  if (npix == 0 || a.og == 0) return 0;
-  const dim3 grid((npix + BN - 1) / BN, (a.og + BM - 1) / BM, groups);
+  if (npix == 0 || a.og == 0 || batch == 0) return 0;
+  const dim3 grid((npix + BN - 1) / BN, (a.og + BM - 1) / BM, batch * groups);
   shift_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x, w, out, a);
   return static_cast<int>(cudaGetLastError());

@@ -1,10 +1,11 @@
 """Plain-PyTorch versions of the port's kernels — port of
-``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``conv2d_ref``).
+``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``sddmm_ref``,
+``conv2d_ref``).
 
 Each ``*_ref`` computes what its hand-written CUDA kernel computes, in the
 reference's layouts, with ordinary torch ops:
 
-  * conv activations ``(c_in, H, W)``, conv weights
+  * conv activations ``(c_in, H, W)`` or ``(B, c_in, H, W)``, conv weights
     ``(k1, k2, c_in / groups, c_out)``;
   * ELL ``(S1, L)`` index/value arrays with ``val == 0`` in padding slots;
   * KNN points ``(N, F)``, int32 ``(N, k)`` neighbor indices.
@@ -71,14 +72,21 @@ def spdmm_ref(idx, val, y):
     return (rows * val[..., None]).sum(1)
 
 
+def sddmm_ref(x, y, mask):
+    """``mask ⊙ (x @ y)`` in fp32; x ``(M, K)``, y ``(K, N)``, mask
+    ``(M, N)``."""
+    return (x.float() @ y.float()) * mask.float()
+
+
 def conv2d_ref(x, w, *, stride=1, padding="SAME", groups=1,
                dilation=(1, 1)):
-    """x: ``(c_in, H, W)``, w: ``(k1, k2, c_in_per_group, c_out)`` ->
-    ``(c_out, H', W')``.  ``groups`` splits channels into independent
-    convolutions (group-major output channels), ``dilation`` spaces the
-    taps."""
+    """x: ``(c_in, H, W)`` or ``(B, c_in, H, W)``, w: ``(k1, k2,
+    c_in_per_group, c_out)`` -> ``(c_out, H', W')`` or ``(B, c_out, H',
+    W')``.  ``groups`` splits channels into independent convolutions
+    (group-major output channels), ``dilation`` spaces the taps."""
     k1, k2, cin, cout = w.shape
-    _, h, wd = x.shape
+    h, wd = x.shape[-2:]
+    lead = x.shape[:-3]
     sh, sw = pair(stride)
     dh, dw = pair(dilation)
     ho, wo, pt, pb, pl, pr = conv_geometry(h, wd, k1, k2, stride=stride,
@@ -88,14 +96,15 @@ def conv2d_ref(x, w, *, stride=1, padding="SAME", groups=1,
     og = cout // groups
     outs = []
     for g in range(groups):
-        xg = xp[g * cin:(g + 1) * cin]
-        taps = [xg[:, dy * dh:dy * dh + (ho - 1) * sh + 1:sh,
+        xg = xp[..., g * cin:(g + 1) * cin, :, :]
+        taps = [xg[..., dy * dh:dy * dh + (ho - 1) * sh + 1:sh,
                    dx * dw:dx * dw + (wo - 1) * sw + 1:sw]
-                for dy in range(k1) for dx in range(k2)]  # (cin, ho, wo)
-        patches = torch.stack(taps, 0).reshape(k1 * k2 * cin, ho * wo)
+                for dy in range(k1) for dx in range(k2)]  # (.., cin, ho, wo)
+        patches = torch.stack(taps, -4).reshape(*lead, k1 * k2 * cin,
+                                                ho * wo)
         wm = w[..., g * og:(g + 1) * og].reshape(k1 * k2 * cin, og)
-        outs.append((wm.T @ patches).reshape(og, ho, wo))
-    return outs[0] if groups == 1 else torch.cat(outs, 0)
+        outs.append((wm.T @ patches).reshape(*lead, og, ho, wo))
+    return outs[0] if groups == 1 else torch.cat(outs, -3)
 
 
 def knn_ref(x, k, mask=None, self_loops=False):

@@ -5,7 +5,8 @@ For b1-b6, small and full configs, ``target="fpga"``: the port's plan under
 ``"cuda"`` the reference's ``"pallas"``, once kernel names are mapped per
 family (``xla_*`` <-> ``torch_*``, ``pallas_*`` <-> ``cuda_*``): the same op
 names, kinds, primitives, attrs, shapes, liveness, tiles and cycles, with
-weights and ELL arrays identical bit for bit.  Also pins the port's
+weights and ELL arrays identical bit for bit.  The same holds for the masked
+VIP graph, whose mask is carried bit for bit.  Also pins the port's
 independence: importing it loads neither ``jax`` nor ``repro``.
 """
 import pathlib
@@ -20,13 +21,16 @@ import torch
 from repro import obs as robs
 from repro.core import CompileOptions as RefOptions
 from repro.core import compile_graph as ref_compile
+from repro.core.ir import GraphBuilder as RefBuilder
 from repro.core.plan import KERNELS as REF_KERNELS
 from repro.gnncv.tasks import build_task as ref_build_task
 from repro_torch import obs
 from repro_torch.core import CompileOptions, compile_graph
+from repro_torch.core.ir import GraphBuilder
 from repro_torch.core.passes import select_kernels
 from repro_torch.core.plan import KERNELS
 from repro_torch.gnncv.tasks import build_task
+from test_torch_cuda import vip_masked_graph, window_mask
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TASKS = ["b1", "b2", "b3-r50", "b3-r101", "b4", "b5", "b6"]
@@ -97,6 +101,19 @@ def test_plan_parity(task, small, ref_mode, port_mode):
     port = compile_graph(build_task(task, small=small),
                          CompileOptions(target="fpga", kernels=port_mode))
     assert_same_plan(port, ref)
+
+
+@pytest.mark.parametrize("ref_mode,port_mode", MODES)
+def test_vip_masked_plan_parity(ref_mode, port_mode):
+    ref = ref_compile(vip_masked_graph(RefBuilder),
+                      RefOptions(target="fpga", kernels=ref_mode))
+    port = compile_graph(vip_masked_graph(GraphBuilder),
+                         CompileOptions(target="fpga", kernels=port_mode))
+    assert_same_plan(port, ref)
+    vip = port.ops[0]
+    assert (vip.kind, vip.kernel) == ("sddmm", f"{port_mode}_sddmm")
+    assert vip.weights["mask"].tobytes() == window_mask(14, 5).tobytes()
+    assert vip.attrs["nnz"] == 4096
 
 
 def test_lattice_maps_one_to_one():

@@ -5,11 +5,19 @@ tests/test_torch_cuda.py``.  The file imports no JAX (the GPU machine has
 none); it also holds the shapes and input makers the CPU parity tests in
 ``tests/test_torch_kernels.py`` share.
 
+The masked-VIP graph is ``chip_smoke.vip_masked_graph``: the tests build
+the same graph the smoke run times.
+
 Tolerance: ``max|Δ| <= 1e-5 · max|plain|`` — fp32 accumulation in another
 order; TF32 is switched off for the plain versions.  KNN indices must be
-equal exactly: the kernel repeats the plain version's fp32 arithmetic.
-Requests end to end: ``1e-4 · max|plain plan|``.
+equal exactly: the kernel repeats the plain version's fp32 arithmetic; so
+must a batched shift-conv and its per-image calls (same arithmetic order),
+and SDDMM's dead tiles must be exactly 0.  Requests end to end:
+``1e-4 · max|plain plan|``.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +25,12 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm
 from repro_torch.kernels.knn import MAX_K, knn
+from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
 from repro_torch.kernels.shift_conv import shift_conv2d
 from repro_torch.kernels.spdmm import spdmm
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import vip_masked_graph, window_mask  # noqa: E402,F401
 
 RTOL = 1e-5
 DDMM_SHAPES = [(1, 256, 60), (33, 257, 129), (100, 70, 130), (64, 64, 64)]
@@ -46,6 +58,13 @@ KNN_CASES = [
     (70, 5, MAX_K, 30, False, False),
     (33, 40, 7, 5, False, True),
 ]
+
+
+# (M, K, N, mask density): the reference's three shapes (tests/
+# test_kernels.py), the masked VIP's, ragged edges, density 1 and 0
+SDDMM_SHAPES = [(128, 64, 128, 0.2), (256, 128, 256, 0.05),
+                (100, 50, 70, 0.4), (196, 512, 196, 0.1),
+                (33, 17, 65, 0.3), (37, 1, 31, 1.0), (64, 40, 96, 0.0)]
 
 
 def close(got, want, rtol=RTOL):
@@ -135,6 +154,14 @@ def test_cuda_shift_conv_matches_plain(cuda, case):
     close(got.cpu(), ref.conv2d_ref(x, wt, **kw).cpu())
 
 
+def sddmm_inputs(m, k, n, density, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((m, k)).astype(f),
+            rng.standard_normal((k, n)).astype(f),
+            (rng.random((m, n)) < density).astype(f))
+
+
 def knn_inputs(n, f, masked, ints, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.integers(-4, 5, (n, f)) if ints else rng.standard_normal((n, f))
@@ -185,6 +212,64 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,density", SDDMM_SHAPES)
+def test_cuda_sddmm_matches_plain(cuda, m, k, n, density):
+    x, y, mask = (t(a).to(cuda) for a in sddmm_inputs(m, k, n, density))
+    before = sddmm.launches
+    got = sddmm(x, y, mask)
+    got_t = sddmm(x, y.T.contiguous().T, mask)       # y as a strided view
+    torch.cuda.synchronize()
+    assert sddmm.launches == before + 2
+    want = ref.sddmm_ref(x, y, mask)
+    close(got.cpu(), want.cpu())
+    assert torch.equal(got, got_t)
+    assert (got[mask == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_dead_tiles_are_exactly_zero(cuda):
+    x, y, _ = (t(a).to(cuda) for a in sddmm_inputs(256, 64, 256, 0.0))
+    mask = torch.zeros((256, 256), device=cuda)
+    mask[:128, :128] = 1.0
+    got = sddmm(x, y, mask)
+    torch.cuda.synchronize()
+    assert live_tiles(mask).sum().item() == (128 // BLOCK) ** 2
+    assert (got[128:] == 0).all() and (got[:, 128:] == 0).all()
+    close(got.cpu(), ref.sddmm_ref(x, y, mask).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_tile_matches_the_kernel(cuda):
+    from repro_torch.kernels import _build
+    assert _build.library().repro_sddmm_block() == BLOCK
+    with pytest.raises(TypeError):
+        sddmm(torch.zeros((4, 5), device=cuda), torch.zeros((5, 6),
+                                                             device=cuda),
+              torch.zeros((4, 6), device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (26, 1, 28, 28, 3, 3, 64, 1, "SAME", 1, (1, 1)),
+    (26, 64, 7, 7, 3, 3, 64, 1, "SAME", 1, (1, 1)),
+    (3, 8, 15, 25, 3, 2, 8, (2, 1), "VALID", 4, (1, 2))], ids=str)
+def test_cuda_batched_shift_conv_equals_per_image_calls(cuda, case):
+    b, cin, h, w, k1, k2, cout, stride, padding, groups, dil = case
+    rng = np.random.default_rng(b)
+    x = t(rng.standard_normal((b, cin, h, w)).astype(np.float32)).to(cuda)
+    wt = t(rng.standard_normal((k1, k2, cin // groups, cout))
+           .astype(np.float32)).to(cuda)
+    kw = dict(stride=stride, padding=padding, groups=groups, dilation=dil)
+    before = shift_conv2d.launches
+    got = shift_conv2d(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert shift_conv2d.launches == before + 1
+    each = torch.stack([shift_conv2d(x[i], wt, **kw) for i in range(b)])
+    assert torch.equal(got, each)
+    close(got.cpu(), ref.conv2d_ref(x, wt, **kw).cpu())
+
+
+@pytest.mark.cuda
 def test_cuda_b4_request_runs_through_the_kernels(cuda):
     from repro_torch.core import CompileOptions, build_runner, compile_graph
     from repro_torch.core.executor import random_inputs
@@ -207,21 +292,41 @@ def dyn_request(n, seed, pad=64):
         (n, 3)).astype(np.float32), mask=mask)
 
 
+# the masked VIP's standard-normal 512-feature nodes have self-affinities
+# near 512 against neighbours' ±23: scaled by 2^-4, as chip_smoke.py scales
+# them, the masked softmax mixes each window instead of picking the diagonal
+VIP_SCALE = np.float32(2.0 ** -4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("task,counts", [
-    ("b6-dyn", (0, 0, 6, 1)), ("b6", (0, 0, 6, 0)), ("b5", (2, 0, 3, 0))])
+    ("b6-dyn", (0, 0, 6, 1, 0)), ("b6", (0, 0, 6, 0, 0)),
+    ("b5", (2, 0, 3, 0, 0)), ("b1", (4, 0, 11, 0, 0)),
+    ("vip-masked", (0, 0, 1, 0, 1))])
 def test_cuda_request_runs_through_the_kernels(cuda, task, counts):
     from repro_torch.core import CompileOptions, build_runner, compile_graph
     from repro_torch.core.executor import random_inputs
+    from repro_torch.core.ir import GraphBuilder
     from repro_torch.gnncv.tasks import build_dynamic_task, build_task
-    build = build_dynamic_task if task == "b6-dyn" else build_task
-    plan = compile_graph(build(task), CompileOptions(kernels="cuda"))
-    plain = compile_graph(build(task), CompileOptions(kernels="torch"))
+
+    def graph():
+        if task == "vip-masked":
+            return vip_masked_graph(GraphBuilder)
+        return (build_dynamic_task if task == "b6-dyn" else build_task)(task)
+
+    plan = compile_graph(graph(), CompileOptions(kernels="cuda"))
+    plain = compile_graph(graph(), CompileOptions(kernels="torch"))
     inputs = (dyn_request(1024, seed=0) if task == "b6-dyn"
               else random_inputs(plan, seed=0))
-    fns = (shift_conv2d, spdmm, ddmm, knn)
+    if task == "vip-masked":
+        inputs = {"nodes": inputs["nodes"] * VIP_SCALE}
+    fns = (shift_conv2d, spdmm, ddmm, knn, sddmm)
     before = [fn.launches for fn in fns]
     got = build_runner(plan)(**inputs)[0]
     torch.cuda.synchronize()
     assert tuple(fn.launches - b for fn, b in zip(fns, before)) == counts
+    if task == "vip-masked":                   # the softmax mixes neighbours
+        nodes = inputs["nodes"]
+        assert np.abs(got.cpu().numpy() - nodes).max() > \
+            0.1 * np.abs(nodes).max()
     close(got.cpu(), build_runner(plain)(**inputs)[0].cpu(), rtol=1e-4)

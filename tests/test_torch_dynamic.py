@@ -224,7 +224,8 @@ def test_knn_graph_handler_reads_mask_and_self_loops():
 # ------------------------------------------------ handlers one by one ---
 def both(kind, inputs, weights, attrs, out_shape=(), kernel="torch_ew"):
     """The same op for both packages: (port MatOp, reference MatOp)."""
-    ref_kernel = {"torch_ew": "xla_ew"}.get(kernel, kernel)
+    ref_kernel = {"torch_ew": "xla_ew", "torch_dense": "xla_dense",
+                  "cuda_ddmm": "pallas_ddmm"}.get(kernel, kernel)
     return (MatOp("op", kind, inputs, dict(weights), dict(attrs), out_shape,
                   kernel=kernel),
             RefOp("op", kind, inputs, dict(weights), dict(attrs), out_shape,
@@ -368,9 +369,16 @@ def test_left_knn_matches_reference(reduce):
     close(got, want, rtol=HANDLER_RTOL)
 
 
-def test_runtime_adjacency_side_still_raises():
+def test_left_runtime_matches_reference():
+    """The ``left_runtime`` side (b1's and b3's runtime affinity MP)
+    matches the reference handler, with b1's fused relu, in both
+    realizations."""
     plan = compile_graph(build_task("b1", small=True))
     op = next(o for o in plan.ops
               if o.attrs.get("weight_side") == "left_runtime")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_op(op, {name: torch.zeros(1) for name in op.inputs})
+    x, adj = arr(26, 32, seed=15), arr(26, 26, seed=16)
+    for kernel in ("torch_dense", "cuda_ddmm"):
+        got, want = run_both(ref_matmul.run_mm, "mm", dict(x=x, adj=adj),
+                             {}, op.attrs, op.out_shape, kernel=kernel)
+        assert got.shape == (26, 32)
+        close(got, want, rtol=HANDLER_RTOL)

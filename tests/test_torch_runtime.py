@@ -5,8 +5,10 @@ runs its plain version: the port's output must match the reference's
 ``build_runner(plan)`` under ``kernels="xla"`` and ``kernels="pallas"``
 (interpret mode) within ``max|Δ| <= 1e-5 · max|ref|`` — reference drift
 on this tree is ~1e-6 relative.  Also: parameters carried across with
-``load_weights``, the no-CUDA guard, and the loud failure of kinds not
-ported yet (b1-b3; b5, b6 and b6-dyn are in ``test_torch_dynamic.py``).
+``load_weights`` (the ELL pair and a masked VIP's mask), the no-CUDA
+guard, and the loud failure of the kind not ported yet (``maxagg``).  b5,
+b6 and b6-dyn are in ``test_torch_dynamic.py``; b1-b3 and the VIP graphs in
+``test_torch_cnn.py``.
 """
 import numpy as np
 import pytest
@@ -16,14 +18,17 @@ from repro.core import CompileOptions as RefOptions
 from repro.core import build_runner as ref_build_runner
 from repro.core import compile_graph as ref_compile
 from repro.core.executor import random_inputs as ref_random_inputs
+from repro.core.ir import GraphBuilder as RefBuilder
 from repro.gnncv.tasks import build_task as ref_build_task
 from repro_torch.core import CompileOptions, build_runner, compile_graph
 from repro_torch.core.executor import random_inputs
+from repro_torch.core.ir import GraphBuilder
 from repro_torch.core.plan import MATOP_KINDS
 from repro_torch.core.runtime import registered_kinds, run_op
 from repro_torch.core.runtime.residency import ELL_IDX, ELL_VAL
 from repro_torch.core.weights import load_weights
 from repro_torch.gnncv.tasks import build_task
+from test_torch_cuda import vip_masked_graph, window_mask
 
 RTOL = 1e-5
 
@@ -116,6 +121,24 @@ def test_load_weights_carries_reference_parameters():
     close(port_outputs(plan, inputs)[0], want)
 
 
+def test_load_weights_carries_a_masked_vip_mask():
+    kw = dict(side=6, feat=8)
+    ref = ref_compile(vip_masked_graph(RefBuilder, win=3, **kw),
+                      RefOptions(target="fpga", kernels="xla"))
+    plan = compile_graph(vip_masked_graph(GraphBuilder, win=5, **kw))
+    inputs = ref_random_inputs(ref, seed=0)
+    want = ref_outputs(ref, inputs)[0]
+    assert np.abs(port_outputs(plan, inputs)[0] - want).max() > 1e-3
+    arrays = exported(ref)
+    assert set(arrays) == {"aff", "aff_sm"}
+    assert all(set(slots) == {"mask"} for slots in arrays.values())
+    load_weights(plan, arrays)
+    for op in plan.ops[:2]:
+        assert op.weights["mask"].tobytes() == \
+            window_mask(6, 3).tobytes()
+    close(port_outputs(plan, inputs)[0], want)
+
+
 def test_load_weights_rejects_mismatches():
     plan = compile_graph(build_task("b4", small=True))
     with pytest.raises(KeyError):
@@ -156,9 +179,13 @@ def test_registry_covers_lowering_vocabulary():
     assert registered_kinds() == MATOP_KINDS
 
 
-@pytest.mark.parametrize("task", ["b1", "b2", "b3-r50"])
-def test_out_of_slice_kinds_raise(task):
-    plan = compile_graph(build_task(task, small=True))
+def test_maxagg_is_not_ported_and_says_so():
+    """Dense-adjacency max aggregation (``maxagg``) is the one kind left."""
+    b = GraphBuilder("maxagg")
+    x = b.input((6, 4), name="nodes")
+    plan = compile_graph(b.output(b.mp(x, adj=np.eye(6, dtype=np.float32),
+                                       reduce="max")))
+    assert [op.kind for op in plan.ops] == ["maxagg"]
     run = build_runner(plan, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(**random_inputs(plan, seed=0))
