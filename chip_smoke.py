@@ -6,13 +6,17 @@ Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
 full-width paths give it (b4 ST-GCN, b6-dyn dynamic point cloud, b6 point
 cloud, b5 SAR, b1 few-shot, b2 ML-GCN, b3 DualGCN on ResNet-50 and -101,
-and the masked VIP at b3's spatial width), serves 8 requests of each path
-through its compiled plan with the CUDA kernels bound, checks the launch
-counts and the outputs against the same plan bound to the plain versions
-(on the card and, for one request, on the CPU), and times kernels and
-requests.  Every number printed is measured in this run.  The last line is
-the JSON result; any failure exits nonzero before it.  Imports the port
-only (``repro_torch``), never JAX.
+and the masked VIP at b3's spatial width) and the LM path (qwen3-0.6b's
+served prefills, a 2048-token prefill, and flash attention's edge cases in
+fp32 and bf16), serves 8 requests of each GNN-CV path through its compiled
+plan with the CUDA kernels bound, checks the launch counts and the outputs
+against the same plan bound to the plain versions (on the card and, for
+one request, on the CPU), serves 16 requests of qwen3-0.6b at full width
+through ``repro_torch.launch.serve`` and checks its tokens against the
+plain attention path, and times kernels, requests and tokens.  Every
+number printed is measured in this run.  The last line is the JSON result;
+any failure exits nonzero before it.  Imports the port only
+(``repro_torch``), never JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # kernels (and their plain versions, with TF32 off) run on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# the bf16 tensor-core peak: the least time for bf16 attention's products
+BF16_FLOPS = 989e12
 
 # Tolerances.  The kernels accumulate in fp32 in another order than the
 # plain versions (cuBLAS / torch reductions): the rounding error of a
@@ -49,6 +55,11 @@ FP32_FLOPS = 67e12
 # kernel repeats the plain version's fp32 arithmetic.
 KERNEL_RTOL = 1e-5
 E2E_RTOL = 1e-4
+# Flash attention in bf16: kernel and plain version both compute in fp32
+# from the same bf16 inputs and round the result once to bf16, so an
+# element may differ by one bf16 ulp (2^-8 of itself) where the two fp32
+# sums straddle a rounding boundary: within 2^-7 of max|plain|.
+FLASH_BF16_RTOL = 2.0 ** -7
 REQUESTS = 8
 # b6-dyn requests: a 960-point cloud padded to a 1024-point bucket, as
 # graph-bucketed serving sends it.
@@ -91,6 +102,28 @@ PER_REQUEST = {
     "vip-masked": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 1, "knn": 0,
                    "sddmm": 1},
 }
+# The LM path: qwen3-0.6b at full width (28 layers, 16 query and 8 kv heads
+# of 128), random weights from seed 0, the launcher's defaults: 16 requests
+# with prompt lengths in [8, 48) from seed 0 (buckets of 16, 32 and 48),
+# 32 new tokens each, 8 slots, 256 positions, greedy.  One prefill per
+# request launches the flash kernel once per layer.  Then one prefill of a
+# 2048-token prompt.
+LM_ARCH = "qwen3-0.6b"
+LM_REQUESTS, LM_MAX_NEW, LM_SLOTS, LM_MAX_LEN = 16, 32, 8, 256
+LM_PROMPT_LEN = (8, 48)
+LONG_PROMPT = 2048
+# bf16 end to end: the kernel path and the plain path (``impl="naive"``)
+# differ by one bf16 rounding of some attention outputs per layer, carried
+# through 28 layers of bf16 arithmetic.  Prefill logits of the two paths
+# must agree within PREFILL_RTOL of max|logits|.  Greedy tokens may then
+# part where two logits lie closer than that, so each token the engine
+# emits must hold a plain-path logit (teacher-forced over the prompt and
+# the engine's own tokens) within MARGIN_RTOL of max|logits| of that
+# position's maximum: twice the prefill bound, one for each path's error.
+PREFILL_RTOL = 2e-2
+MARGIN_RTOL = 4e-2
+# The same weights cast to fp32: the two paths then differ only by the
+# order of fp32 sums, so their prefill logits must agree within E2E_RTOL.
 SOURCES = {
     "shift_conv2d": ("src/repro_torch/kernels/csrc/shift_conv.cu",
                      "src/repro/kernels/shift_conv.py:78"),
@@ -102,6 +135,8 @@ SOURCES = {
             "src/repro/kernels/knn.py:128"),
     "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
               "src/repro/kernels/sddmm.py:81"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:108"),
 }
 
 
@@ -130,9 +165,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             rate: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -140,8 +176,10 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 class Case:
     """One kernel call at one shape: the kernel, its plain version, an
     optional one-call library yardstick, the bytes and operations the call
-    needs, how many times one request of the task makes it, and whether
-    the result must equal the plain version's exactly (integer indices)."""
+    needs and the peak rate of those operations, how many times one
+    request of the path makes it (on average), whether the result must
+    equal the plain version's exactly (integer indices), and the
+    tolerance otherwise."""
     kernel: str
     label: str
     run: Callable
@@ -149,8 +187,10 @@ class Case:
     library: Callable | None
     nbytes: float
     flops: float
-    per_request: int
+    per_request: float
     exact: bool = False
+    rtol: float = KERNEL_RTOL
+    rate: float = FP32_FLOPS
 
 
 def mm_operands(op, xin, shapes, rng):
@@ -458,33 +498,58 @@ def check_case(case: Case) -> float:
         assert not bad, f"{case.label}: kernel indices differ"
         return 0.0
     assert torch.isfinite(got).all(), case.label
+    got, want = got.float(), want.float()
     err, rel = rel_err(got, want)
-    ok = rel <= KERNEL_RTOL
+    ok = rel <= case.rtol
     msg = f"check {case.label}: max|d|={err:.3e} rel={rel:.3e}"
     if case.library is not None:
         lib = case.library()
-        _, lrel = rel_err(lib if lib.layout == torch.strided
-                          else lib.to_dense(), want)
+        _, lrel = rel_err((lib if lib.layout == torch.strided
+                           else lib.to_dense()).float(), want)
         msg += f" (library rel={lrel:.3e})"
     log(msg + ("" if ok else "  FAIL"))
     assert ok, f"{case.label}: kernel disagrees with its plain version"
     return err
 
 
-def profile_requests(run, requests, card, task) -> None:
-    """Device time by kernel name over the requests (``torch.profiler``),
-    and the share of the profiled window in which no kernel ran."""
+def device_events(fn, n: int) -> list:
+    """The device kernels of ``n`` calls of ``fn`` under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for req in requests:
-            run(**req)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, name: str, n: int = 20) -> float | None:
+    """Mean device time of the kernels whose name holds ``name`` per call
+    of ``fn``, over ``n`` profiled calls (None if none was recorded)."""
+    fn()
+    events = [e for e in device_events(fn, n) if name in e.name]
+    if not events:
+        return None
+    return sum(e.time_range.end - e.time_range.start
+               for e in events) / n / 1e3
+
+
+def profile_requests(run, requests, card, task) -> None:
+    """Device time by kernel name over the requests (``torch.profiler``),
+    and the share of the profiled window in which no kernel ran."""
+    it = iter(requests)
+    profile_window(lambda: run(**next(it)), len(requests),
+                   f"{task} requests", "request", card)
+
+
+def profile_window(fn, n: int, what: str, per: str, card: str) -> None:
+    """Profile ``n`` calls of ``fn``: device kernels and busy time per
+    call, the idle share of the device window, the largest kernels."""
+    kernels = device_events(fn, n)
     if not kernels:
-        log("profile: no device events recorded (device breakdown not "
-            "measured)")
+        log(f"profile of {what}: no device events recorded (device "
+            "breakdown not measured)")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -496,10 +561,9 @@ def profile_requests(run, requests, card, task) -> None:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    n = len(requests)
-    log(f"profile over {n} {task} requests (under the profiler): "
-        f"{len(kernels) / n:.1f} device kernels/request, device busy "
-        f"{busy / n / 1e3:.4f} ms/request, idle share of the device window "
+    log(f"profile over {n} {what} (under the profiler): "
+        f"{len(kernels) / n:.1f} device kernels/{per}, device busy "
+        f"{busy / n / 1e3:.4f} ms/{per}, idle share of the device window "
         f"{1 - busy / window:.3f}  [{card}]")
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -508,7 +572,7 @@ def profile_requests(run, requests, card, task) -> None:
         tot[1] += 1
     for name, (us, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {us / n / 1e3:.4f} ms/request  {count // n:3d}x  "
+        log(f"  {us / n / 1e3:.4f} ms/{per}  {count // n:3d}x  "
             f"{name[:90]}")
 
 
@@ -602,6 +666,7 @@ def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
     counts."""
     from repro_torch.core import build_runner
     per_req = dict.fromkeys(kernels, 0)
+    expected = {**per_req, **PER_REQUEST[task]}
     for op in plan.ops:
         if op.kernel == "cuda_ddmm":
             per_req["shift_conv2d" if op.kind == "conv" else "ddmm"] += 1
@@ -611,7 +676,7 @@ def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
             per_req["knn"] += 1
         elif op.kernel == "cuda_sddmm":     # unmasked: DDMM on x @ xᵀ
             per_req["sddmm" if "mask" in op.weights else "ddmm"] += 1
-    assert per_req == PER_REQUEST[task], (task, per_req)
+    assert per_req == expected, (task, per_req)
     run_cuda = build_runner(plan)
     run_torch = build_runner(plan_torch)
     for fn in kernels.values():
@@ -676,47 +741,382 @@ def request_times(task, plan, plan_torch, requests, card) -> None:
     profile_requests(run_cuda, requests, card, task)
 
 
-def kernel_rows(task, cases, launches, max_err, card) -> list[dict]:
-    """Time every case; one JSON row per kernel the task's path runs."""
+def kernel_rows(task, cases, launches, per_request, max_err, card,
+                unit=None) -> list[dict]:
+    """Time every case; one JSON row per kernel the path runs
+    (``per_request``: its launches per request)."""
     totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                         library_ms=0.0, nbytes=0.0, flops=0.0,
-                         library=True) for name in SOURCES}
+                         library_ms=0.0, device_ms=0.0, nbytes=0.0,
+                         flops=0.0, library=True, device=True)
+              for name in SOURCES}
     for case in cases:
         ms = time_ms(case.run)
         plain = time_ms(case.plain)
         lib = time_ms(case.library) if case.library is not None else None
-        bnd, by = bound_ms(case.nbytes, case.flops)
-        log(f"time {task} {case.label}: kernel {ms:.5f} ms, plain "
-            f"{plain:.5f} ms, library "
+        bnd, by = bound_ms(case.nbytes, case.flops, case.rate)
+        dev = (device_ms(case.run, "flash_kernel")
+               if case.kernel == "flash_attention" else None)
+        log(f"time {task} {case.label}: kernel {ms:.5f} ms"
+            + ("" if dev is None else f" (device {dev:.5f} ms)")
+            + f", plain {plain:.5f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound "
-            f"{bnd:.5f} ms ({by}), x{case.per_request}/request  [{card}]")
+            f"{bnd:.5f} ms ({by}), x{case.per_request:g}/request  [{card}]")
         if case.per_request:
             tot = totals[case.kernel]
             tot["ms"] += case.per_request * ms
             tot["plain_ms"] += case.per_request * plain
             tot["bound_ms"] += case.per_request * bnd
+            # operations in fp32-rate units, so that mixed cases compare
             tot["nbytes"] += case.per_request * case.nbytes
-            tot["flops"] += case.per_request * case.flops
+            tot["flops"] += case.per_request * case.flops * (
+                FP32_FLOPS / case.rate)
             if lib is None:
                 tot["library"] = False
             else:
                 tot["library_ms"] += case.per_request * lib
+            if dev is None:
+                tot["device"] = False
+            else:
+                tot["device_ms"] += case.per_request * dev
     rows = []
     for name, tot in totals.items():
-        if not PER_REQUEST[task][name]:
+        if not per_request.get(name):
             continue
         _, by = bound_ms(tot["nbytes"], tot["flops"])
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": launches[name],
-            "launches_per_request": PER_REQUEST[task][name],
+            "launches_per_request": per_request[name],
             "max_abs_err": max_err[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": by,
             "library_ms": tot["library_ms"] if tot["library"] else None,
-            "unit": f"ms per {task} request: sum over its launches",
-        })
+            "unit": unit or f"ms per {task} request: sum over its launches",
+        }
+        if tot["device"]:
+            row["device_ms"] = tot["device_ms"]
+        rows.append(row)
     return rows
+
+
+def live_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: under the diagonal when
+    causal (query i sees keys j <= i + sk - sq)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def flash_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
+    """Flash attention at ``(B, Hq, Hkv, Sq, Sk, D, causal)``.  Bound: q,
+    k, v and o moved once; 4·D operations per live pair at the peak of the
+    input's type.  Library: one ``F.scaled_dot_product_attention`` call
+    (its causal mask is aligned at the top left, so only at Sq = Sk or
+    without a mask is it the same function)."""
+    from repro_torch.kernels import flash_attention, ref
+    b, hq, hkv, sq, sk, d, causal = shape
+    q, k, v = (torch.tensor(rng.standard_normal(sh), dtype=torch.float32,
+                            device=dev).to(dtype)
+               for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    library = None
+    if sq == sk or not causal:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+    bf16 = dtype == torch.bfloat16
+    label = (f"flash_attention {str(dtype).split('.')[-1]} q{tuple(q.shape)} "
+             f"kv{tuple(k.shape)} causal={causal}")
+    return Case(
+        "flash_attention", label,
+        lambda: flash_attention(q, k, v, causal=causal),
+        lambda: ref.attention_ref(q, k, v, causal=causal), library,
+        q.element_size() * (2.0 * q.numel() + 2.0 * k.numel()),
+        4.0 * d * b * hq * live_pairs(sq, sk, causal), per_request,
+        rtol=FLASH_BF16_RTOL if bf16 else KERNEL_RTOL,
+        rate=BF16_FLOPS if bf16 else FP32_FLOPS)
+
+
+def lm_buckets(cfg) -> dict[int, int]:
+    """Requests per prefill bucket among the launcher's prompts."""
+    from repro_torch.launch.serve import prompts
+    from repro_torch.serve import ServeEngine
+    counts: dict[int, int] = {}
+    for p in prompts(cfg.vocab, LM_REQUESTS, LM_PROMPT_LEN, 0):
+        bucket = ServeEngine._bucket(len(p))
+        counts[bucket] = counts.get(bucket, 0) + 1
+    return counts
+
+
+def lm_cases(cfg, rng, dev) -> dict[str, list[Case]]:
+    """The flash kernel's calls on the LM paths in bf16 (the served
+    prefills, weighted by their share of requests; the 2048-token
+    prefill), the same shapes in fp32, and edge cases in both types: a
+    D = 64 GQA (llama3.2's heads), a continuation (Sq < Sk), rows with no
+    live key (Sq > Sk) and no mask at ragged sizes."""
+    hq, hkv, d, n_l = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       cfg.n_layers)
+    bf16, f32 = torch.bfloat16, torch.float32
+    serve_cases = [flash_case((1, hq, hkv, s, s, d, True), bf16, rng, dev,
+                              per_request=n * n_l / LM_REQUESTS)
+                   for s, n in sorted(lm_buckets(cfg).items())]
+    long = (1, hq, hkv, LONG_PROMPT, LONG_PROMPT, d, True)
+    long_cases = [flash_case(long, bf16, rng, dev, per_request=n_l),
+                  flash_case(long, f32, rng, dev)]
+    extra = [flash_case((1, hq, hkv, s, s, d, True), f32, rng, dev)
+             for s in sorted(lm_buckets(cfg))]
+    for shape in ((2, 32, 8, 128, 128, 64, True),
+                  (1, hq, hkv, 64, 256, d, True),
+                  (1, hq, hkv, 80, 48, d, True),
+                  (2, 2, 1, 77, 154, 48, False)):
+        extra += [flash_case(shape, dt, rng, dev) for dt in (f32, bf16)]
+    return {"lm-serve": serve_cases + extra, "lm-prefill-2048": long_cases}
+
+
+def flash_exact_checks(cfg, rng, dev) -> None:
+    """Rows with no live key come out as exact zeros; (B, S, H, D)
+    activations read as permuted views give the bits of contiguous
+    copies."""
+    from repro_torch.kernels import flash_attention
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(torch.bfloat16)
+
+    out = flash_attention(t(1, hq, 80, d), t(1, hkv, 48, d), t(1, hkv, 48, d))
+    views = [t(2, 48, h, d).transpose(1, 2) for h in (hq, hkv, hkv)]
+    got = flash_attention(*views)
+    copies = flash_attention(*(a.contiguous() for a in views))
+    torch.cuda.synchronize()
+    nonzero = int((out[:, :, :32] != 0).sum().item())
+    differ = int((got != copies).sum().item())
+    log(f"check flash_attention Sq=80 > Sk=48: {nonzero} nonzero outputs on "
+        f"the 32 rows with no live key; permuted (B, S, H, D) views vs "
+        f"contiguous copies: {differ} elements differ"
+        + ("" if not (nonzero or differ) else "  FAIL"))
+    assert not nonzero, "flash_attention: a row with no live key is not 0"
+    assert not differ, "flash_attention: strided views change the result"
+
+
+def lm_counts(kernels, want: dict[str, int], what: str) -> dict[str, int]:
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{what}: launches {launches}")
+    assert launches == {**dict.fromkeys(kernels, 0), **want}, (what,
+                                                               launches)
+    return launches
+
+
+def lm_serve(cfg, kernels) -> dict[str, int]:
+    """The LM path through its entry point, ``launch.serve.serve`` at the
+    launcher's defaults and the published config: counts set to 0 just
+    before, read just after."""
+    from repro_torch.launch.serve import serve as serve_lm
+    for fn in kernels.values():
+        fn.launches = 0
+    res = serve_lm(LM_ARCH, smoke=False, device="cuda")
+    torch.cuda.synchronize()
+    launches = lm_counts(kernels, {"flash_attention": LM_REQUESTS
+                                   * cfg.n_layers}, f"{LM_ARCH} serve")
+    log(f"{LM_ARCH} serve (launch.serve.serve, full config): "
+        f"{json.dumps(res)}")
+    assert res["requests"] == LM_REQUESTS
+    assert res["tokens_generated"] == LM_REQUESTS * LM_MAX_NEW, res
+    return launches
+
+
+def lm_engine_run(cfg, params, kernels, card):
+    """The same requests through a ``ServeEngine`` stepped here, timed on
+    the host clock per step, per request and per token.  Returns the
+    engine and its requests."""
+    from repro_torch.launch.serve import prompts
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    batch = prompts(cfg.vocab, LM_REQUESTS, LM_PROMPT_LEN, 0)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=LM_MAX_NEW) for p in batch]
+    first, done, steps = {}, {}, []
+    while not all(r.done for r in reqs):
+        t_a = time.perf_counter()
+        eng.step()                        # ends in .tolist(): synchronized
+        t_b = time.perf_counter()
+        steps.append((t_b - t_a) * 1e3)
+        for r in reqs:
+            if r.out:
+                first.setdefault(r.rid, t_b)
+            if r.done:
+                done.setdefault(r.rid, t_b)
+        assert len(steps) <= LM_REQUESTS * LM_MAX_NEW, "did not converge"
+    wall = time.perf_counter() - t0
+    lm_counts(kernels, {"flash_attention": LM_REQUESTS * cfg.n_layers},
+              f"{LM_ARCH} engine run")
+    lat = [(done[r.rid] - t0) * 1e3 for r in reqs]
+    ttft = [(first[r.rid] - t0) * 1e3 for r in reqs]
+    per_tok = [(done[r.rid] - first[r.rid]) * 1e3 / (len(r.out) - 1)
+               for r in reqs]
+
+    def q(xs):
+        qs = statistics.quantiles(xs, n=10)
+        return (f"p50 {statistics.median(xs):.4f} ms, p10 {qs[0]:.4f}, "
+                f"p90 {qs[-1]:.4f}, max {max(xs):.4f}")
+
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"{LM_ARCH} engine run (host clock): {len(reqs)} requests, "
+        f"{len(steps)} steps, {n_tok} tokens in {wall:.4f} s "
+        f"({n_tok / wall:.2f} tok/s)  [{card}]")
+    log(f"  request latency (all submitted at t0): {q(lat)}")
+    log(f"  time to first token: {q(ttft)}")
+    log(f"  per token after the first, per request: {q(per_tok)}")
+    log(f"  engine step (admissions + one decode step): {q(steps)}")
+    return eng, reqs
+
+
+def lm_parity(cfg, params, reqs) -> None:
+    """Margin-aware parity of the served tokens against the plain path
+    (``impl="naive"``, same weights): each request's prefill logits, and
+    each engine token's plain logit against that position's maximum."""
+    from repro_torch.models.transformer import lm_forward, lm_prefill
+    from repro_torch.serve import ServeEngine
+    dev = params["embed"].device
+    worst_prefill = worst_gap = 0.0
+    agree = total = 0
+    for r in reqs:
+        n = len(r.prompt)
+        padded = np.zeros(ServeEngine._bucket(n), np.int64)
+        padded[:n] = r.prompt
+        tok = torch.as_tensor(padded, device=dev)[None]
+        got, want = (lm_prefill(params, cfg, tokens=tok, max_len=LM_MAX_LEN,
+                                impl=impl, last_index=n - 1)[0]
+                     for impl in ("chunked", "naive"))
+        worst_prefill = max(worst_prefill, rel_err(got, want)[1])
+        seq = np.concatenate([r.prompt, r.out[:-1]])
+        logits, _ = lm_forward(params, cfg, impl="naive",
+                               tokens=torch.as_tensor(seq, device=dev)[None])
+        rows = logits[0, n - 1:]                       # (len(out), V)
+        out = torch.as_tensor(r.out, device=dev)
+        gap = ((rows.amax(-1) - rows.gather(1, out[:, None])[:, 0])
+               / rows.abs().amax(-1))
+        worst_gap = max(worst_gap, gap.max().item())
+        agree += int((rows.argmax(-1) == out).sum().item())
+        total += len(r.out)
+    ok = worst_prefill <= PREFILL_RTOL and worst_gap <= MARGIN_RTOL
+    log(f"{LM_ARCH} parity vs the plain path: prefill logits rel up to "
+        f"{worst_prefill:.3e} (limit {PREFILL_RTOL:g}); engine tokens "
+        f"{agree}/{total} equal the plain argmax, the largest gap below "
+        f"the plain maximum {worst_gap:.3e} of max|logits| (limit "
+        f"{MARGIN_RTOL:g})" + ("" if ok else "  FAIL"))
+    assert worst_prefill <= PREFILL_RTOL, "prefill logits disagree"
+    assert worst_gap <= MARGIN_RTOL, "an engine token is off the plain max"
+
+
+def as_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: as_fp32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def long_prompt(cfg, dev) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, LONG_PROMPT)), device=dev)
+
+
+def lm_fp32_parity(cfg, params, reqs) -> None:
+    """Kernel path against plain path at full width with the weights in
+    fp32, over every served prompt (padded to its bucket) and the
+    2048-token prompt: the bf16 comparison is dominated by roundings the
+    random model amplifies through its layers, the fp32 one holds the
+    kernel's own error."""
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.serve import ServeEngine
+    p32 = as_fp32(params)
+    dev = p32["embed"].device
+    inputs = []
+    for r in reqs:
+        n = len(r.prompt)
+        padded = np.zeros(ServeEngine._bucket(n), np.int64)
+        padded[:n] = r.prompt
+        inputs.append((torch.as_tensor(padded, device=dev)[None], n - 1,
+                       LM_MAX_LEN))
+    inputs.append((long_prompt(cfg, dev), None, LONG_PROMPT))
+    rels = []
+    for tok, last, max_len in inputs:
+        got, want = (lm_prefill(p32, cfg, tokens=tok, max_len=max_len,
+                                impl=impl, last_index=last)[0]
+                     for impl in ("chunked", "naive"))
+        rels.append(rel_err(got, want)[1])
+    ok = max(rels) <= E2E_RTOL
+    log(f"{LM_ARCH} in fp32, kernel vs plain path prefill logits: rel up to "
+        f"{max(rels[:-1]):.3e} over the {len(reqs)} served prompts, "
+        f"{rels[-1]:.3e} at {LONG_PROMPT} tokens (limit {E2E_RTOL:g})"
+        + ("" if ok else "  FAIL"))
+    assert ok, "fp32 prefill logits disagree"
+
+
+def lm_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
+    """One ``lm_prefill`` of a 2048-token prompt: counts set to 0 just
+    before, read just after; logits against the plain path; host times
+    of both paths in turns."""
+    from repro_torch.models.transformer import lm_prefill
+    tok = long_prompt(cfg, params["embed"].device)
+
+    def run(impl):
+        return lm_prefill(params, cfg, tokens=tok, max_len=LONG_PROMPT,
+                          impl=impl)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    logits, caches, length = run("chunked")
+    torch.cuda.synchronize()
+    launches = lm_counts(kernels, {"flash_attention": cfg.n_layers},
+                         f"{LM_ARCH} prefill of {LONG_PROMPT} tokens")
+    assert tuple(logits.shape) == (1, cfg.vocab) and length == LONG_PROMPT
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    err, rel = rel_err(logits, run("naive")[0])
+    log(f"{LM_ARCH} prefill of {LONG_PROMPT} tokens: kernel vs plain path "
+        f"logits max|d|={err:.3e} rel={rel:.3e} (limit {PREFILL_RTOL:g})"
+        + ("" if rel <= PREFILL_RTOL else "  FAIL"))
+    assert rel <= PREFILL_RTOL, "2048-token prefill disagrees"
+    times = {"chunked": [], "naive": []}
+    for turn in range(3):
+        for impl in (("chunked", "naive") if turn % 2 == 0
+                     else ("naive", "chunked")):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            run(impl)
+            torch.cuda.synchronize()
+            times[impl].append((time.perf_counter() - t_a) * 1e3)
+    log(f"{LM_ARCH} prefill of {LONG_PROMPT} tokens (host clock, "
+        f"synchronized, 3 each): kernel path p50 "
+        f"{statistics.median(times['chunked']):.4f} ms, plain path p50 "
+        f"{statistics.median(times['naive']):.4f} ms  [{card}]")
+    return launches
+
+
+def lm_profiles(cfg, params, eng, card) -> None:
+    """Device busy time and idle share of a served prefill (bucket 48),
+    a decode step over all slots, and the 2048-token prefill."""
+    from repro_torch.models.transformer import lm_decode_step, lm_prefill
+    dev = params["embed"].device
+    rng = np.random.default_rng(1)
+    tok48 = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 48)), device=dev)
+    tok_long = torch.as_tensor(rng.integers(0, cfg.vocab, (1, LONG_PROMPT)),
+                               device=dev)
+    step_tok = torch.as_tensor(rng.integers(0, cfg.vocab, LM_SLOTS),
+                               device=dev)
+    lengths = torch.arange(LM_SLOTS, device=dev) * 8 + 40
+    profile_window(lambda: lm_prefill(params, cfg, tokens=tok48,
+                                      max_len=LM_MAX_LEN, last_index=40),
+                   5, f"{LM_ARCH} prefills of a 48-token bucket", "prefill",
+                   card)
+    profile_window(lambda: lm_decode_step(params, cfg, step_tok, eng.caches,
+                                          lengths),
+                   10, f"{LM_ARCH} decode steps over {LM_SLOTS} slots",
+                   "step", card)
+    profile_window(lambda: lm_prefill(params, cfg, tokens=tok_long,
+                                      max_len=LONG_PROMPT),
+                   1, f"{LM_ARCH} prefill of {LONG_PROMPT} tokens", "prefill",
+                   card)
 
 
 def main() -> int:
@@ -724,12 +1124,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import (_build, ddmm, knn, sddmm, shift_conv2d,
-                                     spdmm)
+    from repro_torch import configs
+    from repro_torch.kernels import (_build, ddmm, flash_attention, knn,
+                                     sddmm, shift_conv2d, spdmm)
+    from repro_torch.kernels.flash_attention import MAX_D
     from repro_torch.kernels.knn import MAX_K
     from repro_torch.kernels.sddmm import BLOCK
+    from repro_torch.models.transformer import init_lm
     kernels = {"shift_conv2d": shift_conv2d, "spdmm": spdmm, "ddmm": ddmm,
-               "knn": knn, "sddmm": sddmm}
+               "knn": knn, "sddmm": sddmm,
+               "flash_attention": flash_attention}
 
     # ---- phase 1: card, numerics, build ---------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -752,6 +1156,8 @@ def main() -> int:
     assert lib.repro_knn_max_k() == MAX_K, "csrc/knn.cu and knn.py disagree"
     assert lib.repro_sddmm_block() == BLOCK, \
         "csrc/sddmm.cu and sddmm.py disagree"
+    assert lib.repro_flash_max_d() == MAX_D, \
+        "csrc/flash_attention.cu and flash_attention.py disagree"
 
     tasks = list(PER_REQUEST)
     plans = {task: task_plans(task) for task in tasks}
@@ -766,19 +1172,45 @@ def main() -> int:
             max_err[task][case.kernel] = max(max_err[task][case.kernel],
                                              check_case(case))
         exact_checks(task, rng, dev)
+    lm_cfg = configs.get(LM_ARCH)
+    lm_paths = lm_cases(lm_cfg, rng, dev)
+    for path, path_cases in lm_paths.items():
+        max_err[path] = {"flash_attention": max(
+            check_case(case) for case in path_cases)}
+    flash_exact_checks(lm_cfg, rng, dev)
 
     # ---- phase 3: serve each task's requests through the CUDA kernels ---
     requests = {task: task_requests(task, *plans[task]) for task in tasks}
     launches = {task: serve(task, *plans[task], requests[task], kernels)
                 for task in tasks}
+    launches["lm-serve"] = lm_serve(lm_cfg, kernels)
+    lm_params = init_lm(0, lm_cfg, device="cuda")
+    eng, lm_reqs = lm_engine_run(lm_cfg, lm_params, kernels, card)
+    lm_parity(lm_cfg, lm_params, lm_reqs)
+    lm_fp32_parity(lm_cfg, lm_params, lm_reqs)
+    launches["lm-prefill-2048"] = lm_long_prefill(lm_cfg, lm_params,
+                                                  kernels, card)
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []
     for task in tasks:
         request_times(task, *plans[task], requests[task], card)
+    lm_profiles(lm_cfg, lm_params, eng, card)
     for task in tasks:
         rows += kernel_rows(task, cases[task], launches[task],
-                            max_err[task], card)
+                            PER_REQUEST[task], max_err[task], card)
+    per_prefill = {"flash_attention": lm_cfg.n_layers}
+    rows += kernel_rows(
+        "lm-serve", lm_paths["lm-serve"], launches["lm-serve"], per_prefill,
+        max_err["lm-serve"], card,
+        unit=f"ms per {LM_ARCH} served request: its prefill's "
+             f"{lm_cfg.n_layers} launches at its bucket, mean over the "
+             f"{LM_REQUESTS} requests")
+    rows += kernel_rows(
+        "lm-prefill-2048", lm_paths["lm-prefill-2048"],
+        launches["lm-prefill-2048"], per_prefill, max_err["lm-prefill-2048"],
+        card, unit=f"ms per {LONG_PROMPT}-token {LM_ARCH} prefill: sum "
+                   f"over its {lm_cfg.n_layers} launches")
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

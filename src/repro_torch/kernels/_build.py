@@ -30,9 +30,10 @@ FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas=-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every exported launcher: pointers and the stream as
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int,
-# strides as c_longlong.
+# strides as c_longlong, scales as c_float.
 SIGNATURES = {
     "repro_shift_conv2d": [_P, _P, _P] + [_I] * 16 + [_P],
     "repro_ddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -41,6 +42,8 @@ SIGNATURES = {
     "repro_knn_max_k": [],
     "repro_sddmm": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "repro_sddmm_block": [],
+    "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
+    "repro_flash_max_d": [],
 }
 
 _LIB: ctypes.CDLL | None = None

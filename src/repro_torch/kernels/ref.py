@@ -1,6 +1,6 @@
 """Plain-PyTorch versions of the port's kernels — port of
 ``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``sddmm_ref``,
-``conv2d_ref``).
+``conv2d_ref``, ``attention_ref``).
 
 Each ``*_ref`` computes what its hand-written CUDA kernel computes, in the
 reference's layouts, with ordinary torch ops:
@@ -8,7 +8,9 @@ reference's layouts, with ordinary torch ops:
   * conv activations ``(c_in, H, W)`` or ``(B, c_in, H, W)``, conv weights
     ``(k1, k2, c_in / groups, c_out)``;
   * ELL ``(S1, L)`` index/value arrays with ``val == 0`` in padding slots;
-  * KNN points ``(N, F)``, int32 ``(N, k)`` neighbor indices.
+  * KNN points ``(N, F)``, int32 ``(N, k)`` neighbor indices;
+  * attention ``(B, Hq, Sq, D)`` queries against ``(B, Hkv, Sk, D)`` keys
+    and values.
 
 They serve three roles: the CPU path of every kernel wrapper, the ``torch_*``
 realizations of the Step-4b lattice, and the yardstick ``chip_smoke.py``
@@ -17,6 +19,8 @@ explicit shift-GEMM (one strided slice per tap, one matmul per group) so it
 repeats the kernel's arithmetic rather than calling a library convolution.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -136,3 +140,31 @@ def knn_ref(x, k, mask=None, self_loops=False):
         d = torch.where(mask.reshape(1, n) > 0, d, float("inf"))
     # a stable sort, not topk: topk leaves the order of ties unspecified
     return torch.sort(d, dim=1, stable=True).indices[:, :k].to(torch.int32)
+
+
+def attention_ref(q, k, v, *, causal=True, scale=None):
+    """Softmax attention: q ``(B, Hq, Sq, D)``, k/v ``(B, Hkv, Sk, D)``, GQA
+    by head repetition (kv head ``h // (Hq / Hkv)``); query i sees keys
+    ``j <= i + (Sk - Sq)`` when ``causal``.  Scores, softmax and the value
+    sum in fp32; the output in q's dtype.
+
+    A row with no live key (``Sq > Sk``, its first ``Sq - Sk`` rows) gives
+    0, as the Pallas kernel's ``l == 0`` guard does
+    (``src/repro/kernels/flash_attention.py``); the reference's own
+    ``attention_ref`` gives NaN there."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(torch.isneginf(m), 0.0, torch.exp(s - m))
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return (out / torch.where(l == 0, 1.0, l)).to(q.dtype)

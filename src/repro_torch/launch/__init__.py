@@ -1,0 +1,1 @@
+"""Launchers of the port.  Port of ``src/repro/launch`` (``serve.py``)."""

@@ -1,0 +1,104 @@
+"""Shared LM building blocks: norms, RoPE, dense MLP, init.
+
+Port of ``src/repro/models/layers.py`` (``dot``, ``rms_norm``,
+``head_rms_norm``, ``rope``, ``mlp_apply``, ``init_linear``, ``init_mlp``,
+``stack_params``).  Parameters are plain nested dicts of tensors, stacked
+per stage on a leading layer axis as in the reference.  Norms and the MLP's
+gate run in fp32 and cast back.
+
+``dot`` returns fp32, as the reference's ``preferred_element_type``
+does.  For fp32 operands the result is the same function.  For bf16
+operands ``torch.matmul`` accumulates in fp32 but rounds its result to
+bf16 before the cast, where XLA keeps the fp32 sum: the two frameworks
+round at different places, so bf16 runs are compared within a tolerance
+and the algorithms in fp32.
+
+The reference's mesh constraints (``shard_axes``, ``wsc``) are a no-op on
+one device and are not ported; ``cross_entropy`` belongs to training.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over x's last axis, as fp32."""
+    return torch.matmul(x, w).float()
+
+
+def rms_norm(x, scale, eps=1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def head_rms_norm(x, scale, eps=1e-5):
+    """Per-head qk-norm (qwen3): x ``(..., H, hd)``."""
+    return rms_norm(x, scale, eps)
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """x: ``(..., S, H, hd)``, positions: ``(..., S)`` int."""
+    half = x.shape[-1] // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(1.0 / theta, exps)       # no host-to-device copy
+    ang = positions[..., :, None].float()[..., None, :] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)       # (..., S, 1, half)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(params, x, act: str = "swiglu"):
+    if act == "swiglu":
+        h = F.silu(dot(x, params["wg"])) * dot(x, params["wi"])
+    else:                                  # jax.nn.gelu: tanh approximation
+        h = F.gelu(dot(x, params["wi"]), approximate="tanh")
+    return dot(h.to(x.dtype), params["wo"]).to(x.dtype)
+
+
+# ------------------------------------------------------------------- init --
+def normal(gen: torch.Generator, shape, dtype, scale) -> torch.Tensor:
+    """Standard normal in fp32 from ``gen`` (on ``gen``'s device), times
+    ``scale``, cast to ``dtype``: the reference's ``_normal``."""
+    out = torch.randn(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+    return (out * scale).to(dtype)
+
+
+def init_linear(gen, fin, fout, dtype, *, scale=None):
+    """``(fin, fout)`` with std ``1/sqrt(fin)`` unless ``scale``."""
+    return normal(gen, (fin, fout), dtype,
+                  scale if scale is not None else 1.0 / math.sqrt(fin))
+
+
+def init_mlp(gen, d, ff, dtype, act="swiglu"):
+    p = {"wi": init_linear(gen, d, ff, dtype),
+         "wo": init_linear(gen, ff, d, dtype)}
+    if act == "swiglu":
+        p["wg"] = init_linear(gen, d, ff, dtype)
+    return p
+
+
+def stack_params(trees):
+    """Stack a list of identical nested dicts along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_params([t[k] for t in trees]) for k in first}
+    return torch.stack(trees, 0)
+
+
+def index_params(tree, i: int):
+    """Layer ``i`` of a stacked nested dict (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: index_params(v, i) for k, v in tree.items()}
+    return tree[i]

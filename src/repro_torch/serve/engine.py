@@ -1,0 +1,141 @@
+"""Batched serving engine: slot-based continuous batching.
+
+Port of ``src/repro/serve/engine.py`` (``ServeEngine``, ``Request``):
+
+  * a fixed pool of ``slots`` (the decode batch) with per-slot lengths —
+    decode steps run in lockstep over all slots, per-slot masks handle
+    ragged lengths;
+  * prompts are prefilled one at a time into a free slot through the
+    flash kernel, right-padded to a multiple of 16 (causal-safe, since the
+    port runs attention-only models); generation joins the next decode
+    step;
+  * finished slots (EOS, ``max_new`` or ``max_len``) are recycled at once.
+
+Where the reference rebuilds its caches functionally, the port writes them
+in place: a prefill's single-row caches are copied into the slot's row of
+the pool, and each decode step writes one position per slot.  Per-slot
+lengths and last tokens live on the host and go to the device with each
+step.  Sampled decoding draws from a ``torch.Generator`` seeded with
+``seed``; greedy decoding takes the argmax.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import (init_caches, lm_decode_step,
+                                            lm_prefill)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (S,) int32
+    max_new: int = 32
+    eos_id: int | None = None
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, *, slots: int = 8, max_len: int = 512,
+                 greedy: bool = True, seed: int = 0):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.greedy = greedy
+        self.device = params["embed"].device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._rid = itertools.count()
+        self.queue: list[Request] = []
+        self.active: list[Request | None] = [None] * slots
+        self.lengths = np.zeros((slots,), np.int64)
+        self.last_tok = np.zeros((slots,), np.int64)
+        self.caches = init_caches(cfg, slots, max_len,
+                                  params["embed"].dtype, device=self.device)
+
+    # ------------------------------------------------------------ intake --
+    def submit(self, prompt, max_new: int = 32, eos_id: int | None = None):
+        req = Request(next(self._rid), np.asarray(prompt, np.int32),
+                      max_new=max_new, eos_id=eos_id)
+        self.queue.append(req)
+        return req
+
+    def _free_slot(self):
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    @staticmethod
+    def _bucket(n, quantum=16):
+        return max(quantum, -(-n // quantum) * quantum)
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+
+    def _admit(self):
+        while self.queue:
+            slot = self._free_slot()
+            if slot is None:
+                return
+            req = self.queue.pop(0)
+            S = len(req.prompt)
+            # right-pad to a bucket boundary: pads sit in the masked future
+            padded = np.zeros((self._bucket(S),), np.int64)
+            padded[:S] = req.prompt
+            logits, caches1, _ = lm_prefill(
+                self.params, self.cfg, self._tensor(padded)[None],
+                max_len=self.max_len, impl="chunked", last_index=S - 1)
+            for key, stage in self.caches.items():       # the slot's row
+                for name, full in stage.items():
+                    full[:, slot].copy_(caches1[key][name][:, 0])
+            tok = int(self._sample(logits)[0])
+            req.out.append(tok)
+            self.active[slot] = req
+            self.lengths[slot] = S
+            self.last_tok[slot] = tok
+
+    def _sample(self, logits):
+        if self.greedy:
+            return torch.argmax(logits, -1)
+        probs = torch.softmax(logits.float(), -1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+
+    # -------------------------------------------------------------- step --
+    def step(self):
+        """Admit pending prompts, then decode one token for every active
+        slot.  Returns the number of active requests."""
+        self._admit()
+        if not any(r is not None for r in self.active):
+            return 0
+        logits, self.caches = lm_decode_step(
+            self.params, self.cfg, self._tensor(self.last_tok), self.caches,
+            self._tensor(self.lengths))
+        toks = self._sample(logits).tolist()
+        self.lengths += [r is not None for r in self.active]
+        self.last_tok[:] = toks
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            t = toks[i]
+            req.out.append(t)
+            hit_eos = req.eos_id is not None and t == req.eos_id
+            if hit_eos or len(req.out) >= req.max_new \
+                    or self.lengths[i] >= self.max_len - 1:
+                req.done = True
+                self.active[i] = None
+                self.lengths[i] = 0
+        return sum(r is not None for r in self.active)
+
+    def run(self, max_steps: int = 10_000):
+        """Drive until queue + slots drain."""
+        for _ in range(max_steps):
+            n = self.step()
+            if n == 0 and not self.queue:
+                break

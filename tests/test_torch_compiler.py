@@ -160,7 +160,10 @@ def test_compile_spans_match_the_reference():
 
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.gnncv.tasks, repro_torch.core.weights\n"
+            "repro_torch.gnncv.tasks, repro_torch.core.weights, "
+            "repro_torch.models.transformer, repro_torch.models.weights, "
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.configs\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

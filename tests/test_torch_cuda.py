@@ -13,7 +13,11 @@ order; TF32 is switched off for the plain versions.  KNN indices must be
 equal exactly: the kernel repeats the plain version's fp32 arithmetic; so
 must a batched shift-conv and its per-image calls (same arithmetic order),
 and SDDMM's dead tiles must be exactly 0.  Requests end to end:
-``1e-4 · max|plain plan|``.
+``1e-4 · max|plain plan|``.  Flash attention in bf16: ``2^-7 · max|plain|``
+— kernel and plain version both compute in fp32 from the same bf16 inputs
+and round once to bf16, so an element can differ by one bf16 ulp (2^-8 of
+itself) where the two fp32 sums straddle a rounding boundary; rows with no
+live key must be exactly 0.
 """
 import pathlib
 import sys
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm
+from repro_torch.kernels.flash_attention import MAX_D, flash_attention
 from repro_torch.kernels.knn import MAX_K, knn
 from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
 from repro_torch.kernels.shift_conv import shift_conv2d
@@ -33,6 +38,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import vip_masked_graph, window_mask  # noqa: E402,F401
 
 RTOL = 1e-5
+BF16_RTOL = 2.0 ** -7
 DDMM_SHAPES = [(1, 256, 60), (33, 257, 129), (100, 70, 130), (64, 64, 64)]
 ACTS = [None, "relu", "gelu", "silu", "tanh"]
 SPDMM_SHAPES = [(25, 25, 5, 300), (33, 57, 7, 129), (64, 100, 3, 1),
@@ -65,6 +71,30 @@ KNN_CASES = [
 SDDMM_SHAPES = [(128, 64, 128, 0.2), (256, 128, 256, 0.05),
                 (100, 50, 70, 0.4), (196, 512, 196, 0.1),
                 (33, 17, 65, 0.3), (37, 1, 31, 1.0), (64, 40, 96, 0.0)]
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal): tests/test_kernels.py's six flash cases
+# (GQA, ragged, continuation, non-causal), its decode shape, and Sq > Sk
+# causal cases whose first rows see no key
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, True),
+    (2, 8, 2, 128, 128, 64, True),
+    (1, 2, 2, 100, 100, 32, True),
+    (1, 4, 1, 64, 256, 64, True),
+    (1, 2, 2, 128, 128, 64, False),
+    (2, 2, 1, 77, 154, 48, False),
+    (2, 4, 4, 1, 300, 64, True),
+    (1, 4, 2, 8, 4, 32, True),
+    (2, 4, 1, 40, 24, 64, True),
+]
+# qwen3-0.6b's served prefills (buckets 16-48) and a 2048-token prompt
+FLASH_SERVED = [(1, 16, 8, s, s, 128, True) for s in (16, 32, 48, 2048)]
+
+
+def flash_inputs(b, hq, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
 
 
 def close(got, want, rtol=RTOL):
@@ -330,3 +360,84 @@ def test_cuda_request_runs_through_the_kernels(cuda, task, counts):
         assert np.abs(got.cpu().numpy() - nodes).max() > \
             0.1 * np.abs(nodes).max()
     close(got.cpu(), build_runner(plain)(**inputs)[0].cpu(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_SERVED, ids=str)
+def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
+    b, hq, hkv, sq, sk, d, causal = case
+    q, k, v = (t(a).to(cuda, dtype) for a in flash_inputs(*case[:6]))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.attention_ref(q, k, v, causal=causal)
+    close(got.float().cpu(), want.float().cpu(),
+          rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
+    if causal and sq > sk:
+        assert (got[:, :, :sq - sk] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_reads_permuted_views(cuda, dtype):
+    """(B, S, H, D) activations passed as permuted views give the same bits
+    as contiguous copies, and the output keeps q's layout."""
+    rng = np.random.default_rng(5)
+    q, k, v = (t(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+               for s in ((2, 48, 16, 128), (2, 48, 8, 128), (2, 48, 8, 128)))
+    views = [a.transpose(1, 2) for a in (q, k, v)]
+    got = flash_attention(*views)
+    copies = flash_attention(*(a.contiguous() for a in views))
+    torch.cuda.synchronize()
+    assert torch.equal(got, copies)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import _build
+    assert _build.library().repro_flash_max_d() == MAX_D
+    z = torch.zeros((1, 2, 8, MAX_D + 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(z, z, z)
+    h = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(h, h, h)
+    q = torch.zeros((1, 2, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                        q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_serve_runs_through_the_kernel(cuda):
+    """Every prefill launches the kernel once per layer; the served tokens
+    equal greedy decoding of the plain path's full forward (fp32 smoke
+    config)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get_smoke("qwen3-0.6b")
+    params = init_lm(0, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 9, 12, 7, 20)]
+    eng = ServeEngine(cfg, params, slots=3, max_len=64)
+    before = flash_attention.launches
+    reqs = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == len(prompts) * cfg.n_layers
+    for r in reqs:
+        toks = torch.as_tensor(np.concatenate([r.prompt, r.out[:-1]]),
+                               device=cuda)
+        logits, _ = lm_forward(params, cfg, toks[None], impl="naive")
+        assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
