@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --conv-sweep    # shift-conv's tiles and splits
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -17,10 +18,18 @@ plain attention path, and times kernels, requests and tokens.  Every
 number printed is measured in this run.  The last line is the JSON result;
 any failure exits nonzero before it.  Imports the port only
 (``repro_torch``), never JAX.
+
+``--conv-sweep`` instead times the shift-conv kernel at every pixel tile
+and split-K factor it takes, at every distinct conv shape of b4, b5, b1,
+b2 and b3, checks each against the plain version, and prints the plan's
+choice (``shift_conv.launch_plan``) beside the best: the data behind the
+plan's rule.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import pathlib
@@ -38,12 +47,16 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM rate and
-# the fp32 rate outside the tensor cores, which is what these fp32 SIMT
+# the fp32 rate outside the tensor cores, which is what the fp32 SIMT
 # kernels (and their plain versions, with TF32 off) run on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # the bf16 tensor-core peak: the least time for bf16 attention's products
 BF16_FLOPS = 989e12
+# Shift-conv runs fp32-accurate products on the TF32 tensor cores as three
+# TF32 products each (3xTF32): its least time is 3·ops / 495 TFLOP/s.
+TF32_FLOPS = 495e12
+CONV_FLOPS = TF32_FLOPS / 3
 
 # Tolerances.  The kernels accumulate in fp32 in another order than the
 # plain versions (cuBLAS / torch reductions): the rounding error of a
@@ -55,10 +68,12 @@ BF16_FLOPS = 989e12
 # kernel repeats the plain version's fp32 arithmetic.
 KERNEL_RTOL = 1e-5
 E2E_RTOL = 1e-4
-# Flash attention in bf16: kernel and plain version both compute in fp32
-# from the same bf16 inputs and round the result once to bf16, so an
-# element may differ by one bf16 ulp (2^-8 of itself) where the two fp32
-# sums straddle a rounding boundary: within 2^-7 of max|plain|.
+# Flash attention in bf16: kernel and plain version both compute from the
+# same bf16 inputs with fp32 sums (the kernel's p in three bf16 parts,
+# fp32-level) and round the result once to bf16, so an element may differ
+# by one bf16 ulp (2^-8 of itself) where the two sums straddle a rounding
+# boundary: within 2^-7 of max|plain|.  Shift-conv's 3xTF32 products are
+# fp32-level (~2^-21 of each product): KERNEL_RTOL holds for it.
 FLASH_BF16_RTOL = 2.0 ** -7
 REQUESTS = 8
 # b6-dyn requests: a 960-point cloud padded to a 1024-point bucket, as
@@ -124,6 +139,12 @@ PREFILL_RTOL = 2e-2
 MARGIN_RTOL = 4e-2
 # The same weights cast to fp32: the two paths then differ only by the
 # order of fp32 sums, so their prefill logits must agree within E2E_RTOL.
+# The name prefix of each kernel's device kernels in a profile (shift-conv's
+# split-K reduction is ``shift_conv_splitk_reduce``; flash has a bf16 and
+# an fp32 kernel).
+DEVICE_PREFIX = {"shift_conv2d": "shift_conv", "spdmm": "ell_spdmm",
+                 "ddmm": "ddmm", "knn": "knn", "sddmm": "sddmm",
+                 "flash_attention": "flash"}
 SOURCES = {
     "shift_conv2d": ("src/repro_torch/kernels/csrc/shift_conv.cu",
                      "src/repro/kernels/shift_conv.py:78"),
@@ -191,6 +212,7 @@ class Case:
     exact: bool = False
     rtol: float = KERNEL_RTOL
     rate: float = FP32_FLOPS
+    plan: object = None          # shift-conv's launch plan
 
 
 def mm_operands(op, xin, shapes, rng):
@@ -324,31 +346,43 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
 
 def exact_checks(task, rng, dev) -> None:
     """Kernel results beyond the main path that must hold exactly: a
-    batched conv equals its per-image calls (same arithmetic order, b1);
-    SDDMM's dead tiles come out as exact zeros (vip-masked)."""
+    batched conv equals its per-image calls (same arithmetic order; b1's
+    and b2's shapes, split-K active) and a second call of itself (no
+    atomics); SDDMM's dead tiles come out as exact zeros (vip-masked)."""
     from repro_torch.kernels import sddmm, shift_conv2d
     from repro_torch.kernels.sddmm import live_tiles
+    from repro_torch.kernels.shift_conv import launch_plan
 
     def t(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
-    if task == "b1":
-        for xs, ws, kw in (
-                ((26, 1, 28, 28), (3, 3, 1, 64), dict(stride=1)),
-                ((26, 64, 14, 14), (3, 3, 64, 64), dict(stride=1)),
-                ((5, 8, 15, 25), (3, 2, 2, 8),
-                 dict(stride=(2, 1), padding="VALID", groups=4,
-                      dilation=(1, 2)))):
-            x, w = t(rng.standard_normal(xs)), t(rng.standard_normal(ws))
-            got = shift_conv2d(x, w, **kw)
-            each = torch.stack([shift_conv2d(xi, w, **kw) for xi in x])
-            torch.cuda.synchronize()
-            differ = int((got != each).sum().item())
-            log(f"check batched shift_conv2d x{xs} w{ws} {kw}: one launch "
-                f"vs {xs[0]} per-image launches, {differ} elements differ"
-                + ("" if not differ else "  FAIL"))
-            assert not differ, "batched conv differs from per-image calls"
-    elif task == "vip-masked":
+    conv_shapes = {
+        "b1": (((26, 1, 28, 28), (3, 3, 1, 64), dict(stride=1)),
+               ((26, 64, 14, 14), (3, 3, 64, 64), dict(stride=1)),
+               ((5, 8, 15, 25), (3, 2, 2, 8),
+                dict(stride=(2, 1), padding="VALID", groups=4,
+                     dilation=(1, 2)))),
+        # b2's 7x7 and 14x14 layers, batched
+        "b2": (((4, 512, 7, 7), (3, 3, 512, 512), dict(stride=1)),
+               ((4, 1024, 14, 14), (1, 1, 1024, 256), dict(stride=1)),
+               ((3, 256, 28, 28), (3, 3, 256, 256), dict(stride=2)))}
+    for xs, ws, kw in conv_shapes.get(task, ()):
+        x, w = t(rng.standard_normal(xs)), t(rng.standard_normal(ws))
+        got = shift_conv2d(x, w, **kw)
+        again = shift_conv2d(x, w, **kw)
+        each = torch.stack([shift_conv2d(xi, w, **kw) for xi in x])
+        torch.cuda.synchronize()
+        differ = int((got != each).sum().item())
+        rerun = int((got != again).sum().item())
+        plan = launch_plan(xs, ws, **kw)
+        log(f"check batched shift_conv2d x{xs} w{ws} {kw} (split "
+            f"{plan.split} of {plan.k_tiles} K tiles): one launch vs "
+            f"{xs[0]} per-image launches, {differ} elements differ; a "
+            f"second call, {rerun} differ"
+            + ("" if not (differ or rerun) else "  FAIL"))
+        assert not differ, "batched conv differs from per-image calls"
+        assert not rerun, "two calls of the conv differ"
+    if task == "vip-masked":
         x, y = t(rng.standard_normal((256, 64))), t(rng.standard_normal(
             (64, 256)))
         mask = torch.zeros((256, 256), device=dev)
@@ -373,6 +407,7 @@ def pad_mask(n: int) -> np.ndarray:
 
 def conv_case(x, w, kw, per_request) -> Case:
     from repro_torch.kernels import ref, shift_conv2d
+    from repro_torch.kernels.shift_conv import launch_plan
     k1, k2, cin_g, cout = w.shape
     ho, wo, pt, pb, pl, pr = ref.conv_geometry(
         x.shape[-2], x.shape[-1], k1, k2, stride=kw["stride"],
@@ -396,7 +431,9 @@ def conv_case(x, w, kw, per_request) -> Case:
                          dilation=ref.pair(kw.get("dilation", 1)),
                          groups=groups).reshape(*x.shape[:-3], cout, ho, wo),
         4.0 * (x.numel() + w.numel() + batch * cout * ho * wo),
-        2.0 * batch * k1 * k2 * cin_g * cout * ho * wo, per_request)
+        2.0 * batch * k1 * k2 * cin_g * cout * ho * wo, per_request,
+        rate=CONV_FLOPS, plan=launch_plan(tuple(x.shape), tuple(w.shape),
+                                          **kw))
 
 
 def spdmm_case(idx, val, y, per_request) -> Case:
@@ -524,11 +561,21 @@ def device_events(fn, n: int) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, name: str, n: int = 20) -> float | None:
-    """Mean device time of the kernels whose name holds ``name`` per call
-    of ``fn``, over ``n`` profiled calls (None if none was recorded)."""
+def kernel_base(name: str) -> str:
+    """A profiled kernel's bare function name: ``void (anonymous
+    namespace)::shift_conv_tf32x3_kernel<64, false>(...)`` ->
+    ``shift_conv_tf32x3_kernel``."""
+    head = name.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return head.split("<", 1)[0].split()[-1].split("::")[-1]
+
+
+def device_ms(fn, prefix: str, n: int = 20) -> float | None:
+    """Mean device time of the kernels whose bare name starts with
+    ``prefix``, per call of ``fn``, over ``n`` profiled calls (None if none
+    was recorded)."""
     fn()
-    events = [e for e in device_events(fn, n) if name in e.name]
+    events = [e for e in device_events(fn, n)
+              if kernel_base(e.name).startswith(prefix)]
     if not events:
         return None
     return sum(e.time_range.end - e.time_range.start
@@ -754,13 +801,19 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
         plain = time_ms(case.plain)
         lib = time_ms(case.library) if case.library is not None else None
         bnd, by = bound_ms(case.nbytes, case.flops, case.rate)
-        dev = (device_ms(case.run, "flash_kernel")
-               if case.kernel == "flash_attention" else None)
+        dev = device_ms(case.run, DEVICE_PREFIX[case.kernel])
+        # the rate of the products the function needs, by device time
+        rate = case.flops / ((dev or ms) * 1e-3) / 1e12
+        plan = case.plan
         log(f"time {task} {case.label}: kernel {ms:.5f} ms"
             + ("" if dev is None else f" (device {dev:.5f} ms)")
             + f", plain {plain:.5f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound "
-            f"{bnd:.5f} ms ({by}), x{case.per_request:g}/request  [{card}]")
+            f"{bnd:.5f} ms ({by}), {rate:.2f} TFLOP/s"
+            + ("" if plan is None else
+               f", tile {plan.bm}x{plan.bn} split {plan.split} of "
+               f"{plan.k_tiles} K tiles, {plan.blocks} blocks")
+            + f", x{case.per_request:g}/request  [{card}]")
         if case.per_request:
             tot = totals[case.kernel]
             tot["ms"] += case.per_request * ms
@@ -1119,6 +1172,104 @@ def lm_profiles(cfg, params, eng, card) -> None:
                    card)
 
 
+def device_only_ms(fn, n: int = 40) -> float:
+    """Mean device time of ``fn`` by CUDA events, with the host's launches
+    queued behind a sleeping kernel, so that the host's launch rate does
+    not show."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(30_000_000)               # ~15 ms: queue n launches
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def conv_sweep(card) -> None:
+    """Every pixel tile and split-K factor of the shift-conv kernel at every
+    distinct conv shape of b4, b5, b1, b2 and b3 (device time, checked
+    against the plain version), beside the plan's choice; per task, the
+    plan's sum over a request's convs against the best per layer."""
+    from repro_torch.kernels import _build, ref
+    lib = _build.library()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    timed: dict[tuple, tuple[float, float]] = {}   # shape -> (plan, best)
+    for task in ("b4", "b5", "b1", "b2", "b3-r50", "b3-r101"):
+        plan_ms = best_ms = 0.0
+        plan = task_plans(task)[0]
+        shapes = dict(plan.meta["input_shapes"])
+        for op in plan.ops:
+            xin = tuple(shapes[op.inputs[0]])
+            shapes[op.name] = op.out_shape
+            if op.kind != "conv":
+                continue
+            w_shape, stride = op.weights["w"].shape, ref.pair(
+                op.attrs["stride"])
+            key = (xin, w_shape, stride, op.attrs["padding"])
+            if key not in timed:
+                timed[key] = sweep_shape(lib, dev, rng, *key, card)
+            plan_ms += timed[key][0]
+            best_ms += timed[key][1]
+        log(f"conv sweep {task}: the plan's choice {plan_ms:.4f} ms of "
+            f"device time per request, the best per layer {best_ms:.4f} ms "
+            f"({plan_ms / best_ms - 1:+.1%})  [{card}]")
+
+
+def sweep_shape(lib, dev, rng, x_shape, w_shape, stride, padding,
+                card) -> tuple[float, float]:
+    """Device time of one conv shape at every block tile and split,
+    each result checked against the plain version -> (the plan's choice,
+    the best), in ms."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.shift_conv import BK, launch_plan
+    k1, k2, cin, cout = w_shape
+    batch = x_shape[0] if len(x_shape) == 4 else 1
+    H, W = x_shape[-2:]
+    ho, wo, pad_t, _, pad_l, _ = ref.conv_geometry(
+        H, W, k1, k2, stride=stride, padding=padding, dilation=(1, 1))
+    x = torch.tensor(rng.standard_normal(x_shape), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.standard_normal(w_shape), dtype=torch.float32,
+                     device=dev)
+    want = ref.conv2d_ref(x, w, stride=stride, padding=padding)
+    k_tiles = -(-k1 * k2 * cin // BK)
+    chosen = launch_plan(x_shape, w_shape, stride=stride, padding=padding)
+    times = {}
+    for bm, bn, split in itertools.product((32, 64), (32, 64),
+                                           range(1, k_tiles + 1)):
+        tiles = -(-cout // bm) * -(-ho * wo // bn)
+        if k_tiles % split or (tiles * split > 4096 and (bm, bn, split) != (
+                chosen.bm, chosen.bn, chosen.split)):
+            continue
+        buf = torch.empty((split, *want.shape), device=dev)
+        params = (ctypes.c_int * 20)(
+            batch, cin, H, W, k1, k2, cout, 1, ho, wo, *stride, 1, 1,
+            pad_t, pad_l, bm, bn, split, int((k1, k2, *stride) == (1,) * 4))
+
+        def run():
+            return lib.repro_shift_conv2d(
+                x.data_ptr(), w.data_ptr(), buf.data_ptr(), params,
+                torch.cuda.current_stream(dev).cuda_stream)
+        assert run() == 0
+        torch.cuda.synchronize()
+        _, rel = rel_err(buf[0], want)
+        assert rel <= KERNEL_RTOL, (x_shape, w_shape, bm, bn, split, rel)
+        times[bm, bn, split] = device_only_ms(run)
+    mine = times[chosen.bm, chosen.bn, chosen.split]
+    (bbm, bbn, bsplit), best = min(times.items(), key=lambda kv: kv[1])
+    log(f"conv sweep x{x_shape} w{w_shape} stride={stride}: plan tile "
+        f"{chosen.bm}x{chosen.bn} split {chosen.split} of {k_tiles} K tiles "
+        f"{mine:.5f} ms; best {bbm}x{bbn} split {bsplit} {best:.5f} ms; all "
+        + " ".join(f"{bm}x{bn}/{sp}:{t:.4f}" for (bm, bn, sp), t in
+                   sorted(times.items())) + f"  [{card}]")
+    return mine, best
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1158,6 +1309,9 @@ def main() -> int:
         "csrc/sddmm.cu and sddmm.py disagree"
     assert lib.repro_flash_max_d() == MAX_D, \
         "csrc/flash_attention.cu and flash_attention.py disagree"
+    if "--conv-sweep" in sys.argv[1:]:
+        conv_sweep(card)
+        return finish()
 
     tasks = list(PER_REQUEST)
     plans = {task: task_plans(task) for task in tasks}
@@ -1213,6 +1367,10 @@ def main() -> int:
                    f"over its {lm_cfg.n_layers} launches")
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
+    return finish()
+
+
+def finish() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

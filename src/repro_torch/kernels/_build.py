@@ -32,10 +32,10 @@ FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported launcher: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int,
-# strides as c_longlong, scales as c_float.
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int (or
+# an array of them), strides as c_longlong, scales as c_float.
 SIGNATURES = {
-    "repro_shift_conv2d": [_P, _P, _P] + [_I] * 16 + [_P],
+    "repro_shift_conv2d": [_P] * 3 + [ctypes.POINTER(_I), _P],
     "repro_ddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ell_spdmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -132,8 +132,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on ``t``'s device, as a C pointer: the raw
+    handle, without building a ``torch.cuda.Stream`` object each call."""
+    return ctypes.c_void_p(
+        torch._C._cuda_getCurrentRawStream(t.get_device()))
 
 
 def ptr(t) -> ctypes.c_void_p:

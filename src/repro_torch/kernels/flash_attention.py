@@ -9,9 +9,11 @@ the kernel is ``csrc/flash_attention.cu``.  Query i sees keys
 convention), key tiles above the diagonal are skipped, the running max,
 sum and accumulator stay in fp32, and a row with no live key returns 0.
 The plain version is ``ref.attention_ref``.  The reference's ``bq``/``bk``
-tile sizes and ``interpret`` flag have no counterpart: the CUDA kernel's
-tiles are fixed (64 queries x 32 keys) and do not change the result beyond
-rounding.
+tile sizes and ``interpret`` flag have no counterpart: the CUDA kernels'
+tiles are fixed and do not change the result beyond rounding.  bf16 runs on
+the tensor cores (64 queries x 64 keys, bf16 MMAs with fp32 accumulation,
+p in three bf16 parts, fp32-level, k and v staged by 16-byte copies);
+fp32 runs on the SIMT kernel (64 queries x 32 keys).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -37,8 +39,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Any batch, head and sequence strides (a permuted ``(B, S, H, D)``
     activation is read in place); the head dim must be contiguous on the
-    card.  Returns q's dtype, laid out like q.  ``scale`` defaults to
-    ``1/sqrt(D)``.
+    card, and in bf16 every base and stride must be 16-byte aligned (D a
+    multiple of 8), for the kernel's 16-byte copies.  Returns q's dtype,
+    laid out like q.  ``scale`` defaults to ``1/sqrt(D)``.
     """
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
@@ -70,6 +73,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: operand too large for int32 "
                          "indexing")
     out = torch.empty_like(q)               # q's layout: strides preserved
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if D % 8 or t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} must be 16-byte aligned "
+                    f"(base, and the strides of batch, head and sequence; "
+                    f"D % 8 == 0) for the kernel's 16-byte copies, got D={D}, "
+                    f"strides {t.stride()}, base {t.data_ptr() % 16} bytes "
+                    f"past a 16-byte boundary")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _build.library().repro_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),

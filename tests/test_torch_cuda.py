@@ -14,10 +14,12 @@ equal exactly: the kernel repeats the plain version's fp32 arithmetic; so
 must a batched shift-conv and its per-image calls (same arithmetic order),
 and SDDMM's dead tiles must be exactly 0.  Requests end to end:
 ``1e-4 · max|plain plan|``.  Flash attention in bf16: ``2^-7 · max|plain|``
-— kernel and plain version both compute in fp32 from the same bf16 inputs
-and round once to bf16, so an element can differ by one bf16 ulp (2^-8 of
-itself) where the two fp32 sums straddle a rounding boundary; rows with no
-live key must be exactly 0.
+— kernel and plain version both compute from the same bf16 inputs with
+fp32 sums (the kernel's p in three bf16 parts, fp32-level) and round
+once to bf16, so an element can differ by one bf16 ulp (2^-8 of itself)
+where the two sums straddle a rounding boundary; rows with no live key
+must be exactly 0.  Shift-conv runs 3xTF32 on the tensor cores, fp32-level
+(~2^-21 of each product): the same ``1e-5``.
 """
 import pathlib
 import sys
@@ -31,7 +33,7 @@ from repro_torch.kernels.ddmm import ddmm
 from repro_torch.kernels.flash_attention import MAX_D, flash_attention
 from repro_torch.kernels.knn import MAX_K, knn
 from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
-from repro_torch.kernels.shift_conv import shift_conv2d
+from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
 from repro_torch.kernels.spdmm import spdmm
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -52,6 +54,27 @@ CONV_CASES = [
     (6, 13, 25, 3, 3, 10, (2, 2), "VALID", 1, (1, 1)),
     (8, 14, 25, 3, 3, 12, (1, 1), "SAME", 2, (2, 2)),
     (8, 15, 25, 3, 2, 8, (2, 1), "VALID", 4, (1, 2)),
+]
+# Every distinct conv layer of b2 (ResNet-50 at 224x224) and b3-r50 (its
+# output-stride-16 variant), SAME padding: (c_in, H, W, k1, k2, c_out,
+# stride).  tests/test_torch_kernels.py checks the list against the plans.
+RESNET_CONVS = [
+    (3, 224, 224, 7, 7, 64, 2),
+    (64, 56, 56, 1, 1, 256, 1), (64, 56, 56, 1, 1, 64, 1),
+    (64, 56, 56, 3, 3, 64, 1), (256, 56, 56, 1, 1, 64, 1),
+    (256, 56, 56, 1, 1, 512, 2), (256, 56, 56, 1, 1, 128, 1),
+    (128, 56, 56, 3, 3, 128, 2), (128, 28, 28, 1, 1, 512, 1),
+    (512, 28, 28, 1, 1, 128, 1), (128, 28, 28, 3, 3, 128, 1),
+    (512, 28, 28, 1, 1, 1024, 2), (512, 28, 28, 1, 1, 256, 1),
+    (256, 28, 28, 3, 3, 256, 2), (256, 14, 14, 1, 1, 1024, 1),
+    (1024, 14, 14, 1, 1, 256, 1), (256, 14, 14, 3, 3, 256, 1),
+    (1024, 14, 14, 1, 1, 2048, 2), (1024, 14, 14, 1, 1, 512, 1),
+    (512, 14, 14, 3, 3, 512, 2), (512, 7, 7, 1, 1, 2048, 1),
+    (2048, 7, 7, 1, 1, 512, 1), (512, 7, 7, 3, 3, 512, 1),
+    # b3-r50 only (stage 4 stays at 14x14)
+    (1024, 14, 14, 1, 1, 2048, 1), (512, 14, 14, 3, 3, 512, 1),
+    (512, 14, 14, 1, 1, 2048, 1), (2048, 14, 14, 1, 1, 512, 1),
+    (512, 14, 14, 1, 1, 19, 1),
 ]
 # (n, f, k, masked points, self_loops, integer coordinates): b6-dyn's shape,
 # exact ties, self loops, a ragged n, b7-dyn's shape, the largest k
@@ -89,6 +112,14 @@ FLASH_CASES = [
 ]
 # qwen3-0.6b's served prefills (buckets 16-48) and a 2048-token prompt
 FLASH_SERVED = [(1, 16, 8, s, s, 128, True) for s in (16, 32, 48, 2048)]
+# bf16 on the tensor cores: 2048 tokens at D 64 and 128, GQA 16/8, causal
+# and not; ragged Sq (77, 100) that leave partial 16-row MMA tiles, alone
+# and as continuations (Sq < Sk)
+FLASH_BF16 = ([(1, 16, 8, 2048, 2048, d, c) for d in (64, 128)
+               for c in (True, False)]
+              + [(1, 16, 8, 77, 77, 128, True), (1, 16, 8, 100, 100, 64, True),
+                 (2, 4, 2, 77, 100, 128, True),
+                 (1, 16, 8, 100, 300, 128, True)])
 
 
 def flash_inputs(b, hq, hkv, sq, sk, d, seed=0):
@@ -182,6 +213,56 @@ def test_cuda_shift_conv_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert shift_conv2d.launches == before + 1
     close(got.cpu(), ref.conv2d_ref(x, wt, **kw).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RESNET_CONVS, ids=str)
+def test_cuda_shift_conv_resnet_layers_match_plain(cuda, case):
+    """Every layer shape of b2 and b3-r50 (split-K active on the 7x7 and
+    14x14 layers) within 1e-5 of the plain version: 3xTF32 is fp32-level."""
+    cin, h, w, k1, k2, cout, stride = case
+    x, wt = (t(a).to(cuda) for a in conv_inputs(cin, h, w, k1, k2, cout, 1))
+    before = shift_conv2d.launches
+    got = shift_conv2d(x, wt, stride=stride)
+    torch.cuda.synchronize()
+    assert shift_conv2d.launches == before + 1
+    close(got.cpu(), ref.conv2d_ref(x, wt, stride=stride).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (1, 28, 28, 3, 3, 64, 1), (1, 128, 128, 3, 3, 48, 1),
+    (3, 150, 25, 1, 1, 64, 1), (3, 33, 47, 3, 3, 20, 2),
+    (3, 224, 224, 7, 7, 64, 2)], ids=str)
+def test_cuda_shift_conv_one_or_three_input_channels(cuda, case):
+    """K of 3 to 147: the K tile is mostly zero padding."""
+    cin, h, w, k1, k2, cout, stride = case
+    x, wt = (t(a).to(cuda) for a in conv_inputs(cin, h, w, k1, k2, cout, 1))
+    got = shift_conv2d(x, wt, stride=stride)
+    torch.cuda.synchronize()
+    close(got.cpu(), ref.conv2d_ref(x, wt, stride=stride).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(512, 7, 7, 3, 3, 512, 1),
+                                  (2048, 7, 7, 1, 1, 512, 1),
+                                  (256, 28, 28, 3, 3, 256, 2)], ids=str)
+def test_cuda_split_k_shift_conv_is_reproducible_bit_for_bit(cuda, case):
+    """Split-K sums its partials in a fixed order, without atomics: two
+    calls give the same bits, and a batch gives each image's bits."""
+    cin, h, w, k1, k2, cout, stride = case
+    assert launch_plan((cin, h, w), (k1, k2, cin, cout),
+                       stride=stride).split > 1
+    rng = np.random.default_rng(cin)
+    x = t(rng.standard_normal((3, cin, h, w)).astype(np.float32)).to(cuda)
+    wt = t(rng.standard_normal((k1, k2, cin, cout))
+           .astype(np.float32)).to(cuda)
+    got = shift_conv2d(x, wt, stride=stride)
+    again = shift_conv2d(x, wt, stride=stride)
+    first = shift_conv2d(x[0], wt, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], first)
 
 
 def sddmm_inputs(m, k, n, density, seed=0):
@@ -282,7 +363,10 @@ def test_cuda_sddmm_tile_matches_the_kernel(cuda):
 @pytest.mark.parametrize("case", [
     (26, 1, 28, 28, 3, 3, 64, 1, "SAME", 1, (1, 1)),
     (26, 64, 7, 7, 3, 3, 64, 1, "SAME", 1, (1, 1)),
-    (3, 8, 15, 25, 3, 2, 8, (2, 1), "VALID", 4, (1, 2))], ids=str)
+    (3, 8, 15, 25, 3, 2, 8, (2, 1), "VALID", 4, (1, 2)),
+    # b2's 7x7 and 14x14 layers: split-K active
+    (4, 512, 7, 7, 3, 3, 512, 1, "SAME", 1, (1, 1)),
+    (3, 1024, 14, 14, 1, 1, 256, 1, "SAME", 1, (1, 1))], ids=str)
 def test_cuda_batched_shift_conv_equals_per_image_calls(cuda, case):
     b, cin, h, w, k1, k2, cout, stride, padding, groups, dil = case
     rng = np.random.default_rng(b)
@@ -379,6 +463,39 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
           rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
     if causal and sq > sk:
         assert (got[:, :, :sq - sk] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16, ids=str)
+def test_cuda_flash_attention_bf16_tensor_cores_match_plain(cuda, case):
+    """The bf16 tensor-core kernel at 2048 tokens (D 64 and 128, causal and
+    not) and at ragged Sq, within BF16_RTOL of the plain version."""
+    b, hq, hkv, sq, sk, d, causal = case
+    q, k, v = (t(a).to(cuda, torch.bfloat16)
+               for a in flash_inputs(*case[:6], seed=sq + d))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=causal)
+    close(got.float().cpu(), want.float().cpu(), rtol=BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_misaligned_bf16_views(cuda):
+    """bf16 k/v/q rows go through 16-byte copies: a base or a stride off a
+    16-byte boundary raises; nothing is copied and nothing falls back."""
+    wide = torch.zeros((1, 2, 8, 40), device=cuda, dtype=torch.bfloat16)
+    odd = torch.zeros((1, 2, 8, 36), device=cuda, dtype=torch.bfloat16)
+    ok = wide[..., :32]                      # rows 80 bytes apart: aligned
+    before = flash_attention.launches
+    for bad in (wide[..., 1:33], odd[..., :32]):
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(bad, ok, ok)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(ok, bad, ok)
+    assert flash_attention.launches == before
+    flash_attention(ok, ok, ok)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -23,10 +23,13 @@ from repro.kernels.spdmm import spdmm as jspdmm
 from repro_torch.core.passes.select import dense_to_ell
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ddmm import ddmm
-from repro_torch.kernels.shift_conv import shift_conv2d
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.shift_conv import (BK, SMS, launch_plan,
+                                            shift_conv2d)
 from repro_torch.kernels.spdmm import spdmm
-from test_torch_cuda import (ACTS, CONV_CASES, DDMM_SHAPES, SPDMM_SHAPES,
-                             close, conv_inputs, ddmm_inputs, ell_inputs, t)
+from test_torch_cuda import (ACTS, CONV_CASES, DDMM_SHAPES, RESNET_CONVS,
+                             SPDMM_SHAPES, close, conv_inputs, ddmm_inputs,
+                             ell_inputs, t)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,6 +113,131 @@ def test_conv_geometry_matches_lowering():
     with pytest.raises(ValueError):
         ref.conv_geometry(10, 10, 3, 3, stride=1, padding="FULL",
                           dilation=1)
+
+
+def resnet_conv_calls(task):
+    """Every distinct conv call of ``task``'s plan at full width:
+    ``(x shape, w shape, stride, padding)``."""
+    from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.gnncv.tasks import build_task
+    plan = compile_graph(build_task(task), CompileOptions(kernels="cuda"))
+    shapes = dict(plan.meta["input_shapes"])
+    calls = set()
+    for op in plan.ops:
+        shapes[op.name] = op.out_shape
+        if op.kind == "conv":
+            assert op.attrs.get("groups", 1) == 1
+            assert op.attrs.get("dilation", 1) in (1, (1, 1), None)
+            calls.add((tuple(shapes[op.inputs[0]]), op.weights["w"].shape,
+                       op.attrs["stride"], op.attrs["padding"]))
+    return calls
+
+
+@pytest.fixture(scope="module")
+def resnet_calls():
+    return {task: resnet_conv_calls(task)
+            for task in ("b2", "b3-r50", "b3-r101")}
+
+
+def test_resnet_conv_list_is_every_layer_of_b2_and_b3(resnet_calls):
+    """``RESNET_CONVS`` (the card tests' shapes) is exactly the distinct
+    conv layers of b2 and b3-r50; b3-r101 adds depth, no new shape."""
+    listed = {((c, h, w), (k1, k2, c, o), (s, s), "SAME")
+              for c, h, w, k1, k2, o, s in RESNET_CONVS}
+    assert len(listed) == len(RESNET_CONVS)
+    norm = {task: {(x, w, tuple(np.broadcast_to(s, 2)), p)
+                   for x, w, s, p in calls}
+            for task, calls in resnet_calls.items()}
+    assert norm["b2"] | norm["b3-r50"] == listed
+    assert norm["b3-r101"] == norm["b3-r50"]
+
+
+@pytest.mark.parametrize("task", ["b2", "b3-r50", "b3-r101"])
+def test_shift_conv_launch_plan_fills_the_card(resnet_calls, task):
+    """Every layer's grid reaches one wave of blocks, or every block holds
+    a single K tile; the split divides the K tiles."""
+    for x, w, stride, padding in resnet_calls[task]:
+        plan = launch_plan(x, w, stride=stride, padding=padding)
+        assert plan.k_tiles == -(-w[0] * w[1] * w[2] // BK)
+        assert plan.k_tiles % plan.split == 0, (x, w, plan)
+        assert plan.blocks >= SMS or plan.split == plan.k_tiles, (x, w, plan)
+        ho, wo, *_ = ref.conv_geometry(x[1], x[2], w[0], w[1],
+                                       stride=stride, padding=padding,
+                                       dilation=1)
+        assert plan.bn == (32 if ho * wo <= 256 or plan.k_tiles <= 8
+                           else 64)
+
+
+@pytest.mark.parametrize("case", RESNET_CONVS + [
+    (64, 7, 7, 3, 3, 64, 1), (1, 28, 28, 3, 3, 64, 1),
+    (8, 15, 25, 3, 2, 8, (2, 1))], ids=str)
+def test_shift_conv_launch_plan_does_not_depend_on_the_batch(case):
+    """Tile and split are functions of the per-image problem: a batch of
+    1, 4 or 26 images runs each image as the 3-D call does."""
+    cin, h, w, k1, k2, cout, stride = case
+    one = launch_plan((cin, h, w), (k1, k2, cin, cout), stride=stride)
+    for batch in (1, 4, 26):
+        plan = launch_plan((batch, cin, h, w), (k1, k2, cin, cout),
+                           stride=stride)
+        assert (plan.bm, plan.bn, plan.k_tiles, plan.split, plan.dense) == (
+            one.bm, one.bn, one.k_tiles, one.split, one.dense)
+        assert plan.grid == (one.grid[0], batch)
+    grouped = launch_plan((2, cin * 2, h, w), (k1, k2, cin, 2 * cout),
+                          stride=stride, groups=2)
+    assert (grouped.split, grouped.grid) == (one.split, (one.grid[0], 4))
+
+
+def tf32_rna(a):
+    """fp32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def mma_dot(terms):
+    """The kernel's sum: fp32 products (exact for TF32 operands), summed
+    in fp32 in order, one k8 step and one product term at a time."""
+    acc = np.zeros(terms[0][0].shape[0], np.float32)
+    for k0 in range(0, terms[0][0].shape[1], 8):
+        for a, b in terms:
+            for k in range(k0, k0 + 8):
+                acc = acc + a[:, k] * b[:, k]
+    return acc
+
+
+def test_3xtf32_split_is_fp32_accurate_at_b3_r101_depth():
+    """hi = rna(a), lo = rna(a - hi); hi·hi + hi·lo + lo·hi in fp32 agrees
+    with an fp64 dot within 1e-6 of sum|a·b| at K = 4608 (b3-r101's 3x3
+    512 -> 512), where one TF32 product (hi·hi alone) does not."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((64, 4608)).astype(np.float32)
+    b = rng.standard_normal((64, 4608)).astype(np.float32)
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    assert np.array_equal(a_hi.view(np.uint32) & 0x1FFF, np.zeros_like(
+        a_hi, np.uint32))
+    assert np.abs(a - a_hi - a_lo).max() <= 2.0 ** -21 * np.abs(a).max()
+    exact = (a.astype(np.float64) * b).sum(1)
+    scale = np.abs(a.astype(np.float64) * b).sum(1)
+    three = mma_dot([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)])
+    one = mma_dot([(a_hi, b_hi)])
+    assert (np.abs(three - exact) / scale).max() <= 1e-6
+    assert (np.abs(one - exact) / scale).max() > 1e-6
+
+
+def test_flash_bf16_refuses_misaligned_operands():
+    """bf16 rows go through 16-byte copies: a base or a stride off a
+    16-byte boundary raises before anything is built or launched."""
+    wide = torch.empty((1, 2, 8, 40), device="meta", dtype=torch.bfloat16)
+    odd = torch.empty((1, 2, 8, 36), device="meta", dtype=torch.bfloat16)
+    ok = wide[..., :32]
+    before = flash_attention.launches
+    for bad in (wide[..., 1:33], odd[..., :32]):
+        for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            with pytest.raises(ValueError, match="aligned"):
+                flash_attention(*args)
+    assert flash_attention.launches == before
 
 
 # ------------------------------------------------------ wrapper contract --
