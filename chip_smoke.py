@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-sweep    # shift-conv's tiles and splits
+    python3 chip_smoke.py --ddmm-sweep    # DDMM's column tiles and splits
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -14,7 +15,12 @@ plan with the CUDA kernels bound, checks the launch counts and the outputs
 against the same plan bound to the plain versions (on the card and, for
 one request, on the CPU), serves 16 requests of qwen3-0.6b at full width
 through ``repro_torch.launch.serve`` and checks its tokens against the
-plain attention path, and times kernels, requests and tokens.  Every
+plain attention path, and times kernels, requests and tokens.  DDMM is
+held to its batch rule (a product stacked along M equals its per-sample
+products bit for bit; a second call with split-K the first), and relu
+must keep a NaN row NaN.  SpDMM runs through the entry the path calls
+(``spdmm_rows`` on b4's ``(C·T, V)`` view), timed beside the route it
+replaced (the column kernel between two transposing copies).  Every
 number printed is measured in this run.  The last line is the JSON result;
 any failure exits nonzero before it.  Imports the port only
 (``repro_torch``), never JAX.
@@ -23,7 +29,9 @@ any failure exits nonzero before it.  Imports the port only
 and split-K factor it takes, at every distinct conv shape of b4, b5, b1,
 b2 and b3, checks each against the plain version, and prints the plan's
 choice (``shift_conv.launch_plan``) beside the best: the data behind the
-plan's rule.
+plan's rule.  ``--ddmm-sweep`` does the same for DDMM's tensor-core route
+(column tile and split-K at every tensor-core call of the paths, beside
+``ddmm.launch_plan``'s choice).
 """
 from __future__ import annotations
 
@@ -212,7 +220,15 @@ class Case:
     exact: bool = False
     rtol: float = KERNEL_RTOL
     rate: float = FP32_FLOPS
-    plan: object = None          # shift-conv's launch plan
+    plan: object = None          # shift-conv's or DDMM's launch plan
+    # the route the runtime took before this kernel's redesign, timed
+    # beside it (SpDMM: the column kernel between two transposing copies)
+    before: Callable | None = None
+    # DDMM: ``torch.mm`` of the product alone, the yardstick where no one
+    # PyTorch call computes the product with its epilogue
+    mm: Callable | None = None
+    # DDMM: the call's (x, y, bias, residual, act), for ``--ddmm-sweep``
+    args: tuple = ()
 
 
 def mm_operands(op, xin, shapes, rng):
@@ -245,10 +261,13 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
     def t(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    def ddmm_at(x, y, gram=False):
-        key = ("ddmm", tuple(x.shape), tuple(y.shape), gram)
+    def ddmm_at(x, y, gram=False, epi=None):
+        epi = epi or {}
+        key = ("ddmm", tuple(x.shape), tuple(y.shape), gram,
+               tuple(sorted((k, v is not None if k != "act" else v)
+                            for k, v in epi.items())))
         if key not in cases:
-            cases[key] = ddmm_case(x, y, gram=gram, per_request=0)
+            cases[key] = ddmm_case(x, y, gram=gram, per_request=0, **epi)
         cases[key].per_request += 1
 
     shapes = dict(plan.meta["input_shapes"])
@@ -265,20 +284,21 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                                        kw, per_request=0)
             cases[key].per_request += 1
         elif op.kernel == "cuda_ell_spdmm":
-            c, tt, v = xin                     # right_t: (V, C·T) operand
-            key = ("spdmm", (v, c * tt), op.ell[0].shape)
+            c, tt, v = xin                     # right_t: the (C·T, V) view
+            key = ("spdmm", (c * tt, v), op.ell[0].shape)
             if key not in cases:
                 idx, val = t(op.ell[0], torch.int32), t(op.ell[1])
-                y = t(rng.standard_normal((v, c * tt)))
-                cases[key] = spdmm_case(idx, val, y, per_request=0)
+                x2 = t(rng.standard_normal((c * tt, v)))
+                cases[key] = spdmm_case(idx, val, x2, per_request=0)
             cases[key].per_request += 1
         elif op.kernel == "cuda_ddmm" and op.kind == "mm":
-            # the runtime calls the kernel without epilogue; bias and
-            # activation follow in the shared epilogue
-            ddmm_at(*map(t, mm_operands(op, xin, shapes, rng)))
+            # the runtime hands the kernel the op's epilogue where it can
+            x, y = map(t, mm_operands(op, xin, shapes, rng))
+            ddmm_at(x, y, epi=handed_epilogue(op, x.shape[0], y.shape[1],
+                                              rng, dev))
         elif op.kernel == "cuda_sddmm" and "mask" not in op.weights:
-            x = t(rng.standard_normal(xin))            # VIP: x @ xᵀ
-            ddmm_at(x, x.T.contiguous(), gram=True)
+            x = t(rng.standard_normal(xin))            # VIP: x @ xᵀ, a view
+            ddmm_at(x, x.T, gram=True)
         elif op.kernel == "cuda_sddmm":
             x = t(rng.standard_normal(xin))
             key = ("sddmm", xin, op.attrs["nnz"])
@@ -301,12 +321,18 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
     extra = []
     if task == "b4":
         # beyond the path: ragged tiles with the whole epilogue, and the
-        # conv options
+        # conv options; SpDMM's column entry (the JAX signature) at b4's
+        # widest shape
         x = t(rng.standard_normal((1000, 700)))
+        idx, val = (t(a, dt) for a, dt in zip(
+            next(op.ell for op in plan.ops if op.ell is not None),
+            (torch.int32, torch.float32)))
         extra = [ddmm_case(x, t(rng.standard_normal((700, 300))),
                            bias=t(rng.standard_normal(300)),
                            residual=t(rng.standard_normal((1000, 300))),
                            act="gelu", per_request=0),
+                 spdmm_columns_case(idx, val, t(rng.standard_normal(
+                     (25, 19200)))),
                  conv_case(t(rng.standard_normal((32, 40, 25))),
                            t(rng.standard_normal((3, 3, 8, 32))),
                            dict(stride=(2, 1), padding="SAME", groups=4,
@@ -328,6 +354,18 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                           per_request=0),
                  knn_case(t(rng.standard_normal((196, 192))), 9, mask=None,
                           self_loops=False, per_request=0)]
+    elif task == "b1":
+        # beyond the path: every other act, ragged M, N and K on both y
+        # layouts, and each route at K not a multiple of 4
+        for act, (m, k, n) in zip(("gelu", "silu", "tanh", None),
+                                  ((26, 800, 400), (33, 257, 129),
+                                   (5, 403, 7), (100, 70, 130))):
+            x = t(rng.standard_normal((m, k)))
+            for y in (t(rng.standard_normal((k, n))),
+                      t(rng.standard_normal((n, k))).T):
+                extra.append(ddmm_case(
+                    x, y, bias=t(rng.standard_normal(n)),
+                    residual=t(rng.standard_normal((m, n))), act=act))
     elif task == "vip-masked":
         # beyond the path: the reference's three shapes, ragged M, N and K,
         # a mask of density 1 and one of density 0, y stored k-major
@@ -344,14 +382,90 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
     return list(cases.values()) + extra
 
 
+def handed_epilogue(op, m, n, rng, dev) -> dict:
+    """The epilogue the runtime hands the DDMM kernel with ``op``'s
+    ``(m, k) @ (k, n)`` product (``matmul.kernel_epilogue``: bias, relu,
+    a pre-activation residual, random where it is a runtime value), on
+    ``dev``; empty where ``apply_epilogue`` runs it after the kernel."""
+    from repro_torch.core.runtime.matmul import kernel_epilogue
+    shape = tuple(op.out_shape) if op.out_shape else (m * n,)
+    env = {}
+    if op.attrs.get("fused_residual"):
+        env[op.attrs["fused_residual"]] = torch.tensor(
+            rng.standard_normal(shape), dtype=torch.float32)
+    epi = kernel_epilogue(op, env, None, m, n, shape)
+    if epi is None:
+        return {}
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in epi.items()}
+
+
+def ddmm_exact_checks(task, rng, dev) -> None:
+    """DDMM's batch-stable plan and in-order split-K, bit for bit: a
+    stacked-M product equals its per-sample products (b1's linear on the
+    tensor cores and its classifier on the narrow route, stacked 4x; b6's
+    classifier at M = 1 against M = 4), two calls with split-K active give
+    the same bits (b2), and relu keeps a NaN row NaN (b6)."""
+    from repro_torch.kernels import ddmm, ref
+    from repro_torch.kernels.ddmm import launch_plan
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+
+    stacked = {"b1": ((26, 800, 400, "relu"), (26, 400, 5, None)),
+               "b6": ((1, 1024, 40, None),)}
+    for m, k, n, act in stacked.get(task, ()):
+        x, y, b = t(4 * m, k), t(k, n), t(n)
+        got = ddmm(x, y, bias=b, act=act)
+        each = torch.cat([ddmm(x[i * m:(i + 1) * m], y, bias=b, act=act)
+                          for i in range(4)])
+        torch.cuda.synchronize()
+        differ = int((got != each).sum().item())
+        one, four = launch_plan(m, k, n), launch_plan(4 * m, k, n)
+        log(f"check ddmm stacked ({4 * m},{k})@({k},{n}) act={act} (route "
+            f"{one.route}, tiles {four.bm}x{four.bn} vs {one.bm}x{one.bn}, "
+            f"split {four.split} of {four.k_tiles} K stages): vs 4 "
+            f"per-sample products, {differ} elements differ"
+            + ("" if not differ else "  FAIL"))
+        assert not differ, "ddmm: stacked M differs from per-sample calls"
+    if task == "b2":
+        x, y, b = t(80, 1024), t(1024, 2048), t(2048)
+        plan = launch_plan(80, 1024, 2048)
+        got, again = ddmm(x, y, bias=b), ddmm(x, y, bias=b)
+        torch.cuda.synchronize()
+        differ = int((got != again).sum().item())
+        log(f"check ddmm (80,1024)@(1024,2048) split {plan.split} of "
+            f"{plan.k_tiles} K stages: a second call, {differ} elements "
+            f"differ" + ("" if not differ else "  FAIL"))
+        assert plan.split > 1 and not differ, "ddmm: two calls differ"
+    if task == "b6":
+        x, y, b = t(64, 256), t(256, 1024), t(1024)
+        x[3] = float("nan")
+        got = ddmm(x, y, bias=b, act="relu")
+        torch.cuda.synchronize()
+        want = ref.ddmm_ref(x, y, bias=b, act="relu")
+        nan_row = bool(torch.isnan(got[3]).all().item())
+        rest = torch.cat([got[:3], got[4:]])
+        _, rel = rel_err(rest, torch.cat([want[:3], want[4:]]))
+        ok = nan_row and bool(torch.isfinite(rest).all().item()) \
+            and rel <= KERNEL_RTOL
+        log(f"check ddmm relu with a NaN row of x: the row NaN "
+            f"{nan_row}, the other rows finite, rel={rel:.3e}"
+            + ("" if ok else "  FAIL"))
+        assert ok, "ddmm: relu does not keep NaN"
+
+
 def exact_checks(task, rng, dev) -> None:
     """Kernel results beyond the main path that must hold exactly: a
     batched conv equals its per-image calls (same arithmetic order; b1's
     and b2's shapes, split-K active) and a second call of itself (no
-    atomics); SDDMM's dead tiles come out as exact zeros (vip-masked)."""
+    atomics); SDDMM's dead tiles come out as exact zeros (vip-masked);
+    DDMM's (``ddmm_exact_checks``)."""
     from repro_torch.kernels import sddmm, shift_conv2d
     from repro_torch.kernels.sddmm import live_tiles
     from repro_torch.kernels.shift_conv import launch_plan
+    ddmm_exact_checks(task, rng, dev)
 
     def t(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -436,21 +550,48 @@ def conv_case(x, w, kw, per_request) -> Case:
                                           **kw))
 
 
-def spdmm_case(idx, val, y, per_request) -> Case:
-    from repro_torch.kernels import ref, spdmm
+def ell_csr(idx, val, s2):
+    """The ELL matrix as CSR (set-up, untimed), and its nonzeros."""
     s1, ell_l = idx.shape
-    dense = torch.zeros((s1, y.shape[0]), device=y.device)
-    rows = torch.arange(s1, device=y.device)[:, None].expand(-1, ell_l)
+    dense = torch.zeros((s1, s2), device=val.device)
+    rows = torch.arange(s1, device=val.device)[:, None].expand(-1, ell_l)
     dense.index_put_((rows, idx.long()), val, accumulate=True)
-    csr = dense.to_sparse_csr()
-    nnz = int((val != 0).sum().item())
+    with warnings.catch_warnings():                # "CSR support is beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = dense.to_sparse_csr()
+    return csr, int((val != 0).sum().item())
+
+
+def spdmm_case(idx, val, x2, per_request) -> Case:
+    """SpDMM as b4's ``right_t`` side calls it: ``spdmm_rows`` on the
+    ``(C·T, V)`` view.  Library: ``torch.sparse.mm`` of the CSR matrix
+    and ``x2ᵀ`` (it returns ``outᵀ``; the ``.T`` is a view).  Before: the
+    route the runtime took before ``spdmm_rows``, the column kernel
+    between two transposing copies."""
+    from repro_torch.kernels import ref, spdmm, spdmm_rows
+    r, s2 = x2.shape
+    csr, nnz = ell_csr(idx, val, s2)
+    return Case(
+        "spdmm", f"spdmm_rows ell{tuple(idx.shape)} nnz={nnz} "
+                 f"x2{tuple(x2.shape)}",
+        lambda: spdmm_rows(idx, val, x2),
+        lambda: ref.spdmm_rows_ref(idx, val, x2),
+        lambda: torch.sparse.mm(csr, x2.T).T,
+        4.0 * (2 * idx.numel() + x2.numel() + r * idx.shape[0]),
+        2.0 * nnz * r, per_request,
+        before=lambda: spdmm(idx, val, x2.T.contiguous()).T.contiguous())
+
+
+def spdmm_columns_case(idx, val, y) -> Case:
+    """SpDMM's column entry, the JAX signature ``(S1, L) @ (S2, N)``."""
+    from repro_torch.kernels import ref, spdmm
+    csr, nnz = ell_csr(idx, val, y.shape[0])
     return Case(
         "spdmm", f"spdmm ell{tuple(idx.shape)} nnz={nnz} y{tuple(y.shape)}",
-        lambda: spdmm(idx, val, y),
-        lambda: ref.spdmm_ref(idx, val, y),
+        lambda: spdmm(idx, val, y), lambda: ref.spdmm_ref(idx, val, y),
         lambda: torch.sparse.mm(csr, y),
-        4.0 * (2 * idx.numel() + y.numel() + s1 * y.shape[1]),
-        2.0 * nnz * y.shape[1], per_request)
+        4.0 * (2 * idx.numel() + y.numel() + idx.shape[0] * y.shape[1]),
+        2.0 * nnz * y.shape[1], 0)
 
 
 def sddmm_case(x, y, mask, per_request) -> Case:
@@ -483,8 +624,13 @@ def sddmm_case(x, y, mask, per_request) -> Case:
 
 def ddmm_case(x, y, *, bias=None, residual=None, act=None, gram=False,
               per_request=0) -> Case:
-    """``gram``: y is xᵀ (a VIP's x @ xᵀ), so the function reads x once."""
+    """``gram``: y is xᵀ (a VIP's x @ xᵀ), so the function reads x once.
+    Library: ``torch.mm`` or ``torch.addmm`` where one call computes the
+    function (no activation, no residual); ``mm``: ``torch.mm`` of the
+    product alone, always.  Bound: operations at the 3xTF32 rate on the
+    tensor-core route, at the fp32 SIMT rate on the narrow one."""
     from repro_torch.kernels import ddmm, ref
+    from repro_torch.kernels.ddmm import launch_plan
     m, k = x.shape
     n = y.shape[1]
     library = None
@@ -494,14 +640,18 @@ def ddmm_case(x, y, *, bias=None, residual=None, act=None, gram=False,
     nbytes = 4.0 * (x.numel() + (0 if gram else y.numel()) + m * n
                     + (n if bias is not None else 0)
                     + (m * n if residual is not None else 0))
-    label = (f"ddmm ({m},{k})@({k},{n}) bias={bias is not None} "
-             f"act={act} residual={residual is not None}"
+    plan = launch_plan(m, k, n)
+    label = (f"ddmm ({m},{k})@({k},{n}) y_strides={tuple(y.stride())} "
+             f"bias={bias is not None} act={act} "
+             f"residual={residual is not None}"
              + (" y=xᵀ" if gram else ""))
     return Case(
         "ddmm", label,
         lambda: ddmm(x, y, bias=bias, residual=residual, act=act),
         lambda: ref.ddmm_ref(x, y, bias=bias, residual=residual, act=act),
-        library, nbytes, 2.0 * m * k * n, per_request)
+        library, nbytes, 2.0 * m * k * n, per_request,
+        rate=CONV_FLOPS if plan.route == "mma" else FP32_FLOPS, plan=plan,
+        mm=lambda: torch.mm(x, y), args=(x, y, bias, residual, act))
 
 
 def knn_case(x, k, *, mask, self_loops, per_request) -> Case:
@@ -569,17 +719,20 @@ def kernel_base(name: str) -> str:
     return head.split("<", 1)[0].split()[-1].split("::")[-1]
 
 
-def device_ms(fn, prefix: str, n: int = 20) -> float | None:
+def device_ms(fn, prefix: str, n: int = 20,
+              tries: int = 3) -> float | None:
     """Mean device time of the kernels whose bare name starts with
-    ``prefix``, per call of ``fn``, over ``n`` profiled calls (None if none
-    was recorded)."""
+    ``prefix``, per call of ``fn``, over ``n`` profiled calls.  A profile
+    now and then records no device kernel at all; it is taken again, up to
+    ``tries`` times (None if none recorded one)."""
     fn()
-    events = [e for e in device_events(fn, n)
-              if kernel_base(e.name).startswith(prefix)]
-    if not events:
-        return None
-    return sum(e.time_range.end - e.time_range.start
-               for e in events) / n / 1e3
+    for _ in range(tries):
+        events = [e for e in device_events(fn, n)
+                  if kernel_base(e.name).startswith(prefix)]
+        if events:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in events) / n / 1e3
+    return None
 
 
 def profile_requests(run, requests, card, task) -> None:
@@ -794,7 +947,8 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
     (``per_request``: its launches per request)."""
     totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                          library_ms=0.0, device_ms=0.0, nbytes=0.0,
-                         flops=0.0, library=True, device=True)
+                         flops=0.0, library=True, device=True,
+                         before_ms=None, before_device_ms=None, mm_ms=None)
               for name in SOURCES}
     for case in cases:
         ms = time_ms(case.run)
@@ -805,17 +959,30 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
         # the rate of the products the function needs, by device time
         rate = case.flops / ((dev or ms) * 1e-3) / 1e12
         plan = case.plan
+        extra = {}
+        if case.before is not None:
+            extra["before_ms"] = time_ms(case.before)
+            # every device kernel of the old route, its copies included
+            extra["before_device_ms"] = device_ms(case.before, "")
+        if case.mm is not None:
+            extra["mm_ms"] = time_ms(case.mm)
         log(f"time {task} {case.label}: kernel {ms:.5f} ms"
             + ("" if dev is None else f" (device {dev:.5f} ms)")
             + f", plain {plain:.5f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound "
             f"{bnd:.5f} ms ({by}), {rate:.2f} TFLOP/s"
+            + "".join(f", {k} {v:.5f}" for k, v in extra.items()
+                      if v is not None)
             + ("" if plan is None else
-               f", tile {plan.bm}x{plan.bn} split {plan.split} of "
-               f"{plan.k_tiles} K tiles, {plan.blocks} blocks")
+               f", {getattr(plan, 'route', 'tile')} {plan.bm}x{plan.bn} "
+               f"split {plan.split} of {plan.k_tiles} K tiles, "
+               f"{plan.blocks} blocks")
             + f", x{case.per_request:g}/request  [{card}]")
         if case.per_request:
             tot = totals[case.kernel]
+            for key, value in extra.items():
+                if value is not None:
+                    tot[key] = (tot[key] or 0.0) + case.per_request * value
             tot["ms"] += case.per_request * ms
             tot["plain_ms"] += case.per_request * plain
             tot["bound_ms"] += case.per_request * bnd
@@ -848,6 +1015,9 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
         }
         if tot["device"]:
             row["device_ms"] = tot["device_ms"]
+        for key in ("before_ms", "before_device_ms", "mm_ms"):
+            if tot[key] is not None:
+                row[key] = tot[key]
         rows.append(row)
     return rows
 
@@ -1270,6 +1440,79 @@ def sweep_shape(lib, dev, rng, x_shape, w_shape, stride, padding,
     return mine, best
 
 
+def ddmm_sweep(card) -> None:
+    """Every column tile and K split of DDMM's tensor-core route at every
+    distinct tensor-core call of the paths (device time, each checked
+    against the plain version), beside the plan's choice; per task, the
+    plan's sum over a request's calls against the best per call."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.ddmm import ACT_CODES, BK, MAX_SPLIT, y_layout
+    lib = _build.library()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    timed: dict[tuple, tuple[float, float]] = {}
+    for task in PER_REQUEST:
+        plan_ms = best_ms = 0.0
+        for case in task_cases(task, task_plans(task)[0], rng, dev):
+            if case.kernel != "ddmm" or not case.per_request \
+                    or case.plan.route != "mma":
+                continue
+            x, y, bias, res, act = case.args
+            key = (tuple(x.shape), tuple(y.shape), tuple(y.stride()),
+                   bias is not None, act)
+            if key not in timed:
+                timed[key] = sweep_ddmm(lib, x, y, bias, res, act, case.plan,
+                                        card, ref, BK, MAX_SPLIT,
+                                        y_layout(y), ACT_CODES[act])
+            plan_ms += case.per_request * timed[key][0]
+            best_ms += case.per_request * timed[key][1]
+        if plan_ms:
+            log(f"ddmm sweep {task}: the plan's choice {plan_ms:.4f} ms of "
+                f"device time per request, the best per call {best_ms:.4f} "
+                f"ms ({plan_ms / best_ms - 1:+.1%})  [{card}]")
+
+
+def sweep_ddmm(lib, x, y, bias, res, act, chosen, card, ref, bk, max_split,
+               layout, act_code) -> tuple[float, float]:
+    """Device time of one DDMM call at every column tile and split ->
+    (the plan's choice, the best), in ms."""
+    m, k = x.shape
+    n = y.shape[1]
+    want = ref.ddmm_ref(x, y, bias=bias, residual=res, act=act)
+    k_tiles = max(1, -(-k // bk))
+    out = torch.empty_like(want)
+    times = {}
+    for bn in (32, 64):
+        for split in range(1, min(max_split, k_tiles) + 1):
+            kt_per = -(-k_tiles // split)
+            if -(-k_tiles // kt_per) != split:
+                continue
+            params = (ctypes.c_int * 11)(m, k, n, layout[1], int(layout[0]),
+                                         act_code, 0, chosen.bm, bn, kt_per,
+                                         split)
+
+            def run():
+                return lib.repro_ddmm(
+                    x.data_ptr(), y.data_ptr(),
+                    None if bias is None else bias.data_ptr(),
+                    None if res is None else res.data_ptr(), out.data_ptr(),
+                    params, torch.cuda.current_stream().cuda_stream)
+            assert run() == 0
+            torch.cuda.synchronize()
+            _, rel = rel_err(out, want)
+            assert rel <= KERNEL_RTOL, (m, k, n, bn, split, rel)
+            times[bn, split] = device_only_ms(run)
+    mine = times[chosen.bn, chosen.split]
+    (bbn, bsplit), best = min(times.items(), key=lambda kv: kv[1])
+    log(f"ddmm sweep ({m},{k})@({k},{n}) y_strides={tuple(y.stride())}: "
+        f"plan {chosen.bm}x{chosen.bn} split {chosen.split} of {k_tiles} K "
+        f"stages {mine:.5f} ms; best {chosen.bm}x{bbn} split {bsplit} "
+        f"{best:.5f} ms; all " + " ".join(
+            f"{bn}/{sp}:{t:.4f}" for (bn, sp), t in sorted(times.items()))
+        + f"  [{card}]")
+    return mine, best
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1277,13 +1520,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.kernels import (_build, ddmm, flash_attention, knn,
-                                     sddmm, shift_conv2d, spdmm)
+                                     sddmm, shift_conv2d, spdmm_rows)
     from repro_torch.kernels.flash_attention import MAX_D
     from repro_torch.kernels.knn import MAX_K
     from repro_torch.kernels.sddmm import BLOCK
     from repro_torch.models.transformer import init_lm
-    kernels = {"shift_conv2d": shift_conv2d, "spdmm": spdmm, "ddmm": ddmm,
-               "knn": knn, "sddmm": sddmm,
+    # "spdmm" counts the entry the path calls, spdmm_rows
+    kernels = {"shift_conv2d": shift_conv2d, "spdmm": spdmm_rows,
+               "ddmm": ddmm, "knn": knn, "sddmm": sddmm,
                "flash_attention": flash_attention}
 
     # ---- phase 1: card, numerics, build ---------------------------------
@@ -1311,6 +1555,9 @@ def main() -> int:
         "csrc/flash_attention.cu and flash_attention.py disagree"
     if "--conv-sweep" in sys.argv[1:]:
         conv_sweep(card)
+        return finish()
+    if "--ddmm-sweep" in sys.argv[1:]:
+        ddmm_sweep(card)
         return finish()
 
     tasks = list(PER_REQUEST)

@@ -37,9 +37,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _as_tensor(value, device: torch.device) -> torch.Tensor:
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    return torch.tensor(np.asarray(value), device=device)
+    """One input on ``device``, by the reference's rule: it stages inputs
+    with ``jnp.asarray`` under JAX's default of 32-bit types, which turns a
+    float64 array into float32.  So floats wider than float32 become
+    float32, numpy arrays and tensors alike; float32, narrower floats and
+    integers stay as they are."""
+    t = value if isinstance(value, torch.Tensor) else torch.tensor(
+        np.asarray(value))
+    if t.is_floating_point() and t.element_size() > 4:
+        t = t.to(torch.float32)
+    return t.to(device)
 
 
 def build_runner(plan: ExecutionPlan, *, device=None,

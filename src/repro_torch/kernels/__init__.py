@@ -4,7 +4,7 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
 
   shift_conv.py  shift_conv2d  <- kernels/shift_conv.py (Pallas)
   ddmm.py        ddmm          <- kernels/ddmm.py (Pallas)
-  spdmm.py       spdmm         <- kernels/spdmm.py (Pallas)
+  spdmm.py       spdmm, spdmm_rows <- kernels/spdmm.py (Pallas)
   knn.py         knn           <- kernels/knn.py (Pallas)
   sddmm.py       sddmm         <- kernels/sddmm.py (Pallas)
   flash_attention.py  flash_attention  <- kernels/flash_attention.py (Pallas)
@@ -20,4 +20,4 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.knn import knn                    # noqa: F401
 from repro_torch.kernels.sddmm import sddmm                # noqa: F401
 from repro_torch.kernels.shift_conv import shift_conv2d    # noqa: F401
-from repro_torch.kernels.spdmm import spdmm                # noqa: F401
+from repro_torch.kernels.spdmm import spdmm, spdmm_rows    # noqa: F401

@@ -36,8 +36,9 @@ _F = ctypes.c_float
 # an array of them), strides as c_longlong, scales as c_float.
 SIGNATURES = {
     "repro_shift_conv2d": [_P] * 3 + [ctypes.POINTER(_I), _P],
-    "repro_ddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ddmm": [_P] * 5 + [ctypes.POINTER(_I), _P],
     "repro_ell_spdmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ell_spdmm_rows": [_P] * 4 + [_I] * 5 + [_P],
     "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_knn_max_k": [],
     "repro_sddmm": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],

@@ -1,6 +1,7 @@
 """Plain-PyTorch versions of the port's kernels — port of
 ``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``sddmm_ref``,
-``conv2d_ref``, ``attention_ref``).
+``conv2d_ref``, ``attention_ref``), plus ``spdmm_rows_ref``, the ELL
+product in the runtime's ``(R, S2)`` layout.
 
 Each ``*_ref`` computes what its hand-written CUDA kernel computes, in the
 reference's layouts, with ordinary torch ops:
@@ -71,9 +72,20 @@ def ddmm_ref(x, y, *, bias=None, residual=None, act=None):
 
 
 def spdmm_ref(idx, val, y):
-    """ELL sparse @ dense: ``Z[i] = Σ_l val[i, l] · y[idx[i, l]]``."""
-    rows = y[idx.long()]                                 # (S1, L, N)
-    return (rows * val[..., None]).sum(1)
+    """ELL sparse @ dense: ``Z[i] = Σ_l val[i, l] · y[idx[i, l]]``; a slot
+    whose ``idx`` is out of range adds nothing."""
+    ok = (idx >= 0) & (idx < y.shape[0])
+    rows = y[torch.where(ok, idx, 0).long()]             # (S1, L, N)
+    return torch.where(ok[..., None], rows * val[..., None], 0.0).sum(1)
+
+
+def spdmm_rows_ref(idx, val, x2):
+    """The same product in the runtime's layout: ``out[r, i] = Σ_l
+    val[i, l] · x2[r, idx[i, l]]``, x2 ``(R, S2)`` -> ``(R, S1)``
+    (= ``spdmm_ref(idx, val, x2ᵀ)ᵀ``); out-of-range slots add nothing."""
+    ok = (idx >= 0) & (idx < x2.shape[1])
+    cols = x2[:, torch.where(ok, idx, 0).long()]         # (R, S1, L)
+    return torch.where(ok, cols * val, 0.0).sum(-1)
 
 
 def sddmm_ref(x, y, mask):

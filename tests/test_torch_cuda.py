@@ -18,8 +18,12 @@ and SDDMM's dead tiles must be exactly 0.  Requests end to end:
 fp32 sums (the kernel's p in three bf16 parts, fp32-level) and round
 once to bf16, so an element can differ by one bf16 ulp (2^-8 of itself)
 where the two sums straddle a rounding boundary; rows with no live key
-must be exactly 0.  Shift-conv runs 3xTF32 on the tensor cores, fp32-level
-(~2^-21 of each product): the same ``1e-5``.
+must be exactly 0.  Shift-conv and DDMM run 3xTF32 on the tensor cores,
+fp32-level (~2^-21 of each product): the same ``1e-5``; a DDMM product
+stacked along M must equal its per-sample products bit for bit (the plan's
+chunks follow K and N only), and so must a second call (split-K adds its
+partials in order).  SpDMM's rows entry: ``1e-6 · max|plain|`` (five
+multiply-adds an output, in the twin's order but fused).
 """
 import pathlib
 import sys
@@ -29,12 +33,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.ddmm import ddmm
+from repro_torch.kernels.ddmm import ddmm, launch_plan as ddmm_plan
 from repro_torch.kernels.flash_attention import MAX_D, flash_attention
 from repro_torch.kernels.knn import MAX_K, knn
 from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
 from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
-from repro_torch.kernels.spdmm import spdmm
+from repro_torch.kernels.spdmm import spdmm, spdmm_rows
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import vip_masked_graph, window_mask  # noqa: E402,F401
@@ -45,6 +49,32 @@ DDMM_SHAPES = [(1, 256, 60), (33, 257, 129), (100, 70, 130), (64, 64, 64)]
 ACTS = [None, "relu", "gelu", "silu", "tanh"]
 SPDMM_SHAPES = [(25, 25, 5, 300), (33, 57, 7, 129), (64, 100, 3, 1),
                 (8, 8, 8, 17)]
+# Every distinct DDMM call of the paths (b1-b6, b6-dyn, b3-r50/r101 and
+# vip-masked) as the runtime makes it: (M, K, N, y a transposed view (a
+# VIP's xᵀ), bias handed to the kernel, act handed to the kernel).
+# tests/test_torch_kernels.py checks the list against the compiled plans.
+DDMM_PATH = [
+    (26, 64, 400, False, True, "relu"), (26, 400, 26, True, False, None),
+    (26, 26, 400, False, False, None), (26, 800, 400, False, True, "relu"),
+    (26, 400, 5, False, True, None),                              # b1
+    (80, 80, 300, False, False, None), (80, 300, 1024, False, False, None),
+    (80, 80, 1024, False, False, None),
+    (80, 1024, 2048, False, True, None), (80, 2048, 1, False, False, None),
+    (196, 512, 196, True, False, None),                           # b2
+    (196, 196, 512, False, False, None),           # b3, vip-masked
+    (196, 512, 512, False, False, "relu"), (512, 196, 512, True, False, None),
+    (512, 512, 196, False, False, None),
+    (512, 196, 196, False, False, "relu"),                        # b3
+    (1, 256, 60, False, True, None),                              # b4
+    (16384, 48, 48, False, False, None), (1, 48, 10, False, True, None),
+    (1024, 3, 64, False, True, "relu"), (1024, 64, 64, False, True, "relu"),
+    (1024, 64, 128, False, True, "relu"),
+    (1024, 128, 256, False, True, "relu"),
+    (1024, 256, 1024, False, True, "relu"),
+    (1, 1024, 40, False, True, None),                             # b6
+]
+# b4's ELL right_t products: (C·T, V) views of its (C, T, V) activations
+SPDMM_ROWS = [64 * 150, 128 * 150, 128 * 75, 256 * 75, 256 * 38]
 CONV_CASES = [
     # (c_in, H, W, k1, k2, c_out, stride, padding, groups, dilation)
     (3, 16, 25, 1, 1, 8, (1, 1), "SAME", 1, (1, 1)),
@@ -148,15 +178,35 @@ def ddmm_inputs(m, k, n, seed=0):
             rng.standard_normal((m, n)).astype(f))
 
 
-def ell_inputs(s1, s2, ell_l, seed):
-    """ELL with padding slots (val 0) whose idx points at real rows."""
+def ell_inputs(s1, s2, ell_l, seed, out_of_range=False):
+    """ELL with padding slots (val 0) whose idx points at real rows, or,
+    with ``out_of_range``, some past the last row and some negative."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, s2, (s1, ell_l)).astype(np.int32)
     val = rng.standard_normal((s1, ell_l)).astype(np.float32)
     pad = rng.random((s1, ell_l)) < 0.3
     val[pad] = 0.0
     assert (idx[pad] != 0).any()
+    if out_of_range:
+        idx[pad] = np.where(rng.random(pad.sum()) < 0.5, s2 + 3, -1)
     return idx, val
+
+
+def ddmm_path_inputs(m, k, n, y_t, seed=0):
+    """x, y (a transposed view of an (n, k) matrix where ``y_t``), bias
+    and residual for one path shape."""
+    x, y, b, r = ddmm_inputs(m, k, n, seed)
+    if y_t:
+        y = np.ascontiguousarray(y.T).T
+    return x, y, b, r
+
+
+def t_strided(a, device):
+    """``a`` on ``device`` with ``a``'s own strides (a transposed view
+    stays one)."""
+    if a.flags.c_contiguous:
+        return t(a).to(device)
+    return t(np.ascontiguousarray(a.T)).to(device).T
 
 
 def conv_inputs(cin, h, w, k1, k2, cout, groups, seed=0):
@@ -185,6 +235,111 @@ def test_cuda_ddmm_matches_plain(cuda, m, k, n, act):
     torch.cuda.synchronize()
     assert ddmm.launches == before + 1
     close(got.cpu(), ref.ddmm_ref(x, y, bias=b, residual=r, act=act).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS + ["handed"])
+@pytest.mark.parametrize("case", DDMM_PATH, ids=str)
+def test_cuda_ddmm_path_shapes_match_plain(cuda, case, act):
+    """Every path shape, both routes and both y layouts, with bias,
+    residual and each act, and with the epilogue the runtime hands the
+    kernel there ("handed"), within 1e-5 of max|out| of the plain
+    version."""
+    m, k, n, y_t, bias, handed = case
+    x, y, b, r = (t_strided(a, cuda) for a in ddmm_path_inputs(m, k, n, y_t))
+    assert y.is_contiguous() != y_t
+    if act == "handed":
+        act, b, r = handed, b if bias else None, None
+    before = ddmm.launches
+    got = ddmm(x, y, bias=b, residual=r, act=act)
+    torch.cuda.synchronize()
+    assert ddmm.launches == before + 1
+    close(got.cpu(), ref.ddmm_ref(x, y, bias=b, residual=r, act=act).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in DDMM_PATH if c[0] <= 196]
+                         + [(5, 403, 7, True, True, "relu")], ids=str)
+def test_cuda_ddmm_stacked_m_equals_per_sample_bit_for_bit(cuda, case):
+    """The plan's chunks follow K and N only: four samples stacked along M
+    give each sample's product bit for bit (tile height 16 -> 64 included:
+    the classifiers at M = 1 against M = 4, b1's 26 against 104)."""
+    m, k, n, y_t, bias, act = case
+    rng = np.random.default_rng(m + k + n)
+    x = t(rng.standard_normal((4 * m, k)).astype(np.float32)).to(cuda)
+    _, y, b, _ = (t_strided(a, cuda) for a in ddmm_path_inputs(1, k, n, y_t))
+    b = b if bias else None
+    got = ddmm(x, y, bias=b, act=act)
+    each = torch.cat([ddmm(x[i * m:(i + 1) * m], y, bias=b, act=act)
+                      for i in range(4)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, each)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in DDMM_PATH
+                                  if ddmm_plan(*c[:3]).split > 1], ids=str)
+def test_cuda_ddmm_split_k_is_reproducible_bit_for_bit(cuda, case):
+    """Split-K partials are added in chunk order inside the cluster, no
+    atomics: a second call gives the first call's bits."""
+    m, k, n, y_t, bias, act = case
+    x, y, b, _ = (t_strided(a, cuda) for a in ddmm_path_inputs(m, k, n, y_t))
+    b = b if bias else None
+    first = ddmm(x, y, bias=b, act=act)
+    again = ddmm(x, y, bias=b, act=act)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 256, 1024), (26, 800, 400),
+                                   (26, 400, 5), (1, 1024, 40)])
+def test_cuda_ddmm_relu_keeps_nan(cuda, m, k, n):
+    """relu propagates NaN on both routes, as torch.relu and jax.nn.relu
+    do; the other rows are untouched."""
+    x, y, b, _ = (t(a).to(cuda) for a in ddmm_inputs(m, k, n))
+    x[m // 2] = float("nan")
+    got = ddmm(x, y, bias=b, act="relu")
+    torch.cuda.synchronize()
+    assert torch.isnan(got[m // 2]).all()
+    keep = torch.arange(m, device=cuda) != m // 2
+    assert torch.isfinite(got[keep]).all()
+    if m > 1:
+        close(got[keep].cpu(),
+              ref.ddmm_ref(x, y, bias=b, act="relu")[keep].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(26, 400, 26), (512, 196, 512),
+                                   (33, 257, 129), (5, 403, 7)])
+def test_cuda_ddmm_reads_a_transposed_view(cuda, m, k, n):
+    """y as xᵀ-style view (the VIP's gram) gives a contiguous copy's
+    result within 1e-5, both routes, K not a multiple of 4 included."""
+    x, y, _, _ = ddmm_inputs(m, k, n)
+    xt = t(x).to(cuda)
+    view = t(np.ascontiguousarray(y.T)).to(cuda).T
+    got = ddmm(xt, view)
+    copy = ddmm(xt, view.contiguous())
+    torch.cuda.synchronize()
+    close(got.cpu(), copy.cpu())
+    close(got.cpu(), ref.ddmm_ref(xt, view).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", SPDMM_ROWS + [37, 4])
+@pytest.mark.parametrize("out_of_range", [False, True])
+def test_cuda_spdmm_rows_matches_plain(cuda, r, out_of_range):
+    """The rows entry at b4's (C·T, V) shapes (and ragged R) within 1e-6
+    of max|out| of its twin; out-of-range padding slots add nothing."""
+    idx, val = ell_inputs(25, 25, 5, seed=r, out_of_range=out_of_range)
+    x2 = np.random.default_rng(r).standard_normal((r, 25)).astype(np.float32)
+    args = [t(a).to(cuda) for a in (idx, val, x2)]
+    before = spdmm_rows.launches
+    got = spdmm_rows(*args)
+    torch.cuda.synchronize()
+    assert spdmm_rows.launches == before + 1 and got.shape == (r, 25)
+    close(got.cpu(), ref.spdmm_rows_ref(*args).cpu(), rtol=1e-6)
+    close(got.cpu(), ref.spdmm_rows_ref(*(a.cpu() for a in args)), rtol=1e-6)
 
 
 @pytest.mark.cuda
@@ -318,8 +473,14 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ddmm(torch.zeros((5, 4), device=cuda).T, torch.zeros((5, 6),
                                                             device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ddmm(x, torch.zeros((5, 12), device=cuda)[:, ::2])
     with pytest.raises(ValueError, match="CUDA"):
         ddmm(x, torch.zeros((5, 6)))
+    with pytest.raises(TypeError):
+        spdmm_rows(torch.zeros((25, 5), device=cuda, dtype=torch.int64),
+                   torch.zeros((25, 5), device=cuda),
+                   torch.zeros((40, 25), device=cuda))
 
 
 @pytest.mark.cuda
@@ -391,12 +552,47 @@ def test_cuda_b4_request_runs_through_the_kernels(cuda):
     plan = compile_graph(build_task("b4"), CompileOptions(kernels="cuda"))
     plain = compile_graph(build_task("b4"), CompileOptions(kernels="torch"))
     inputs = random_inputs(plan, seed=0)
-    counts = (shift_conv2d.launches, spdmm.launches, ddmm.launches)
+    counts = (shift_conv2d.launches, spdmm_rows.launches, ddmm.launches)
     got = build_runner(plan)(**inputs)[0]
     torch.cuda.synchronize()
-    assert (shift_conv2d.launches - counts[0], spdmm.launches - counts[1],
+    assert (shift_conv2d.launches - counts[0],
+            spdmm_rows.launches - counts[1],
             ddmm.launches - counts[2]) == (18, 9, 1)
     close(got.cpu(), build_runner(plain)(**inputs)[0].cpu(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_b4_spdmm_runs_on_views_without_copies(cuda, monkeypatch):
+    """A b4 request runs 9 SpDMM launches, each on the (C·T, V) view of
+    its op's input, its result the op's output as a view: no transposing
+    copy in or out."""
+    import dataclasses
+
+    from repro_torch.core import CompileOptions, build_runner, compile_graph
+    from repro_torch.core.executor import random_inputs
+    from repro_torch.core.runtime import matmul
+    from repro_torch.gnncv.tasks import build_task
+    plan = compile_graph(build_task("b4"), CompileOptions(kernels="cuda"))
+    ell = [op for op in plan.ops if op.kernel == "cuda_ell_spdmm"]
+    calls = []
+    real = matmul.spdmm_rows
+
+    def recording(idx, val, x2):
+        out = real(idx, val, x2)
+        calls.append((x2.data_ptr(), out.data_ptr()))
+        return out
+
+    monkeypatch.setattr(matmul, "spdmm_rows", recording)
+    names = [n for op in ell for n in (op.inputs[0], op.name)]
+    run = build_runner(dataclasses.replace(plan, outputs=names),
+                       free_dead=False)
+    before = spdmm_rows.launches
+    outs = run(**random_inputs(plan, seed=0))
+    torch.cuda.synchronize()
+    assert spdmm_rows.launches - before == len(calls) == len(ell) == 9
+    for j, (x2_ptr, out_ptr) in enumerate(calls):
+        assert outs[2 * j].data_ptr() == x2_ptr
+        assert outs[2 * j + 1].data_ptr() == out_ptr
 
 
 def dyn_request(n, seed, pad=64):
@@ -434,7 +630,7 @@ def test_cuda_request_runs_through_the_kernels(cuda, task, counts):
               else random_inputs(plan, seed=0))
     if task == "vip-masked":
         inputs = {"nodes": inputs["nodes"] * VIP_SCALE}
-    fns = (shift_conv2d, spdmm, ddmm, knn, sddmm)
+    fns = (shift_conv2d, spdmm_rows, ddmm, knn, sddmm)
     before = [fn.launches for fn in fns]
     got = build_runner(plan)(**inputs)[0]
     torch.cuda.synchronize()

@@ -9,6 +9,8 @@ accumulation in another order).
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py``, which imports no JAX.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,10 +28,15 @@ from repro_torch.kernels.ddmm import ddmm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.shift_conv import (BK, SMS, launch_plan,
                                             shift_conv2d)
-from repro_torch.kernels.spdmm import spdmm
-from test_torch_cuda import (ACTS, CONV_CASES, DDMM_SHAPES, RESNET_CONVS,
-                             SPDMM_SHAPES, close, conv_inputs, ddmm_inputs,
-                             ell_inputs, t)
+from repro_torch.kernels.spdmm import spdmm, spdmm_rows
+from test_torch_cuda import (ACTS, CONV_CASES, DDMM_PATH, DDMM_SHAPES,
+                             RESNET_CONVS, SPDMM_SHAPES, close, conv_inputs,
+                             ddmm_inputs, ell_inputs, t)
+
+# the module, which the package's ``ddmm`` function shadows
+ddmm_mod = importlib.import_module("repro_torch.kernels.ddmm")
+PATH_TASKS = ("b1", "b2", "b3-r50", "b3-r101", "b4", "b5", "b6", "b6-dyn",
+              "vip-masked")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,6 +71,147 @@ def test_ddmm_without_epilogue_and_gelu_is_tanh_form():
     assert np.abs(g - erf_form).max() > 1e-5
 
 
+def path_plan(task):
+    from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.core.ir import GraphBuilder
+    from repro_torch.gnncv.tasks import build_dynamic_task, build_task
+    from test_torch_cuda import vip_masked_graph
+    if task == "vip-masked":
+        graph = vip_masked_graph(GraphBuilder)
+    else:
+        graph = (build_dynamic_task if task == "b6-dyn" else build_task)(task)
+    return compile_graph(graph, CompileOptions(kernels="cuda"))
+
+
+def ddmm_path_calls(plan):
+    """Every DDMM call of a plan as the runtime makes it: ``(M, K, N, y a
+    transposed view, bias handed over, act handed over)``."""
+    from repro_torch.core.runtime.matmul import kernel_epilogue
+    shapes = dict(plan.meta["input_shapes"])
+    calls = set()
+    for op in plan.ops:
+        xin = tuple(shapes[op.inputs[0]])
+        shapes[op.name] = op.out_shape
+        if op.kernel == "cuda_sddmm" and "mask" not in op.weights:
+            calls.add((xin[0], xin[1], xin[0], True, False, None))
+        if op.kernel != "cuda_ddmm" or op.kind != "mm":
+            continue
+        side = op.attrs["weight_side"]
+        if side == "right":
+            m, k, n = (int(np.prod(xin[:-1] or (1,))), xin[-1],
+                       op.weights["w"].shape[1])
+        elif side == "left":
+            (m, k), n = op.weights["adj"].shape, xin[-1]
+        elif side == "left_runtime":
+            (m, k), n = shapes[op.inputs[1]][-2:], xin[-1]
+        else:
+            assert side == "both_runtime", side
+            y = shapes[op.inputs[1]]
+            m, k, n = int(np.prod(xin[:-1])), xin[-1], int(np.prod(y[1:]))
+        shape = tuple(op.out_shape) if op.out_shape else (m * n,)
+        epi = kernel_epilogue(op, {}, None, m, n, shape)
+        calls.add((m, k, n, False, epi is not None and epi["bias"] is not None,
+                   epi["act"] if epi else None))
+    return calls
+
+
+@pytest.fixture(scope="module")
+def path_calls():
+    return {task: ddmm_path_calls(path_plan(task)) for task in PATH_TASKS}
+
+
+def test_ddmm_path_list_is_every_call_of_the_paths(path_calls):
+    """``DDMM_PATH`` (the card tests' shapes) is exactly the distinct DDMM
+    calls of the paths, with the epilogue the runtime hands over."""
+    assert len(set(DDMM_PATH)) == len(DDMM_PATH)
+    assert set().union(*path_calls.values()) == set(DDMM_PATH)
+
+
+@pytest.mark.parametrize("case", DDMM_PATH, ids=str)
+def test_ddmm_launch_plan_does_not_depend_on_m(case):
+    """Route, column tile and K chunks (their depth and count) follow K
+    and N alone; M moves only the tile height and the grid's rows."""
+    _, k, n, *_ = case
+    plans = [ddmm_mod.launch_plan(m, k, n) for m in (1, 4, 26, 104)]
+    chunks = {(p.route, p.bn, p.k_tiles, p.kt_per, p.split,
+               p.grid[0] if p.route == "mma" else p.grid[1]) for p in plans}
+    assert len(chunks) == 1, chunks
+    assert [p.bm for p in plans if p.route == "mma"] in (
+        [], [16, 16, 32, 64])
+    assert plans[0].route == ("narrow" if n <= ddmm_mod.NARROW_N else "mma")
+
+
+@pytest.mark.parametrize("case", DDMM_PATH, ids=str)
+def test_ddmm_launch_plan_gives_the_blocks_it_promises(case):
+    """The chunks cover K exactly, at most MAX_SPLIT of at least MIN_CHUNK
+    stages (or all of a shorter K), and every output tile gets at least
+    half of min(MAX_SPLIT, ceil(SMS / n_tiles), k_tiles // MIN_CHUNK)
+    blocks; the narrow route runs one warp per row."""
+    m, k, n, *_ = case
+    p = ddmm_mod.launch_plan(m, k, n)
+    cdiv = ddmm_mod._cdiv
+    assert p.k_tiles == max(1, cdiv(k, ddmm_mod.BK))
+    if p.route == "narrow":
+        assert p.grid == (cdiv(m, ddmm_mod.NARROW_ROWS), 1) and p.split == 1
+        return
+    n_tiles, m_tiles = cdiv(n, p.bn), cdiv(m, p.bm)
+    assert p.grid == (n_tiles * p.split, m_tiles)
+    assert (p.split - 1) * p.kt_per < p.k_tiles <= p.split * p.kt_per
+    assert 1 <= p.split <= ddmm_mod.MAX_SPLIT
+    assert p.kt_per >= min(ddmm_mod.MIN_CHUNK, p.k_tiles)
+    want = min(ddmm_mod.MAX_SPLIT, cdiv(ddmm_mod.SMS, n_tiles),
+               p.k_tiles // ddmm_mod.MIN_CHUNK)
+    assert 2 * p.split >= want, (p, want)
+    assert p.blocks >= m_tiles * n_tiles * -(-want // 2)
+
+
+def test_ddmm_y_layout_reads_rows_and_transposed_views():
+    y = torch.zeros(40, 30)
+    assert ddmm_mod.y_layout(y) == (False, 30)
+    assert ddmm_mod.y_layout(y.T) == (True, 30)
+    assert ddmm_mod.y_layout(torch.zeros(64, 1)) == (False, 1)
+    assert ddmm_mod.y_layout(torch.zeros(1, 64)) == (False, 64)
+    assert ddmm_mod.y_layout(torch.zeros(40, 60)[:, ::2]) is None
+    assert ddmm_mod.y_layout(torch.zeros(40, 60)[:, :30]) == (False, 60)
+
+
+@pytest.mark.parametrize("task", ["b6", "b1"])
+def test_run_mm_hands_bias_and_relu_to_ddmm_bit_for_bit(task):
+    """run_mm on the CPU with the epilogue handed to ``ddmm`` equals the
+    product without it followed by ``apply_epilogue``, bit for bit, on
+    every linear of b6 and b1 (a NaN in the input included); an epilogue
+    the kernel cannot take (b2's leaky_relu) is not handed over."""
+    from repro_torch.core.runtime.elementwise import apply_epilogue
+    from repro_torch.core.runtime.matmul import kernel_epilogue, run_mm
+    from repro_torch.core.runtime.residency import weight
+    plan = path_plan(task)
+    shapes = dict(plan.meta["input_shapes"])
+    rng = np.random.default_rng(0)
+    handed = 0
+    for op in plan.ops:
+        xin = tuple(shapes[op.inputs[0]])
+        shapes[op.name] = op.out_shape
+        if op.kind != "mm" or op.attrs["weight_side"] != "right":
+            continue
+        x = rng.standard_normal(xin).astype(np.float32)
+        x.flat[7] = np.nan
+        env = {op.inputs[0]: t(x)}
+        x2 = env[op.inputs[0]].reshape(-1, xin[-1])
+        w = weight(op, "w", None)
+        shape = tuple(op.out_shape)
+        assert kernel_epilogue(op, env, None, x2.shape[0], w.shape[1],
+                               shape) is not None
+        handed += 1
+        got = run_mm(op, env)
+        want = apply_epilogue(ddmm(x2, w).reshape(shape), op, env)
+        assert torch.isnan(got).any()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert handed == {"b6": 6, "b1": 5}[task]
+    leaky = next(op for op in path_plan("b2").ops
+                 if op.attrs.get("fused_act") == "leaky_relu")
+    assert kernel_epilogue(leaky, {}, None, 80, 1024, (80, 1024)) is None
+
+
 # ----------------------------------------------------------------- spdmm --
 @pytest.mark.parametrize("s1,s2,ell_l,n", SPDMM_SHAPES)
 def test_spdmm_matches_pallas_and_ref(s1, s2, ell_l, n):
@@ -76,6 +224,47 @@ def test_spdmm_matches_pallas_and_ref(s1, s2, ell_l, n):
     dense = np.zeros((s1, s2), np.float32)
     np.add.at(dense, (np.arange(s1)[:, None], idx), val)
     close(got, dense @ y)
+
+
+@pytest.mark.parametrize("out_of_range", [False, True])
+def test_spdmm_rows_matches_pallas_and_ref_at_b4s_ell(out_of_range):
+    """The rows entry (on the CPU: its twin) at b4's skeleton ELL and a
+    small C·T equals the JAX kernel in interpret mode and the reference's
+    oracle on the transposed layout, and the port's column twin; padding
+    slots pointing out of range add nothing (JAX clamps them, the port
+    skips them: val is 0 either way)."""
+    op = next(op for op in path_plan("b4").ops if op.ell is not None)
+    idx, val = (np.array(a) for a in op.ell)
+    pad = val == 0
+    assert pad.any()
+    if out_of_range:
+        idx[pad] = np.where(np.arange(pad.sum()) % 2, 25 + 4, -3)
+    x2 = np.random.default_rng(0).standard_normal((2 * 12, 25)).astype(
+        np.float32)
+    got = spdmm_rows(t(idx), t(val), t(x2)).numpy()
+    assert got.shape == (24, 25)
+    ji, jv, jy = jnp.asarray(idx), jnp.asarray(val), jnp.asarray(x2.T)
+    close(got, np.asarray(jspdmm(ji, jv, jy, interpret=True)).T)
+    close(got, np.asarray(jref.spdmm_ref(ji, jv, jy)).T)
+    close(got, spdmm(t(idx), t(val), t(x2.T)).numpy().T)
+    close(got, ref.spdmm_ref(t(idx), t(val), t(np.ascontiguousarray(
+        x2.T))).numpy().T)
+
+
+@pytest.mark.parametrize("s1,s2,ell_l,n", SPDMM_SHAPES)
+def test_spdmm_twins_skip_out_of_range_slots(s1, s2, ell_l, n):
+    """Both twins (the CUDA kernels' semantics): an out-of-range slot adds
+    nothing, where an in-range one adds val · y; the two layouts agree."""
+    idx, val = ell_inputs(s1, s2, ell_l, seed=s1, out_of_range=True)
+    y = np.random.default_rng(2).standard_normal((s2, n)).astype(np.float32)
+    ok = (idx >= 0) & (idx < s2)
+    assert not ok.all()
+    dense = np.zeros((s1, s2), np.float32)
+    np.add.at(dense, (np.nonzero(ok)[0], idx[ok]), val[ok])
+    got = spdmm(t(idx), t(val), t(y)).numpy()
+    rows = spdmm_rows(t(idx), t(val), t(np.ascontiguousarray(y.T))).numpy()
+    close(got, dense @ y)
+    close(rows.T, dense @ y)
 
 
 @pytest.mark.parametrize("density", [0.05, 0.3, 1.0])
@@ -242,14 +431,17 @@ def test_flash_bf16_refuses_misaligned_operands():
 
 # ------------------------------------------------------ wrapper contract --
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
-    before = (ddmm.launches, spdmm.launches, shift_conv2d.launches)
+    fns = (ddmm, spdmm, spdmm_rows, shift_conv2d)
+    before = [fn.launches for fn in fns]
     x, y, _, _ = ddmm_inputs(4, 5, 6)
     ddmm(t(x), t(y))
+    ddmm(t(x), t(y.T.copy()).T)
     idx, val = ell_inputs(4, 4, 2, seed=0)
     spdmm(t(idx), t(val), t(y[:4]))
+    spdmm_rows(t(idx), t(val), t(x[:, :4]))
     xc, wc = conv_inputs(3, 5, 5, 3, 3, 4, 1)
     shift_conv2d(t(xc), t(wc))
-    assert (ddmm.launches, spdmm.launches, shift_conv2d.launches) == before
+    assert [fn.launches for fn in fns] == before
 
 
 def test_non_cuda_device_raises_instead_of_falling_back():
@@ -263,6 +455,9 @@ def test_non_cuda_device_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         spdmm(torch.empty((4, 2), dtype=torch.int32, device="meta"),
               torch.empty((4, 2), device="meta"), y)
+    with pytest.raises(ValueError, match="CUDA"):
+        spdmm_rows(torch.empty((4, 2), dtype=torch.int32, device="meta"),
+                   torch.empty((4, 2), device="meta"), x)
 
 
 def test_wrappers_reject_bad_shapes():

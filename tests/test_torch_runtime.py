@@ -6,10 +6,14 @@ runs its plain version: the port's output must match the reference's
 (interpret mode) within ``max|Δ| <= 1e-5 · max|ref|`` — reference drift
 on this tree is ~1e-6 relative.  Also: parameters carried across with
 ``load_weights`` (the ELL pair and a masked VIP's mask), the no-CUDA
-guard, and the loud failure of the kind not ported yet (``maxagg``).  b5,
+guard, the loud failure of the kind not ported yet (``maxagg``), float64
+inputs cast to float32 as the reference casts them, and b4's ELL products
+running on views of their operands.  b5,
 b6 and b6-dyn are in ``test_torch_dynamic.py``; b1-b3 and the VIP graphs in
 ``test_torch_cnn.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -197,3 +201,72 @@ def test_kernelless_op_is_refused():
     op.kernel = None
     with pytest.raises(ValueError, match="no kernel bound"):
         run_op(op, {op.inputs[0]: torch.zeros(3, 16, 25)})
+
+
+@pytest.mark.parametrize("task", ["b4", "b1"])
+def test_float64_inputs_run_as_float32_like_the_reference(task):
+    """The reference stages inputs with ``jnp.asarray`` (x64 off), which
+    makes float64 float32.  The port casts the same way, numpy arrays and
+    tensors alike: its outputs are float32 and equal the float32 run bit
+    for bit, and the float64 run matches the reference's float64 run."""
+    ref = ref_compile(ref_build_task(task, small=True),
+                      RefOptions(target="fpga", kernels="xla"))
+    plan = compile_graph(build_task(task, small=True),
+                         CompileOptions(kernels="cuda"))
+    inputs = random_inputs(plan, seed=0)
+    wide = {k: np.asarray(v, np.float64) for k, v in inputs.items()}
+    assert all(v.dtype == np.float64 for v in wide.values())
+    run = build_runner(plan, device="cpu")
+    want = run(**inputs)
+    for staged in (wide, {k: torch.from_numpy(v) for k, v in wide.items()}):
+        got = run(**staged)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            assert torch.equal(g, w)
+    theirs = ref_outputs(ref, wide)
+    assert all(o.dtype == np.float32 for o in theirs)
+    for g, w in zip(port_outputs(plan, wide), theirs):
+        close(g, w)
+
+
+def test_float_inputs_keep_narrow_and_integer_types():
+    from repro_torch.core.executor import _as_tensor
+    cpu = torch.device("cpu")
+    for value, dtype in ((np.zeros(3, np.float32), torch.float32),
+                         (np.zeros(3, np.float16), torch.float16),
+                         (torch.zeros(3, dtype=torch.bfloat16),
+                          torch.bfloat16),
+                         (np.arange(3, dtype=np.int64), torch.int64),
+                         (np.arange(3, dtype=np.int32), torch.int32),
+                         (np.zeros(3, np.float64), torch.float32),
+                         (torch.zeros(3, dtype=torch.float64),
+                          torch.float32)):
+        assert _as_tensor(value, cpu).dtype == dtype
+
+
+def test_b4_ell_products_make_no_transposing_copy(monkeypatch):
+    """b4's ``right_t`` ELL ops hand ``spdmm_rows`` the ``(C·T, V)`` view
+    of their input and return a view of its output: no copy either way
+    (here on the CPU, where the wrapper runs its twin)."""
+    from repro_torch.core.runtime import matmul
+    plan = compile_graph(build_task("b4", small=True),
+                         CompileOptions(kernels="cuda"))
+    ell = [op for op in plan.ops if op.kernel == "cuda_ell_spdmm"]
+    assert ell and all(op.attrs["weight_side"] == "right_t" for op in ell)
+    calls = []
+    real = matmul.spdmm_rows
+
+    def recording(idx, val, x2):
+        out = real(idx, val, x2)
+        calls.append((x2.data_ptr(), out.data_ptr()))
+        return out
+
+    monkeypatch.setattr(matmul, "spdmm_rows", recording)
+    names = [n for op in ell for n in (op.inputs[0], op.name)]
+    run = build_runner(dataclasses.replace(plan, outputs=names),
+                       device="cpu", free_dead=False)
+    outs = run(**random_inputs(plan, seed=0))
+    assert len(calls) == len(ell)
+    for (x2_ptr, out_ptr), i in zip(calls, range(0, len(outs), 2)):
+        assert outs[i].data_ptr() == x2_ptr          # the input, as a view
+        assert outs[i + 1].data_ptr() == out_ptr     # the output, as a view
