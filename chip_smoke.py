@@ -20,7 +20,10 @@ held to its batch rule (a product stacked along M equals its per-sample
 products bit for bit; a second call with split-K the first), and relu
 must keep a NaN row NaN.  SpDMM runs through the entry the path calls
 (``spdmm_rows`` on b4's ``(C·T, V)`` view), timed beside the route it
-replaced (the column kernel between two transposing copies).  Every
+replaced (the column kernel between two transposing copies).  KNN is also
+held to the orders and ties that stress its warp list
+(``knn_adversarial``), SDDMM to split-K at K = 4096 and to exact zeros in
+dead tiles over NaN and inf inputs; both print their share of the bound.  Every
 number printed is measured in this run.  The last line is the JSON result;
 any failure exits nonzero before it.  Imports the port only
 (``repro_torch``), never JAX.
@@ -153,6 +156,9 @@ MARGIN_RTOL = 4e-2
 DEVICE_PREFIX = {"shift_conv2d": "shift_conv", "spdmm": "ell_spdmm",
                  "ddmm": "ddmm", "knn": "knn", "sddmm": "sddmm",
                  "flash_attention": "flash"}
+# the kernels whose rows print their achieved share of the bound (the two
+# redesigned last, from under 1% of it)
+BOUND_SHARE = ("knn", "sddmm")
 SOURCES = {
     "shift_conv2d": ("src/repro_torch/kernels/csrc/shift_conv.cu",
                      "src/repro/kernels/shift_conv.py:78"),
@@ -343,7 +349,7 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                                 dilation=(1, 3)), per_request=0)]
     elif task == "b6-dyn":
         # beyond the path: integer coordinates (exact distance ties), self
-        # loops, a ragged N, and b7-dyn's shape (196 patches of 192 features)
+        # loops, a ragged N, b7-dyn's shape (196 patches of 192 features)
         ints = rng.integers(-4, 5, (1024, 3))
         extra = [knn_case(t(ints), 20, mask=None, self_loops=False,
                           per_request=0),
@@ -354,6 +360,16 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                           per_request=0),
                  knn_case(t(rng.standard_normal((196, 192))), 9, mask=None,
                           self_loops=False, per_request=0)]
+        # the warp list's worst orders and ties, and k at both ends (their
+        # own generator: the other paths' inputs stay as they were)
+        from repro_torch.kernels.knn import MAX_K
+        own = np.random.default_rng(17)
+        for name, k in (("rising", 20), ("falling", 20), ("equal", 20),
+                        ("masked", 20), ("normal", 1), ("rising", MAX_K)):
+            x, mask = knn_adversarial(name, 1024, 3, own)
+            extra.append(knn_case(t(x), k, mask=None if mask is None
+                                  else t(mask), self_loops=False,
+                                  per_request=0, note=name))
     elif task == "b1":
         # beyond the path: every other act, ragged M, N and K on both y
         # layouts, and each route at K not a multiple of 4
@@ -379,6 +395,15 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
         x = t(rng.standard_normal((100, 50)))
         extra.append(sddmm_case(x, x.T, t(rng.random((100, 100)) < 0.4),
                                 per_request=0))
+        # split-K at its deepest: K = 4096 in 8 chunks, ragged M and N, y
+        # row-major and a transposed view (their own generator)
+        own = np.random.default_rng(17)
+        for m, n, density, view in ((100, 70, 0.3, False),
+                                    (33, 65, 0.05, True)):
+            y = t(own.standard_normal((n, 4096) if view else (4096, n)))
+            extra.append(sddmm_case(
+                t(own.standard_normal((m, 4096))), y.T if view else y,
+                t(own.random((m, n)) < density), per_request=0))
     return list(cases.values()) + extra
 
 
@@ -460,7 +485,9 @@ def exact_checks(task, rng, dev) -> None:
     """Kernel results beyond the main path that must hold exactly: a
     batched conv equals its per-image calls (same arithmetic order; b1's
     and b2's shapes, split-K active) and a second call of itself (no
-    atomics); SDDMM's dead tiles come out as exact zeros (vip-masked);
+    atomics); SDDMM's dead tiles come out as exact zeros over NaN and inf
+    inputs, and its split-K result is the same on a second call and with y
+    as a transposed view (vip-masked);
     DDMM's (``ddmm_exact_checks``)."""
     from repro_torch.kernels import sddmm, shift_conv2d
     from repro_torch.kernels.sddmm import live_tiles
@@ -497,8 +524,11 @@ def exact_checks(task, rng, dev) -> None:
         assert not differ, "batched conv differs from per-image calls"
         assert not rerun, "two calls of the conv differ"
     if task == "vip-masked":
+        # NaN in x's rows and inf in y's columns that only dead tiles read
         x, y = t(rng.standard_normal((256, 64))), t(rng.standard_normal(
             (64, 256)))
+        x[160:200] = float("nan")
+        y[:, 130:250] = float("inf")
         mask = torch.zeros((256, 256), device=dev)
         mask[:128, :128] = 1.0
         got = sddmm(x, y, mask)
@@ -507,9 +537,50 @@ def exact_checks(task, rng, dev) -> None:
         nonzero = int((dead != 0).sum().item())
         log(f"check sddmm dead tiles: mask live on [:128, :128] of 256x256, "
             f"{int(live_tiles(mask).sum())}/{live_tiles(mask).numel()} tiles "
-            f"live, {nonzero} nonzero outputs outside"
-            + ("" if not nonzero else "  FAIL"))
+            f"live, NaN and inf only in dead bands, {nonzero} nonzero "
+            f"outputs outside" + ("" if not nonzero else "  FAIL"))
         assert not nonzero, "sddmm: a dead tile is not exactly zero"
+        # split-K in order: a second call and a transposed y, bit for bit
+        from repro_torch.kernels.sddmm import launch_plan as sddmm_plan
+        own = np.random.default_rng(18)
+        x = t(own.standard_normal((100, 4096)))
+        y = t(own.standard_normal((4096, 70)))
+        mask = t(own.random((100, 70)) < 0.3)
+        got, again = sddmm(x, y, mask), sddmm(x, y, mask)
+        view = sddmm(x, y.T.contiguous().T, mask)
+        torch.cuda.synchronize()
+        rerun = int((got != again).sum().item())
+        differ = int((got != view).sum().item())
+        plan = sddmm_plan(100, 4096, 70)
+        log(f"check sddmm (100,4096)@(4096,70) split {plan.split} of "
+            f"{plan.k_tiles} K stages: a second call, {rerun} elements "
+            f"differ; y as a transposed view, {differ} differ"
+            + ("" if not (rerun or differ) else "  FAIL"))
+        assert plan.split > 1 and not (rerun or differ), \
+            "sddmm: two calls or two layouts of y differ"
+
+
+def knn_adversarial(name: str, n: int, f: int,
+                    rng) -> tuple[np.ndarray, np.ndarray | None]:
+    """``(x, mask)`` for the KNN cases that stress the kernel's warp list:
+    ``rising`` / ``falling`` collinear points (every candidate of the last
+    or first rows beats all before it: the threshold filter's worst case,
+    with a tie toward each side), ``equal`` points (every distance ties:
+    pure index order), ``masked`` (all but 5 candidates masked: trailing
+    +inf in index order); standard-normal points otherwise."""
+    mask = None
+    if name in ("rising", "falling"):
+        line = np.arange(n, dtype=np.float32) * 0.5
+        x = np.stack([line if name == "rising" else line[::-1]]
+                     + [np.zeros(n, np.float32)] * (f - 1), 1)
+    elif name == "equal":
+        x = np.full((n, f), 0.25, np.float32)
+    else:
+        x = rng.standard_normal((n, f)).astype(np.float32)
+    if name == "masked":
+        mask = np.zeros(n, np.float32)
+        mask[rng.choice(n, 5, replace=False)] = 1.0
+    return x, mask
 
 
 def pad_mask(n: int) -> np.ndarray:
@@ -595,8 +666,10 @@ def spdmm_columns_case(idx, val, y) -> Case:
 
 
 def sddmm_case(x, y, mask, per_request) -> Case:
+    """Bound: bytes, or the sampled products at the 3xTF32 rate.  Library:
+    ``torch.sparse.sampled_addmm`` of the CSR mask."""
     from repro_torch.kernels import ref, sddmm
-    from repro_torch.kernels.sddmm import live_tiles
+    from repro_torch.kernels.sddmm import launch_plan, live_tiles
     m, k = x.shape
     n = y.shape[1]
     # the VIP passes y = xᵀ, a view of x's memory: x is read once
@@ -619,7 +692,8 @@ def sddmm_case(x, y, mask, per_request) -> Case:
         lambda: ref.sddmm_ref(x, y, mask),
         lambda: torch.sparse.sampled_addmm(csr, x, y, beta=0.0),
         4.0 * (m * k + (0 if y_is_x else k * n) + 2 * m * n),
-        2.0 * nnz * k, per_request)
+        2.0 * nnz * k, per_request, rate=CONV_FLOPS,
+        plan=launch_plan(m, k, n))
 
 
 def ddmm_case(x, y, *, bias=None, residual=None, act=None, gram=False,
@@ -654,12 +728,13 @@ def ddmm_case(x, y, *, bias=None, residual=None, act=None, gram=False,
         mm=lambda: torch.mm(x, y), args=(x, y, bias, residual, act))
 
 
-def knn_case(x, k, *, mask, self_loops, per_request) -> Case:
+def knn_case(x, k, *, mask, self_loops, per_request, note="") -> Case:
+    """``note``: the name of the input's kind (``knn_adversarial``)."""
     from repro_torch.kernels import knn, ref
     n, f = x.shape
     kw = dict(mask=mask, self_loops=self_loops)
     label = (f"knn x{tuple(x.shape)} k={k} masked={mask is not None} "
-             f"self_loops={self_loops}")
+             f"self_loops={self_loops}" + (f" ({note})" if note else ""))
     # bytes: points, mask, indices; operations: the 2·N²·F of the dot
     # products plus 3·N² to form each distance and compare it
     return Case(
@@ -977,6 +1052,8 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
                f", {getattr(plan, 'route', 'tile')} {plan.bm}x{plan.bn} "
                f"split {plan.split} of {plan.k_tiles} K tiles, "
                f"{plan.blocks} blocks")
+            + (f", {bnd / (dev or ms):.4f} of the bound"
+               if case.kernel in BOUND_SHARE else "")
             + f", x{case.per_request:g}/request  [{card}]")
         if case.per_request:
             tot = totals[case.kernel]
@@ -1015,6 +1092,14 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
         }
         if tot["device"]:
             row["device_ms"] = tot["device_ms"]
+        if name in BOUND_SHARE:
+            # the bound over the time taken: device time where profiled
+            took = tot["device_ms"] if tot["device"] else tot["ms"]
+            row["bound_share"] = tot["bound_ms"] / took
+            log(f"{task} {name}: {took:.5f} ms/request "
+                f"({'device' if tot['device'] else 'events'}) against a "
+                f"bound of {tot['bound_ms']:.5f} ms: "
+                f"{row['bound_share']:.4f} of the bound  [{card}]")
         for key in ("before_ms", "before_device_ms", "mm_ms"):
             if tot[key] is not None:
                 row[key] = tot[key]

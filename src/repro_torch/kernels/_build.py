@@ -41,7 +41,7 @@ SIGNATURES = {
     "repro_ell_spdmm_rows": [_P] * 4 + [_I] * 5 + [_P],
     "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_knn_max_k": [],
-    "repro_sddmm": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    "repro_sddmm": [_P] * 4 + [_I] * 7 + [_P],
     "repro_sddmm_block": [],
     "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
     "repro_flash_max_d": [],

@@ -1,4 +1,5 @@
-// SDDMM: out = mask ⊙ (x @ y), fp32 in and out, fp32 accumulation.
+// SDDMM: out = mask ⊙ (x @ y), fp32 in and out, fp32-accurate products on
+// the tensor cores (3xTF32).
 //
 // Replaces the TPU kernel src/repro/kernels/sddmm.py (sddmm /
 // _sddmm_kernel): a (bm, bk) x (bk, bn) MXU tile loop that skips every
@@ -9,118 +10,106 @@
 // What bounds it on the H100: the sampled products, 2 * nnz(mask) * K
 // operations, against x, y, the mask and the output moved once each.  At
 // the masked VIP's (196, 512) x (512, 196) with a 5x5-window mask (nnz
-// 4096) that is 4.2 MFLOP over 1.1 MB: bound by bytes (0.3 us), far below
-// one launch, so the kernel is launch- and latency-bound at that size.
+// 4096) that is 4.2 MFLOP over 0.7 MB: bound by bytes (0.2 us), far below
+// one launch, so the kernel is bound by latency at that size.  The SIMT
+// kernel it replaces ran one 32x32 tile per block over all of K: 19 live
+// blocks of 2 warps, each walking K = 512 in 32 synchronous steps.
 //
-// Design: the tiled SIMT GEMM of ddmm.cu with a 32x32 output tile per block
-// of 64 threads (4x4 accumulators each, K in steps of 16), so the 196-node
-// VIP spreads over 49 blocks and block skipping works at a finer grain than
-// the TPU's 128x128 blocks.  Each block first loads the mask elements its
-// threads own in the epilogue (into registers) and decides liveness in the
-// kernel with __syncthreads_or: no separate reduction pass, one launch.  A
-// dead block does no K loop and writes exact zeros.  y is read through its
-// two strides, so the VIP's y = xᵀ is a view and needs no transposed copy;
-// the tile load walks whichever axis of y is contiguous.  Every load and
-// store is masked, so ragged M, N and K need no padding copies.  A live
-// tile may hold more than the TPU's block would, but elementwise=True
-// multiplies by the mask, so the result does not depend on the tile size.
+// Design: DDMM's 3xTF32 tile core (tf32x3_tile.cuh) on 32x32 output
+// tiles, the grain of block skipping:
+// - Split-K: K falls into up to 8 chunks of at least 2 stages of 32, one
+//   block each; the chunks of a tile form one thread-block cluster and add
+//   their partials over distributed shared memory in chunk order (no
+//   atomics, the same bits every run).  The split follows K alone
+//   (kernels/sddmm.py: launch_plan): at the masked VIP, 19 live tiles x 8
+//   chunks keep 152 blocks busy instead of 19.  x and y tiles come through
+//   a 3-deep cp.async ring.
+// - Liveness in the kernel, one launch: every block of a cluster reads the
+//   whole 32x32 mask tile and decides with __syncthreads_or, so all reach
+//   the same answer.  A dead cluster does no K loop and writes exact zeros
+//   (even where x or y hold NaN or inf); it never waits on a cluster
+//   barrier, since none of its blocks does.
+// - The mask is multiplied in the store.  A live tile may hold more than
+//   the TPU's block would, but elementwise=True multiplies by the mask, so
+//   the result does not depend on the tile size.
+// - y is read through its strides, row-major (K, N) or a transposed view
+//   (the VIP's y = xᵀ needs no copy); both layouts give the MMAs the same
+//   fragments, so the same bits.  Masked copies zero-fill ragged M, N, K.
 #include <cuda_runtime.h>
+
+#include "tf32x3_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32, BN = 32, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 64
+constexpr int TILE = 32;           // BM = BN: the grain of block skipping
 
+template <bool YT>
 __global__ void __launch_bounds__(THREADS)
-sddmm_kernel(const float* __restrict__ x, const float* __restrict__ y,
-             const float* __restrict__ mask, float* __restrict__ out, int M,
-             int K, int N, long long ys_k, long long ys_n) {
-  __shared__ float xs[BK][BM + 1];   // +1: the k-major stores hit distinct banks
-  __shared__ float ys[BK][BN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  // The mask elements this thread owns; the block is live if any is nonzero.
-  float mk[TM][TN];
+sddmm_tf32x3_kernel(TileArgs a, const float* __restrict__ mask,
+                    float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int chunk = blockIdx.x % a.split;        // = the cluster rank
+  const int m0 = blockIdx.y * TILE, n0 = (blockIdx.x / a.split) * TILE;
   int any = 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      mk[i][j] = (gm < M && gn < N) ? mask[(size_t)gm * N + gn] : 0.f;
-      any |= mk[i][j] != 0.f;
-    }
+  for (int i = 0; i < TILE * TILE / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int m = m0 + e / TILE, n = n0 + e % TILE;
+    any |= m < a.M && n < a.N && mask[(size_t)m * a.N + n] != 0.f;
   }
-  const bool live = __syncthreads_or(any);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  if (live) {
-    const bool y_k_contig = ys_k == 1;   // y = xᵀ: walk k across threads
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      // x tile: consecutive threads walk k (x is row-major over K)
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK;
-        const int gm = m0 + r, gk = k0 + c;
-        xs[c][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-      }
-      // y tile: consecutive threads walk y's contiguous axis
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int r = y_k_contig ? e % BK : e / BN;
-        const int c = y_k_contig ? e / BK : e % BN;
-        const int gk = k0 + r, gn = n0 + c;
-        ys[r][c] = (gk < K && gn < N) ? y[gk * ys_k + gn * ys_n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ys[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (!__syncthreads_or(any)) {
+    // dead: this block's share of the tile's exact zeros
+    for (int e = chunk * THREADS + threadIdx.x; e < TILE * TILE;
+         e += a.split * THREADS) {
+      const int m = m0 + e / TILE, n = n0 + e % TILE;
+      if (m < a.M && n < a.N) out[(size_t)m * a.N + n] = 0.f;
     }
+    return;
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn >= N) continue;
-      out[(size_t)gm * N + gn] = live ? acc[i][j] * mk[i][j] : 0.f;
-    }
-  }
+  tile_chunk<TILE, TILE, YT>(a, m0, n0, chunk, smem);
+  tile_reduce<TILE, TILE, YT>(a, smem, m0, n0, chunk,
+                              [&](float v, int m, int n) {
+                                const size_t o = (size_t)m * a.N + n;
+                                out[o] = v * mask[o];
+                              });
 }
 
 }  // namespace
 
 // Output tile edge (square tiles): the grain of block skipping.
-extern "C" int repro_sddmm_block() { return BM; }
+extern "C" int repro_sddmm_block() { return TILE; }
 
-// x: (M, K) row-major; y: (K, N) with element (k, n) at y[k*ys_k + n*ys_n];
-// mask, out: (M, N) row-major.  Returns cudaGetLastError() after the launch.
+// x: (M, K) row-major; y: (K, N), element (k, n) at y[n * ldy + k] when
+// y_t (a transposed view) else at y[k * ldy + n]; mask, out: (M, N)
+// row-major; the K plan (kernels/sddmm.py: launch_plan): kt_per stages of
+// 32 per chunk, split chunks (the cluster size).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_sddmm(const float* x, const float* y, const float* mask,
-                           float* out, int M, int K, int N, long long ys_k,
-                           long long ys_n, void* stream) {
+                           float* out, int M, int K, int N, int ldy, int y_t,
+                           int kt_per, int split, void* stream) {
+  TileArgs a;
+  a.x = x;
+  a.y = y;
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.ldy = ldy;
+  a.k_tiles = K > 0 ? (K + BK - 1) / BK : 1;
+  a.kt_per = kt_per;
+  a.split = split;
   if (M == 0 || N == 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  sddmm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, mask, out, M, K, N, ys_k, ys_n);
+  if (split < 1 || split > MAX_SPLIT || kt_per < 1 ||
+      split * kt_per < a.k_tiles || (split - 1) * kt_per >= a.k_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (N + TILE - 1) / TILE, m_tiles = (M + TILE - 1) / TILE;
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      y_t ? launch_tiles<sddmm_tf32x3_kernel<true>,
+                         Tile<TILE, TILE, true>::BYTES>(
+                n_tiles, m_tiles, split, st, a, mask, out)
+          : launch_tiles<sddmm_tf32x3_kernel<false>,
+                         Tile<TILE, TILE, false>::BYTES>(
+                n_tiles, m_tiles, split, st, a, mask, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

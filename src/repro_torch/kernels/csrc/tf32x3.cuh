@@ -1,5 +1,6 @@
-// Helpers shared by the 3xTF32 tensor-core kernels (shift_conv.cu, ddmm.cu):
-// cp.async copies into shared memory (spdmm.cu uses these too), the split
+// Helpers shared by the 3xTF32 tensor-core kernels (shift_conv.cu and, through
+// tf32x3_tile.cuh, ddmm.cu and sddmm.cu): cp.async copies into shared memory
+// (spdmm.cu and knn.cu use these too), the split
 // of an fp32 value into two TF32 parts, and one mma.sync.m16n8k8 TF32
 // product.
 //

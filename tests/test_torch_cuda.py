@@ -41,7 +41,8 @@ from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
 from repro_torch.kernels.spdmm import spdmm, spdmm_rows
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import vip_masked_graph, window_mask  # noqa: E402,F401
+from chip_smoke import (knn_adversarial, vip_masked_graph,  # noqa: E402
+                        window_mask)
 
 RTOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -465,6 +466,45 @@ def test_cuda_knn_ceiling_matches_the_kernel(cuda):
         knn(torch.zeros((10, 3), device=cuda, dtype=torch.float64), 3)
 
 
+# (name, N, F, k): chip_smoke.knn_adversarial's orders and ties, k at both
+# ends, N below a warp and off the block's rows, b7-dyn's (196, 192)
+KNN_ADVERSARIAL = [
+    ("rising", 1024, 3, 20), ("falling", 1024, 3, 20),
+    ("rising", 1024, 3, MAX_K), ("equal", 1024, 3, 20),
+    ("equal", 300, 3, MAX_K), ("masked", 1024, 3, 20),
+    ("normal", 1024, 3, 1), ("normal", 1024, 3, MAX_K),
+    ("normal", 20, 3, 5), ("normal", 1001, 3, 20),
+    ("normal", 196, 192, 9)]                       # b7-dyn's patches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("case", KNN_ADVERSARIAL, ids=str)
+def test_cuda_knn_adversarial_orders_match_plain_exactly(cuda, case,
+                                                         self_loops):
+    name, n, f, k = case
+    x, mask = knn_adversarial(name, n, f, np.random.default_rng(0))
+    x = t(x).to(cuda)
+    kw = dict(mask=None if mask is None else t(mask).to(cuda),
+              self_loops=self_loops)
+    got = knn(x, k, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.knn_ref(x, k, **kw).cpu().numpy())
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        ref.knn_ref(x.cpu(), k, mask=None if mask is None else t(mask),
+                    self_loops=self_loops).numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_knn_two_calls_are_bit_equal(cuda):
+    x, mask = (t(a).to(cuda) for a in knn_inputs(1024, 3, 64, True))
+    got, again = knn(x, 20, mask=mask), knn(x, 20, mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((4, 5), device=cuda)
@@ -518,6 +558,59 @@ def test_cuda_sddmm_tile_matches_the_kernel(cuda):
         sddmm(torch.zeros((4, 5), device=cuda), torch.zeros((5, 6),
                                                              device=cuda),
               torch.zeros((4, 6), device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,density", [(100, 4096, 70, 0.3),
+                                           (33, 4096, 65, 0.05)])
+def test_cuda_sddmm_split_k_matches_plain(cuda, m, k, n, density):
+    """K = 4096 splits into 8 chunks of 16 stages, summed in order across
+    a cluster: within RTOL of the plain version, the same bits on a second
+    call and through a transposed view of y."""
+    from repro_torch.kernels.sddmm import launch_plan as sddmm_plan
+    assert sddmm_plan(m, k, n).split == 8
+    x, y, mask = (t(a).to(cuda) for a in sddmm_inputs(m, k, n, density))
+    got = sddmm(x, y, mask)
+    again = sddmm(x, y, mask)
+    got_t = sddmm(x, y.T.contiguous().T, mask)
+    torch.cuda.synchronize()
+    close(got.cpu(), ref.sddmm_ref(x, y, mask).cpu())
+    assert torch.equal(got, again) and torch.equal(got, got_t)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_dead_tiles_stay_zero_over_non_finite_inputs(cuda):
+    """NaN in x's rows and inf in y's columns that only dead tiles read:
+    those outputs are exactly 0 (the plain version gives NaN there)."""
+    x, y, _ = sddmm_inputs(256, 64, 256, 0.0)
+    x[160:200] = np.nan
+    y[:, 130:250] = np.inf
+    mask = np.zeros((256, 256), np.float32)
+    mask[:128, :128] = (np.random.default_rng(1).random((128, 128))
+                        < 0.3)
+    got = sddmm(*(t(a).to(cuda) for a in (x, y, mask)))
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert (got[128:] == 0).all() and (got[:, 128:] == 0).all()
+    want = ref.sddmm_ref(t(x[:128]), t(y[:, :128]), t(mask[:128, :128]))
+    close(got[:128, :128], want)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_at_b3_spatial_window(cuda):
+    """b3-r50's spatial branch as the masked VIP calls it: (196, 512)
+    nodes, y = xᵀ (a view), each patch's 5x5 window on 14x14."""
+    rng = np.random.default_rng(3)
+    x = t(rng.standard_normal((196, 512)).astype(np.float32)).to(cuda)
+    mask = t(window_mask(14, 5)).to(cuda)
+    before = sddmm.launches
+    got = sddmm(x, x.T, mask)
+    again = sddmm(x, x.T.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert sddmm.launches == before + 2
+    close(got.cpu(), ref.sddmm_ref(x, x.T, mask).cpu())
+    assert torch.equal(got, again)
+    assert (got[mask == 0] == 0).all()
 
 
 @pytest.mark.cuda

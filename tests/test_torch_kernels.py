@@ -35,6 +35,7 @@ from test_torch_cuda import (ACTS, CONV_CASES, DDMM_PATH, DDMM_SHAPES,
 
 # the module, which the package's ``ddmm`` function shadows
 ddmm_mod = importlib.import_module("repro_torch.kernels.ddmm")
+sddmm_mod = importlib.import_module("repro_torch.kernels.sddmm")
 PATH_TASKS = ("b1", "b2", "b3-r50", "b3-r101", "b4", "b5", "b6", "b6-dyn",
               "vip-masked")
 
@@ -163,6 +164,30 @@ def test_ddmm_launch_plan_gives_the_blocks_it_promises(case):
                p.k_tiles // ddmm_mod.MIN_CHUNK)
     assert 2 * p.split >= want, (p, want)
     assert p.blocks >= m_tiles * n_tiles * -(-want // 2)
+
+
+@pytest.mark.parametrize("k", [0, 1, 17, 32, 64, 96, 512, 4096, 5000])
+def test_sddmm_launch_plan_splits_by_k_alone(k):
+    """SDDMM's K chunks follow K alone (M and N move only the grid): they
+    cover K exactly, number at most MAX_SPLIT and hold at least MIN_CHUNK
+    stages each (or all of a shorter K); the masked VIP's K = 512 gives 8
+    chunks of 2 stages."""
+    shapes = ((1, 1), (196, 196), (100, 70), (4096, 33))
+    plans = [sddmm_mod.launch_plan(m, k, n) for m, n in shapes]
+    assert len({(p.k_tiles, p.kt_per, p.split) for p in plans}) == 1
+    p = plans[0]
+    assert p.k_tiles == max(1, -(-k // sddmm_mod.BK))
+    assert 1 <= p.split <= sddmm_mod.MAX_SPLIT
+    assert (p.split - 1) * p.kt_per < p.k_tiles <= p.split * p.kt_per
+    assert p.kt_per >= min(sddmm_mod.MIN_CHUNK, p.k_tiles)
+    if p.k_tiles >= sddmm_mod.MIN_CHUNK * sddmm_mod.MAX_SPLIT:
+        assert p.split == sddmm_mod.MAX_SPLIT
+    for (m, n), q in zip(shapes, plans):
+        edge = sddmm_mod.BLOCK
+        assert q.grid == (-(-n // edge) * q.split, -(-m // edge))
+        assert (q.bm, q.bn) == (edge, edge)
+    if k == 512:
+        assert (p.split, p.kt_per) == (8, 2)
 
 
 def test_ddmm_y_layout_reads_rows_and_transposed_views():

@@ -17,6 +17,7 @@ from repro.kernels.knn import knn as pallas_knn
 from repro.kernels.knn import knn_ref as jax_knn_ref
 from repro_torch.kernels import ref
 from repro_torch.kernels.knn import MAX_K, knn
+from test_torch_cuda import knn_adversarial
 
 SHAPES = [(64, 3, 5), (100, 16, 12), (130, 3, 20), (300, 8, 9)]
 
@@ -61,6 +62,22 @@ def test_knn_at_b6_dyn_shape_with_padding_mask():
         got = port(x, 20, mask=mask)
         np.testing.assert_array_equal(got, reference(x, 20, mask=mask))
         assert mask[got].all()
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("name,k", [("rising", 20), ("falling", 20),
+                                    ("rising", MAX_K), ("equal", 20),
+                                    ("equal", MAX_K), ("masked", 20),
+                                    ("normal", 1)])
+def test_knn_adversarial_orders_match_reference(name, k, self_loops):
+    """The card's adversarial cases (``chip_smoke.knn_adversarial``):
+    collinear points visited farthest-first, all points equal, almost
+    every candidate masked, k = 1 and k = MAX_K."""
+    x, mask = knn_adversarial(name, 200, 3, np.random.default_rng(0))
+    kw = dict(mask=mask, self_loops=self_loops)
+    got = port(x, k, **kw)
+    np.testing.assert_array_equal(got, reference(x, k, **kw))
+    np.testing.assert_array_equal(got, knn_indices(x, k, **kw))
 
 
 def test_integer_coordinates_break_ties_toward_lower_index():
