@@ -11,9 +11,10 @@ cloud, b5 SAR, b1 few-shot, b2 ML-GCN, b3 DualGCN on ResNet-50 and -101,
 and the masked VIP at b3's spatial width) and the LM path (qwen3-0.6b's
 served prefills, a 2048-token prefill, and flash attention's edge cases in
 fp32 and bf16), serves 8 requests of each GNN-CV path through its compiled
-plan with the CUDA kernels bound, checks the launch counts and the outputs
-against the same plan bound to the plain versions (on the card and, for
-one request, on the CPU), serves 16 requests of qwen3-0.6b at full width
+plan with the CUDA kernels bound (eager runners), checks the launch
+counts and the outputs against the same plan bound to the plain versions
+(on the card and, for one request, on the CPU), serves 16 requests of
+qwen3-0.6b at full width
 through ``repro_torch.launch.serve`` and checks its tokens against the
 plain attention path, and times kernels, requests and tokens.  DDMM is
 held to its batch rule (a product stacked along M equals its per-sample
@@ -23,10 +24,18 @@ must keep a NaN row NaN.  SpDMM runs through the entry the path calls
 replaced (the column kernel between two transposing copies).  KNN is also
 held to the orders and ties that stress its warp list
 (``knn_adversarial``), SDDMM to split-K at K = 4096 and to exact zeros in
-dead tiles over NaN and inf inputs; both print their share of the bound.  Every
-number printed is measured in this run.  The last line is the JSON result;
-any failure exits nonzero before it.  Imports the port only
-(``repro_torch``), never JAX.
+dead tiles over NaN and inf inputs; both print their share of the bound.
+Then each GNN-CV path runs again through the public entry point,
+``repro_torch.gcv.compile(graph, kernels="cuda")``: ``warmup()`` captures
+the batch-1 and batch-4 requests as CUDA graphs (the launches recorded at
+capture are counted, and the kernels of a replay by the profiler), the
+graph outputs must equal the eager runner's bit for bit, a batch of 4
+(eager and graph) each sample's batch-1 output bit for bit, and the
+runner cache may miss no more after the warmup; request times (eager
+against graph, in turns), samples/s at batch 4 and the device's idle share
+under replay are printed.  Every number printed is measured in this run.
+The last line is the JSON result; any failure exits nonzero before it.
+Imports the port only (``repro_torch``), never JAX.
 
 ``--conv-sweep`` instead times the shift-conv kernel at every pixel tile
 and split-K factor it takes, at every distinct conv shape of b4, b5, b1,
@@ -73,9 +82,9 @@ CONV_FLOPS = TF32_FLOPS / 3
 # plain versions (cuBLAS / torch reductions): the rounding error of a
 # K-term fp32 dot grows like sqrt(K)·2^-24 ≈ 3e-6 at b4's largest
 # K = 9·256, so a kernel agrees within 1e-5 of the output's magnitude.
-# Through 29 ops of a request those differences compound, and b5's COO sums
-# run with atomics (``index_add_``) in an order that changes from run to
-# run, hence 1e-4 end to end.  KNN indices must be equal exactly: the
+# Through 29 ops of a request those differences compound, hence 1e-4 end
+# to end.  (b5's COO sums add each row's edges in edge order: the same
+# bits every run.)  KNN indices must be equal exactly: the
 # kernel repeats the plain version's fp32 arithmetic.
 KERNEL_RTOL = 1e-5
 E2E_RTOL = 1e-4
@@ -87,6 +96,12 @@ E2E_RTOL = 1e-4
 # fp32-level (~2^-21 of each product): KERNEL_RTOL holds for it.
 FLASH_BF16_RTOL = 2.0 ** -7
 REQUESTS = 8
+# The graph phase: batch-1 request times over GRAPH_TURNS turns of the
+# REQUESTS requests for each runner (eager, graph), and BATCH_TURNS turns
+# of the two batches of GRAPH_BATCH for each batched runner.
+GRAPH_BATCH = 4
+GRAPH_TURNS = 5
+BATCH_TURNS = 10
 # b6-dyn requests: a 960-point cloud padded to a 1024-point bucket, as
 # graph-bucketed serving sends it.
 PAD_POINTS = 64
@@ -156,6 +171,13 @@ MARGIN_RTOL = 4e-2
 DEVICE_PREFIX = {"shift_conv2d": "shift_conv", "spdmm": "ell_spdmm",
                  "ddmm": "ddmm", "knn": "knn", "sddmm": "sddmm",
                  "flash_attention": "flash"}
+# The device kernels that are each wrapper's launch (shift-conv's split-K
+# reduction is a second kernel of the same launch), counted per graph
+# replay under the profiler.
+MAIN_KERNELS = {"shift_conv2d": ("shift_conv_tf32x3_kernel",),
+                "spdmm": ("ell_spdmm_rows_kernel",),
+                "ddmm": ("ddmm_tf32x3_kernel", "ddmm_narrow_kernel"),
+                "knn": ("knn_kernel",), "sddmm": ("sddmm_tf32x3_kernel",)}
 # the kernels whose rows print their achieved share of the bound (the two
 # redesigned last, from under 1% of it)
 BOUND_SHARE = ("knn", "sddmm")
@@ -818,14 +840,15 @@ def profile_requests(run, requests, card, task) -> None:
                    f"{task} requests", "request", card)
 
 
-def profile_window(fn, n: int, what: str, per: str, card: str) -> None:
+def profile_window(fn, n: int, what: str, per: str, card: str) -> list:
     """Profile ``n`` calls of ``fn``: device kernels and busy time per
-    call, the idle share of the device window, the largest kernels."""
+    call, the idle share of the device window, the largest kernels.
+    Returns the device events (empty where none was recorded)."""
     kernels = device_events(fn, n)
     if not kernels:
         log(f"profile of {what}: no device events recorded (device "
             "breakdown not measured)")
-        return
+        return []
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -849,6 +872,7 @@ def profile_window(fn, n: int, what: str, per: str, card: str) -> None:
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"  {us / n / 1e3:.4f} ms/{per}  {count // n:3d}x  "
             f"{name[:90]}")
+    return kernels
 
 
 def window_mask(side: int, win: int) -> np.ndarray:
@@ -875,19 +899,20 @@ def vip_masked_graph(builder, side=VIP_SIDE, feat=VIP_FEAT, win=VIP_WIN):
     return b.output(b.mp(x, adj_input=aff, name="agg"))
 
 
+def task_graph(task):
+    """The task's layer graph at full width (random weights from seed 0)."""
+    from repro_torch.core.ir import GraphBuilder
+    from repro_torch.gnncv.tasks import build_dynamic_task, build_task
+    if task == "vip-masked":
+        return vip_masked_graph(GraphBuilder)
+    return (build_dynamic_task if task == "b6-dyn" else build_task)(task)
+
+
 def task_plans(task):
     """-> (plan with the CUDA kernels bound, the same plan bound to the
     plain versions)."""
     from repro_torch.core import CompileOptions, compile_graph
-    from repro_torch.core.ir import GraphBuilder
-    from repro_torch.gnncv.tasks import build_dynamic_task, build_task
-
-    def graph():
-        if task == "vip-masked":
-            return vip_masked_graph(GraphBuilder)
-        return (build_dynamic_task if task == "b6-dyn" else build_task)(task)
-
-    return tuple(compile_graph(graph(), CompileOptions(kernels=mode))
+    return tuple(compile_graph(task_graph(task), CompileOptions(kernels=mode))
                  for mode in ("cuda", "torch"))
 
 
@@ -919,10 +944,11 @@ def request_scale(task, plan, plan_torch, reqs) -> float:
     from repro_torch.core import build_runner
     vips = [op.name for op in plan_torch.ops if op.kind == "sddmm"]
     probe = build_runner(dataclasses.replace(plan_torch, outputs=vips),
-                         free_dead=False)
+                         free_dead=False, jit=False)
     peak = max(a.abs().max().item() for r in reqs for a in probe(**r))
     scale = 2.0 ** math.floor(0.5 * math.log2(AFFINITY_PEAK / peak))
-    run_cuda, run_torch = build_runner(plan), build_runner(plan_torch)
+    run_cuda = build_runner(plan, jit=False)
+    run_torch = build_runner(plan_torch, jit=False)
     rels = [rel_err(run_cuda(**r)[0], run_torch(**r)[0])[1] for r in reqs]
     worst = int(np.argmax(rels))
     cpu = build_runner(plan_torch, device="cpu")(**reqs[worst])[0]
@@ -952,8 +978,8 @@ def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
         elif op.kernel == "cuda_sddmm":     # unmasked: DDMM on x @ xᵀ
             per_req["sddmm" if "mask" in op.weights else "ddmm"] += 1
     assert per_req == expected, (task, per_req)
-    run_cuda = build_runner(plan)
-    run_torch = build_runner(plan_torch)
+    run_cuda = build_runner(plan, jit=False)
+    run_torch = build_runner(plan_torch, jit=False)
     for fn in kernels.values():
         fn.launches = 0
     outs = []
@@ -986,9 +1012,11 @@ def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
 
 
 def request_times(task, plan, plan_torch, requests, card) -> None:
-    """Request latency of both plans, in turns, on the host clock."""
+    """Request latency of both plans, eager, in turns, on the host
+    clock."""
     from repro_torch.core import build_runner
-    run_cuda, run_torch = build_runner(plan), build_runner(plan_torch)
+    run_cuda = build_runner(plan, jit=False)
+    run_torch = build_runner(plan_torch, jit=False)
 
     def request_ms(run):
         t_req = []
@@ -1014,6 +1042,149 @@ def request_times(task, plan, plan_torch, requests, card) -> None:
             f"{len(samples)} requests): p50 {med:.4f} ms, p25 {q1:.4f} ms, "
             f"p75 {q3:.4f} ms  [{card}]")
     profile_requests(run_cuda, requests, card, task)
+
+
+def graph_phase(task, requests, kernels, card) -> None:
+    """The task through the public entry point, ``gcv.compile(graph,
+    kernels="cuda")``: ``warmup()`` captures batch 1 and batch
+    ``GRAPH_BATCH`` (the launches the wrappers record at capture must be
+    ``PER_REQUEST``, and at batch ``GRAPH_BATCH`` those of one eager
+    batched request), the graph runner must equal the eager runner bit for
+    bit on every request, both batched runners each sample's batch-1
+    output, and the runner cache may not miss after the runners are
+    built.  Every launch count set to 0 just before, read just after."""
+    from repro_torch import gcv
+    from repro_torch.core.executor import stack_inputs
+    from repro_torch.core.runtime.cache import cache_stats
+    model = gcv.compile(task_graph(task), kernels="cuda")
+    want = {**dict.fromkeys(kernels, 0), **PER_REQUEST[task]}
+
+    def captured(batch) -> dict[str, int]:
+        """The launches each wrapper records into the graph that
+        ``warmup`` captures for ``batch`` (None: the ``run()`` runner)."""
+        for fn in kernels.values():
+            fn.captured = 0
+        assert model.warmup(None if batch is None else [batch]) == {batch}
+        return {name: fn.captured for name, fn in kernels.items()}
+
+    one, many = captured(None), captured(GRAPH_BATCH)
+    log(f"{task} graphs: launches recorded at capture, batch 1: {one}; "
+        f"batch {GRAPH_BATCH}: {many}")
+    assert one == want, (task, one)
+    graph1, graph_b = model.runner(), model.batched(GRAPH_BATCH, jit=True)
+    eager1, eager_b = model.runner(jit=False), model.batched(GRAPH_BATCH)
+    assert graph1.jit and graph_b.jit and not (eager1.jit or eager_b.jit)
+    misses = cache_stats()["runner_misses"]
+    batches = [stack_inputs(requests[i:i + GRAPH_BATCH])
+               for i in range(0, len(requests), GRAPH_BATCH)]
+    for fn in kernels.values():
+        fn.launches = 0
+    eager_b(**batches[0])
+    walked = {name: fn.launches for name, fn in kernels.items()}
+    assert many == walked, (task, many, walked)
+    singles = [eager1(**req) for req in requests]
+    for s, req in enumerate(requests):
+        for g, e in zip(graph1(**req), singles[s]):
+            assert torch.equal(g, e), f"{task} request {s}: graph != eager"
+    for name, run in (("eager", eager_b), ("graph", graph_b)):
+        for b, stacked in enumerate(batches):
+            for j, out in enumerate(run(**stacked)):
+                for i in range(GRAPH_BATCH):
+                    assert torch.equal(
+                        out[i], singles[b * GRAPH_BATCH + i][j]), \
+                        f"{task} {name} batch {b} sample {i} != batch 1"
+    torch.cuda.synchronize()
+    log(f"{task}: graph == eager bit for bit on {len(requests)} requests; "
+        f"batch {GRAPH_BATCH} (eager and graph) == batch 1 bit for bit on "
+        f"{len(batches) * GRAPH_BATCH} samples")
+    graph_times(task, (eager1, graph1), (eager_b, graph_b), requests,
+                batches, card)
+    assert cache_stats()["runner_misses"] == misses, \
+        f"{task}: the runner cache missed after warmup"
+    assert graph1.trace_count() == graph_b.trace_count() == 1, \
+        f"{task}: a graph was captured again under traffic"
+
+
+def graph_times(task, ones, batched, requests, batches, card) -> None:
+    """Request latency of the eager and the graph runner in turns (host
+    clock), samples/s of the two batched runners in turns, and the graph
+    replays under the profiler (the main kernels per replay must be
+    ``PER_REQUEST``)."""
+    def request_ms(run):
+        t_req = []
+        for req in requests:
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            run(**req)
+            torch.cuda.synchronize()
+            t_req.append((time.perf_counter() - t_a) * 1e3)
+        return t_req
+
+    def samples_per_s(run):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        for stacked in batches:
+            run(**stacked)
+        torch.cuda.synchronize()
+        return [len(batches) * GRAPH_BATCH / (time.perf_counter() - t_a)]
+
+    def in_turns(measure, pair, turns):
+        out = ([], [])
+        for turn in range(turns):
+            for k in ((0, 1) if turn % 2 == 0 else (1, 0)):
+                out[k].extend(measure(pair[k]))
+        return out
+
+    for name, samples in zip(("eager", "graph"),
+                             in_turns(request_ms, ones, GRAPH_TURNS)):
+        q1, med, q3 = statistics.quantiles(samples, n=4)
+        log(f"{task} request, {name} runner, batch 1 (host clock, "
+            f"synchronized, {len(samples)} requests): p50 {med:.4f} ms, "
+            f"p25 {q1:.4f} ms, p75 {q3:.4f} ms  [{card}]")
+    replay = ones[1].aot_compile()          # the request's graph itself
+    t_rep = []
+    for _ in range(GRAPH_TURNS * len(requests)):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        replay.replay()
+        torch.cuda.synchronize()
+        t_rep.append((time.perf_counter() - t_a) * 1e3)
+    q1, med, q3 = statistics.quantiles(t_rep, n=4)
+    log(f"{task} graph replay alone, batch 1 (no input or output copy; "
+        f"host clock, synchronized, {len(t_rep)} replays): p50 {med:.4f} "
+        f"ms, p25 {q1:.4f} ms, p75 {q3:.4f} ms  [{card}]")
+    for name, samples in zip(("eager", "graph"),
+                             in_turns(samples_per_s, batched, BATCH_TURNS)):
+        q1, med, q3 = statistics.quantiles(samples, n=4)
+        log(f"{task} batch {GRAPH_BATCH}, {name} runner: {med:.1f} "
+            f"samples/s (median of {len(samples)} runs of {len(batches)} "
+            f"batches; p25 {q1:.1f}, p75 {q3:.1f})  [{card}]")
+    it = itertools.cycle(requests)
+    events = profile_window(lambda: ones[1](**next(it)), len(requests),
+                            f"{task} graph replays", "request", card)
+    it_b = itertools.cycle(batches)
+    profile_window(lambda: batched[1](**next(it_b)), len(batches),
+                   f"{task} batch-{GRAPH_BATCH} graph replays", "batch",
+                   card)
+    # A profile now and then records only some of a graph's device events:
+    # a count that falls short of the want (and never over it) is profiled
+    # again, up to two more times, and every count is printed.
+    want = {name: PER_REQUEST[task][name] for name in MAIN_KERNELS}
+    for attempt in range(3):
+        if attempt:
+            events = device_events(lambda: ones[1](**next(it)),
+                                   len(requests))
+        assert events, f"{task}: the profiler recorded no device event"
+        per_replay = {name: sum(kernel_base(e.name) in bases
+                                for e in events) / len(requests)
+                      for name, bases in MAIN_KERNELS.items()}
+        log(f"{task}: main kernels per graph replay (profiler, profile "
+            f"{attempt + 1}): {per_replay}")
+        if per_replay == want:
+            return
+        assert all(per_replay[k] <= want[k] for k in want), \
+            (task, per_replay, want)
+    raise AssertionError((task, per_replay, want))
 
 
 def kernel_rows(task, cases, launches, per_request, max_err, card,
@@ -1669,6 +1840,8 @@ def main() -> int:
     requests = {task: task_requests(task, *plans[task]) for task in tasks}
     launches = {task: serve(task, *plans[task], requests[task], kernels)
                 for task in tasks}
+    for task in tasks:
+        graph_phase(task, requests[task], kernels, card)
     launches["lm-serve"] = lm_serve(lm_cfg, kernels)
     lm_params = init_lm(0, lm_cfg, device="cuda")
     eng, lm_reqs = lm_engine_run(lm_cfg, lm_params, kernels, card)

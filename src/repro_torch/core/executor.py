@@ -1,16 +1,43 @@
 """Plan executor — a thin driver over the op-registry runtime.
 
-Port of the per-sample path of ``src/repro/core/executor.py``.  It walks
-the ``ExecutionPlan`` instruction sequence and dispatches every op through
+Port of ``src/repro/core/executor.py``.  It walks the ``ExecutionPlan``
+instruction sequence and dispatches every op through
 ``repro_torch.core.runtime.run_op``; each op executes the realization
 Step 4b bound to it (``op.kernel``), so one plan can mix CUDA kernels and
-plain-torch twins op by op.  Weights and compile-time ELL structures are
-uploaded to the device once per runner (``runtime/residency.py``).
+plain-torch twins op by op.  Weights and compile-time ELL/COO structures
+are uploaded to the device once per runner, deduplicated
+(``runtime/residency.py``).
 
-Execution is eager under ``torch.inference_mode()``; values are dropped
+The op walk is eager under ``torch.inference_mode()``; values are dropped
 from the environment as soon as Step 6's ``op.frees`` says they are dead,
-so the working set follows ``ExecutionPlan.peak_live_bytes()``.  Batched
-runners, AOT warmup and the runner cache are ROADMAP queue 1 item 4.
+so the working set follows ``ExecutionPlan.peak_live_bytes()``.  On top of
+it:
+
+  * **batched execution** — ``build_runner(plan, batch=N)`` expects every
+    input stacked on a new leading axis of N and walks the plan once under
+    ``batched_execution()``: each op runs its kind's batching rule (one
+    launch for the batch where that leaves every sample's bits as they
+    are) or loops its per-sample handler (``runtime/registry.py``).
+    Weights and COO/ELL structures are shared; only activations gain the
+    axis.  Outputs equal N per-sample runs bit for bit on the card;
+  * **whole-request CUDA graphs** — ``jit=True`` (the reference's name: its
+    whole-program ``jax.jit``) captures the eager walk of one request as
+    one ``torch.cuda.CUDAGraph``, so a request costs one replay of host
+    time.  Graphs are keyed by the inputs' shapes and dtypes, as jit keys
+    its traces; ``run.trace_count()`` counts captures.  Inputs are copied
+    into the graph's static input tensors; ``run`` returns copies of its
+    static outputs, so an output already returned never changes under the
+    next request.  A capture first runs the request once eagerly on a side
+    stream (the kernel library builds and loads, first launches set their
+    attributes), PyTorch's capture recipe;
+  * **AOT warmup** — ``run.aot_compile()`` captures from the plan's
+    recorded input shapes with zero inputs, so no live request pays a
+    capture (the §VII-D2 fixed-latency argument).
+
+``jit=None`` resolves as in the reference: a per-sample runner runs as a
+graph, a batched one per op and eagerly.  On the CPU there are no graphs:
+``jit`` has no effect and ``aot_compile()`` returns None.  On the card a
+graph runner captures or raises; it never carries on eagerly.
 """
 from __future__ import annotations
 
@@ -22,6 +49,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.runtime import run_op
+from repro_torch.core.runtime.context import batched_execution
 from repro_torch.core.runtime.residency import collect_params
 
 
@@ -36,55 +64,180 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _as_tensor(value, device: torch.device) -> torch.Tensor:
-    """One input on ``device``, by the reference's rule: it stages inputs
-    with ``jnp.asarray`` under JAX's default of 32-bit types, which turns a
-    float64 array into float32.  So floats wider than float32 become
-    float32, numpy arrays and tensors alike; float32, narrower floats and
-    integers stay as they are."""
+def _host_tensor(value) -> torch.Tensor:
+    """One input as a tensor where it lies, by the reference's rule: it
+    stages inputs with ``jnp.asarray`` under JAX's default of 32-bit types,
+    which turns a float64 array into float32.  So floats wider than
+    float32 become float32, numpy arrays and tensors alike; float32,
+    narrower floats and integers stay as they are."""
     t = value if isinstance(value, torch.Tensor) else torch.tensor(
         np.asarray(value))
     if t.is_floating_point() and t.element_size() > 4:
         t = t.to(torch.float32)
-    return t.to(device)
+    return t
+
+
+def _as_tensor(value, device: torch.device) -> torch.Tensor:
+    """One input on ``device`` (``_host_tensor``'s rule)."""
+    return _host_tensor(value).to(device)
+
+
+class _Graph:
+    """One captured request: its static inputs, the graph, its static
+    outputs."""
+    __slots__ = ("inputs", "graph", "outputs")
+
+    def __init__(self, inputs: dict, graph, outputs: tuple):
+        self.inputs, self.graph, self.outputs = inputs, graph, outputs
 
 
 def build_runner(plan: ExecutionPlan, *, device=None,
-                 free_dead: bool = True) -> Callable[..., tuple]:
-    """Returns ``run(**inputs) -> tuple(outputs)`` for one sample.
+                 batch: int | None = None, jit: bool | None = None,
+                 free_dead: bool = True, residency: bool = True,
+                 mesh=None) -> Callable[..., tuple]:
+    """Returns ``run(**inputs) -> tuple(outputs)``.
 
     ``device`` defaults to ``cuda`` and raises without one; pass
     ``device="cpu"`` to run on the CPU, where every kernel wrapper takes its
     plain version.  Inputs may be numpy arrays or tensors; outputs are
-    tensors on ``device``.  ``run.resident`` is the uploaded weight store.
-    """
-    device = resolve_device(device)
-    with obs.span("build_runner", cat="runtime", plan=plan.name,
-                  device=str(device)) as sp:
-        resident = collect_params(plan, device)
-        sp.set(resident_bytes=resident.nbytes())
+    tensors on ``device``.  ``batch=N`` expects every input stacked on a
+    leading axis of N and returns outputs with that axis.  ``jit`` and the
+    graphs: see the module docstring.  ``residency=False`` stages the
+    weights anew on every call (the reference's legacy path), which a
+    graph cannot capture: ``jit=None`` then resolves to eager, and
+    ``jit=True`` raises on the card.
 
-    def run(**inputs):
-        missing = [k for k in plan.input_names if k not in inputs]
-        assert not missing, f"missing inputs: {missing}"
-        with torch.inference_mode():
-            env = {k: _as_tensor(v, device) for k, v in inputs.items()}
+    The returned ``run`` carries:
+
+      ``run.resident``      the ``ResidentParams`` (None without residency)
+      ``run.aot_compile()`` capture ahead of traffic; None when eager
+      ``run.trace_count()`` how many graphs were captured
+      ``run.input_specs()`` name -> (shape, dtype), the batch axis included
+      ``run.device``, ``run.jit`` (runs as CUDA graphs)
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= shards the batch axis over several cards (ROADMAP queue "
+            "1 item 6); the port runs on one")
+    device = resolve_device(device)
+    if jit is None:
+        jit = batch is None and residency
+    graphs = bool(jit) and device.type == "cuda"
+    if graphs and not residency:
+        raise ValueError("a CUDA-graph runner reads its weights by address; "
+                         "residency=False stages them per call, which a "
+                         "graph cannot capture: pass jit=False")
+    with obs.span("build_runner", cat="runtime", plan=plan.name,
+                  batch=batch, jit=graphs, residency=residency,
+                  device=str(device)) as sp:
+        resident = collect_params(plan, device) if residency else None
+        if resident is not None:
+            sp.set(resident_bytes=resident.nbytes())
+    state = {"graphs": {}, "captures": 0,
+             "version": resident.version if resident is not None else 0}
+
+    def walk(env: dict) -> tuple:
+        params = (resident if resident is not None
+                  else collect_params(plan, device))
+        with torch.inference_mode(), batched_execution(batch is not None):
             for op in plan.ops:
-                env[op.name] = run_op(op, env, resident)
+                env[op.name] = run_op(op, env, params)
                 if free_dead:
                     for name in op.frees:
                         env.pop(name, None)
             return tuple(env[o] for o in plan.outputs)
 
+    def stage(inputs: dict) -> dict:
+        missing = [k for k in plan.input_names if k not in inputs]
+        assert not missing, f"missing inputs: {missing}"
+        env = {k: _host_tensor(inputs[k]) for k in plan.input_names}
+        if batch is not None:
+            for k, v in env.items():
+                assert tuple(v.shape[:1]) == (batch,), \
+                    f"input {k!r}: expected leading batch axis {batch}, " \
+                    f"got shape {tuple(v.shape)}"
+        return env
+
+    def capture(env: dict) -> _Graph:
+        with obs.span("capture", cat="runtime", plan=plan.name,
+                      batch=batch):
+            static = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in env.items()}
+            for k, v in env.items():
+                static[k].copy_(v)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                walk(dict(static))
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outputs = walk(dict(static))
+            state["captures"] += 1
+            return _Graph(static, graph, outputs)
+
+    def graph_for(env: dict) -> _Graph:
+        if resident.version != state["version"]:
+            # a slot moved to another buffer: every graph reads the old one
+            state["graphs"].clear()
+            state["version"] = resident.version
+        sig = tuple((k, tuple(v.shape), v.dtype) for k, v in env.items())
+        g = state["graphs"].get(sig)
+        if g is None:
+            g = state["graphs"][sig] = capture(env)
+        return g
+
+    def input_specs() -> dict:
+        shapes = plan.meta.get("input_shapes", {})
+        spec = {}
+        for name in plan.input_names:
+            shape = shapes.get(name)
+            assert shape is not None, \
+                f"no recorded input shape for {name!r}; cannot capture"
+            if batch is not None:
+                shape = (batch, *shape)
+            spec[name] = (tuple(shape), torch.float32)
+        return spec
+
+    def aot_compile():
+        """Capture the request now, from the plan's recorded input shapes
+        (zeros) — the serving warmup hook.  Returns the captured
+        ``torch.cuda.CUDAGraph`` (the same one on every call), or None for
+        an eager or CPU runner."""
+        if not graphs:
+            return None
+        with obs.span("aot_compile", cat="runtime", plan=plan.name,
+                      batch=batch):
+            zeros = {n: torch.zeros(s, dtype=d, device=device)
+                     for n, (s, d) in input_specs().items()}
+            return graph_for(zeros).graph
+
+    def run(**inputs):
+        env = stage(inputs)
+        if not graphs:
+            return walk({k: v.to(device) for k, v in env.items()})
+        g = graph_for(env)
+        for k, v in env.items():
+            g.inputs[k].copy_(v)
+        g.graph.replay()
+        return tuple(o.clone() for o in g.outputs)
+
     run.resident = resident
+    run.aot_compile = aot_compile
+    run.trace_count = lambda: state["captures"]
+    run.input_specs = input_specs
     run.device = device
+    run.jit = graphs
     return run
 
 
 def random_inputs(plan: ExecutionPlan, seed: int = 0,
-                  input_shapes: dict[str, tuple] | None = None) -> dict:
+                  input_shapes: dict[str, tuple] | None = None,
+                  batch: int | None = None) -> dict:
     """Convenience: dense random numpy inputs for every plan input (the
-    same draws as the reference's ``random_inputs`` for the same seed)."""
+    same draws as the reference's ``random_inputs`` for the same seed).
+    ``batch=N`` prepends a batch axis (matching ``build_runner(batch=N)``).
+    """
     rng = np.random.default_rng(seed)
     out = {}
     shapes = input_shapes or {}
@@ -93,5 +246,20 @@ def random_inputs(plan: ExecutionPlan, seed: int = 0,
         if shape is None:
             shape = plan.meta.get("input_shapes", {}).get(op_name)
         assert shape is not None, f"no shape for input {op_name}"
+        if batch is not None:
+            shape = (batch, *shape)
         out[op_name] = rng.standard_normal(shape).astype(np.float32)
+    return out
+
+
+def stack_inputs(samples: list[dict]) -> dict:
+    """Stack per-sample input dicts into one batched input dict, on the
+    host (``np.stack``; tensors with ``torch.stack`` where they lie), so a
+    batched run makes one transfer per input name."""
+    assert samples, "empty batch"
+    out = {}
+    for k in samples[0]:
+        vals = [s[k] for s in samples]
+        out[k] = (torch.stack(vals) if isinstance(vals[0], torch.Tensor)
+                  else np.stack([np.asarray(v) for v in vals]))
     return out

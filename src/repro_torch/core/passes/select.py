@@ -26,7 +26,8 @@ Step 4b (``select_kernels``) then binds each op's *software realization*
     exists (ROADMAP queue 1 item 3).
 
 Decisions — kernel, candidate set, decision source, fallback reason — land
-in ``plan.meta["kernel_choices"]`` keyed by op name.
+in ``plan.meta["kernel_choices"]`` keyed by op name; ``kernel_report``
+renders them.
 """
 from __future__ import annotations
 
@@ -217,3 +218,26 @@ def _select_kernels(plan: ExecutionPlan, *, kernels: str) -> ExecutionPlan:
     plan.meta["kernel_counts"] = plan.kernel_counts()
     plan.meta["kernels_mode"] = kernels
     return plan
+
+
+def kernel_report(plan: ExecutionPlan) -> str:
+    """Human-readable view of ``plan.meta["kernel_choices"]`` — one line
+    per op: chosen kernel, decision source and, for a singleton family,
+    its reason.  The predicted-cost column stays empty until the GPU cost
+    model exists (ROADMAP queue 1 item 3)."""
+    choices = plan.meta.get("kernel_choices")
+    if not choices:
+        return (f"plan {plan.name!r}: no kernel choices recorded "
+                f"(compiled before kernel selection?)")
+    lines = [f"kernel choices for {plan.name!r} "
+             f"(mode={plan.meta.get('kernels_mode')}):"]
+    for name, c in choices.items():
+        line = (f"  {name:<28} {c['kernel']:<18} [{c['source']}] "
+                f"predicted        -")
+        if c["source"] in ("fallback", "only") and c["reason"]:
+            line += f"  ({c['reason']})"
+        lines.append(line)
+    counts = plan.meta.get("kernel_counts", {})
+    lines.append("  totals: " + ", ".join(
+        f"{k}={v}" for k, v in sorted(counts.items())))
+    return "\n".join(lines)

@@ -1,0 +1,81 @@
+"""Plan/runner cache keyed on ``(graph, options, device, batch, ...)``.
+
+Port of ``src/repro/core/runtime/cache.py``.  Compilation (six passes), the
+weight upload and a CUDA-graph capture all cost far more than one
+inference, so a serving process must never repeat them for a graph it has
+already seen.  Graphs are keyed by identity through a
+``WeakKeyDictionary``: entries die with their graph, so a long-running
+server cannot leak plans for models it dropped.  Hit and miss counters live
+in the process-global ``obs.metrics()`` registry, prefixed ``cache.``.
+"""
+from __future__ import annotations
+
+import weakref
+
+from repro_torch import obs
+from repro_torch.core.compiler import CompileOptions, compile_graph
+from repro_torch.core.ir import Graph
+from repro_torch.core.plan import ExecutionPlan
+
+_PLANS: "weakref.WeakKeyDictionary[Graph, dict]" = weakref.WeakKeyDictionary()
+_RUNNERS: "weakref.WeakKeyDictionary[Graph, dict]" = \
+    weakref.WeakKeyDictionary()
+_STAT_KEYS = ("plan_hits", "plan_misses", "runner_hits", "runner_misses")
+
+
+def _stat(name: str) -> obs.Counter:
+    return obs.metrics().counter(f"cache.{name}")
+
+
+def cached_plan(graph: Graph,
+                options: CompileOptions = CompileOptions()) -> ExecutionPlan:
+    """Compile ``graph`` once per distinct ``options``."""
+    per_graph = _PLANS.setdefault(graph, {})
+    if options not in per_graph:
+        _stat("plan_misses").inc()
+        per_graph[options] = compile_graph(graph, options)
+    else:
+        _stat("plan_hits").inc()
+    return per_graph[options]
+
+
+def cached_runner(graph: Graph,
+                  options: CompileOptions = CompileOptions(), *,
+                  device=None, batch: int | None = None,
+                  jit: bool | None = None, free_dead: bool = True,
+                  residency: bool = True):
+    """Runner for ``graph``, one per (options, device, batch, jit, ...).
+
+    Kernel realizations are compile-time plan state (``options.kernels``
+    via Step 4b), so two kernel modes are two plans.  ``device`` is
+    resolved first (``None`` is the card), so ``None`` and ``"cuda"`` share
+    an entry.  ``jit=None`` lets ``build_runner`` resolve it (a CUDA graph
+    per sample, eager per op batched).  A graph runner keeps its captures,
+    so the runner cache is what amortizes capturing."""
+    from repro_torch.core.executor import build_runner, resolve_device
+    device = resolve_device(device)
+    key = (options, device, batch, jit, free_dead, residency)
+    per_graph = _RUNNERS.setdefault(graph, {})
+    if key not in per_graph:
+        _stat("runner_misses").inc()
+        per_graph[key] = build_runner(
+            cached_plan(graph, options), device=device, batch=batch, jit=jit,
+            free_dead=free_dead, residency=residency)
+    else:
+        _stat("runner_hits").inc()
+    return per_graph[key]
+
+
+def cache_stats() -> dict[str, int]:
+    """Sizes and effectiveness counters (hits/misses since the last
+    ``clear_caches``)."""
+    return {"graphs": len(_PLANS),
+            "plans": sum(len(v) for v in _PLANS.values()),
+            "runners": sum(len(v) for v in _RUNNERS.values()),
+            **{k: _stat(k).value for k in _STAT_KEYS}}
+
+
+def clear_caches() -> None:
+    _PLANS.clear()
+    _RUNNERS.clear()
+    obs.metrics().reset("cache.")

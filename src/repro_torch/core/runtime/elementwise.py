@@ -8,17 +8,27 @@ fusion pass's annotations mean the same thing for every producing op.
 
 These ops have one torch realization (``torch_ew``); the handler never
 branches on a kernel.  ``segment_sum`` / ``segment_max`` are the
-counterparts of ``jax.ops.segment_*`` that the COO handlers share: the sum
-is ``index_add_``, which runs with atomics on the card, so its order of
-addition changes from run to run there.
+counterparts of ``jax.ops.segment_*`` that the COO handlers share.  The
+segment ids are compile-time, so the sum takes its summands sorted by the
+row order derived once at upload (``residency.host_row_order``) and
+reduces each row's run with ``torch.segment_reduce``: no atomics, so the
+same bits on every run (``index_add_``'s atomics added in a different
+order every run on the card).  On the CPU each row adds in edge order, as
+``index_add_`` did.
+
+Batched execution (``runtime/context.py``): ``run_ew`` takes the whole
+batch for the purely elementwise functions, ``add``/``mul`` of equal shapes
+and a softmax over a negative axis (``_takes_batch``), where each element or
+row comes out as it does per sample; everything else loops per sample.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.runtime.registry import register_op
-from repro_torch.core.runtime.residency import opt_weight, weight
+from repro_torch.core.runtime.context import batch_ndim
+from repro_torch.core.runtime.registry import register_batched, register_op
+from repro_torch.core.runtime.residency import opt_weight, row_order, weight
 
 # Default leaky_relu slope, used when a layer carries no explicit ``alpha``
 # attr (the declarative builder's historical behaviour).
@@ -44,7 +54,7 @@ def apply_epilogue(out, op, env, params=None):
     act (if ``post_res``)."""
     b = opt_weight(op, "b", params)
     if b is not None:
-        if out.ndim >= 3:                      # conv OFM (..., C, H, W)
+        if out.ndim - batch_ndim() >= 3:       # conv OFM (..., C, H, W)
             out = out + b[:, None, None]
         else:
             out = out + b
@@ -61,9 +71,12 @@ def apply_epilogue(out, op, env, params=None):
     return out
 
 
-def segment_sum(x, seg, n: int):
-    """``out[s] = Σ x[e]`` over the ``e`` with ``seg[e] == s``; 0 if none."""
-    return x.new_zeros((n, *x.shape[1:])).index_add_(0, seg.long(), x)
+def segment_sum(x, lengths):
+    """``out[s]`` = the sum of the ``lengths[s]`` rows of ``x`` that
+    follow segment ``s - 1``'s; 0 if none.  ``x`` holds the summands in
+    the row order (``residency.row_order``: ``x[perm]``)."""
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
 
 
 def segment_max(x, seg, n: int):
@@ -74,6 +87,18 @@ def segment_max(x, seg, n: int):
         0, idx, x, "amax", include_self=True)
 
 
+def _takes_batch(op, env) -> bool:
+    """Whether ``run_ew`` gives each sample of a batch its per-sample bits
+    (see the module docstring)."""
+    fn = op.attrs["fn"]
+    if fn in ("add", "mul") and len(op.inputs) == 2:
+        return env[op.inputs[0]].shape == env[op.inputs[1]].shape
+    if fn == "softmax":
+        return op.attrs.get("axis", -1) < 0
+    return fn in ACTIVATIONS
+
+
+@register_batched("ew", when=_takes_batch)
 @register_op("ew")
 def run_ew(op, env, params=None):
     fn = op.attrs["fn"]
@@ -93,7 +118,8 @@ def run_ew(op, env, params=None):
         seg = weight(op, "segments", params).long()
         n = op.attrs["num_segments"]
         e = torch.exp(x - segment_max(x, seg, n)[seg])
-        s = segment_sum(e, seg, n)[seg]
+        perm, lengths = row_order(op, "segments", n, params)
+        s = segment_sum(e[perm], lengths)[seg]
         return e / torch.where(s == 0, 1.0, s)
     if fn == "norm_batch":
         eps = op.attrs.get("eps", 1e-5)
@@ -105,8 +131,10 @@ def run_ew(op, env, params=None):
 
         mean, var = bc("mean", 0.0), bc("var", 1.0)
         scale, bias = bc("scale", 1.0), bc("bias", 0.0)
-        inv = torch.rsqrt(torch.as_tensor(var + eps, dtype=x.dtype,
-                                          device=x.device))
+        # without statistics the scale is a host number: no host-to-device
+        # copy, which a CUDA graph could not capture
+        inv = (torch.rsqrt(var + eps) if isinstance(var, torch.Tensor)
+               else torch.tensor(var + eps, dtype=x.dtype).rsqrt().item())
         return (x - mean) * scale * inv + bias
     if fn == "norm_layer":
         eps = op.attrs.get("eps", 1e-5)
@@ -121,3 +149,4 @@ def run_ew(op, env, params=None):
             out = out + bias
         return out
     return apply_act(fn, x, op.attrs.get("alpha"))
+

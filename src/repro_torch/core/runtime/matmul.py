@@ -18,17 +18,31 @@ after the activation, on a 1-D or 2-D output.  Every other epilogue runs in
 ``apply_epilogue`` after the product.  The ELL right sides (``right``,
 ``right_t``) run the product in their own ``(rows, S2)`` layout
 (``spdmm_rows``): no transposing copy in or out.
+
+Batched, the ``right`` and ``right_t`` sides on the kernels take the whole
+batch (``_takes_batch``): they read a sample's axes from the end, stack the
+samples along M and run one launch of the DDMM or SpDMM kernel.  DDMM's
+launch plan reads K and N only and SpDMM's rows are independent, so each
+sample comes out as its per-sample product gives it.  Every other side —
+and every plain version, whose library may pick another algorithm at
+another M — loops per sample: ``left`` (the samples would stack along N),
+``left_runtime`` and ``both_runtime`` (an operand per sample), the
+gathers, and ``sddmm`` (the VIP's ``x @ xᵀ`` has N = M).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core.plan import ELL_KERNELS, MatOp
+from repro_torch.core.runtime.context import batch_ndim
 from repro_torch.core.runtime.elementwise import (apply_epilogue,
                                                   segment_max, segment_sum)
-from repro_torch.core.runtime.registry import op_kernel, register_op
+from repro_torch.core.runtime.registry import (op_kernel, register_batched,
+                                               register_op)
 from repro_torch.core.runtime.residency import (ell_pair, opt_weight,
-                                                  weight)
+                                                row_order, weight)
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm, y_layout
 from repro_torch.kernels.sddmm import sddmm
@@ -38,10 +52,11 @@ from repro_torch.kernels.spdmm import spdmm, spdmm_rows
 def kernel_epilogue(op: MatOp, env, params, m: int, n: int, shape):
     """The op's epilogue as DDMM kernel arguments (bias, act, residual), or
     None where the kernel's result would not be ``apply_epilogue``'s bits:
-    an activation other than relu, an activation after the residual, or an
-    output of 3 or more dims (where the bias is per channel)."""
+    an activation other than relu, an activation after the residual, or a
+    sample output of 3 or more dims (where the bias is per channel).
+    ``shape`` is the ``(m, n)`` product's output, batch axes included."""
     act = op.attrs.get("fused_act")
-    if act not in (None, "relu") or len(shape) >= 3 or (
+    if act not in (None, "relu") or len(shape) - batch_ndim() >= 3 or (
             act and op.attrs.get("act_pos") == "post_res"):
         return None
     bias = opt_weight(op, "b", params)
@@ -58,12 +73,13 @@ def kernel_epilogue(op: MatOp, env, params, m: int, n: int, shape):
 
 def _dense(op: MatOp, env, params, kern: str, x2, y2, shape=None):
     """``x2 @ y2`` through the chosen realization, reshaped to ``shape``
-    (default: as it comes; ``(-1,)`` flattens), with the op's epilogue:
-    in the DDMM kernel where it can take it, else in ``apply_epilogue``."""
+    (default: as it comes; a last axis of -1 takes what is left), with the
+    op's epilogue: in the DDMM kernel where it can take it, else in
+    ``apply_epilogue``."""
     m, n = x2.shape[0], y2.shape[1]
     shape = tuple(shape) if shape else (m, n)
-    if shape == (-1,):
-        shape = (m * n,)
+    if shape[-1] == -1:
+        shape = (*shape[:-1], m * n // math.prod(shape[:-1]))
     if kern != "cuda_ddmm":
         return apply_epilogue((x2 @ y2).reshape(shape), op, env, params)
     x2 = x2.contiguous()
@@ -92,21 +108,29 @@ def _sparse_rows(kern: str, idx, val, x2):
 
 
 def _coo_aggregate(op: MatOp, env, x, params):
-    """COO scatter message passing: rho({e_uv * h_u}) over static edges."""
-    rows = weight(op, "coo_rows", params)
+    """COO scatter message passing: rho({e_uv * h_u}) over static edges.
+    A sum forms its messages in the row order, for ``segment_sum``."""
     cols = weight(op, "coo_cols", params).long()
     vals = (env[op.inputs[1]] if op.attrs.get("runtime_edge")
             else weight(op, "coo_vals", params))
     n = op.attrs["n"]
-    msg = vals[:, None] * x[cols]
     if op.attrs.get("reduce", "sum") == "max":
-        agg = segment_max(msg, rows, n)
+        agg = segment_max(vals[:, None] * x[cols],
+                          weight(op, "coo_rows", params), n)
         # Empty neighborhoods (segment_max's -inf identity) keep the node's
         # own feature; NaN messages propagate.
         return torch.where(torch.isneginf(agg), x, agg)
-    return segment_sum(msg, rows, n)
+    perm, lengths = row_order(op, "coo_rows", n, params)
+    return segment_sum(vals[perm][:, None] * x[cols[perm]], lengths)
 
 
+def _takes_batch(op: MatOp, env) -> bool:
+    """Whether ``run_mm`` runs a batch in one launch (module docstring)."""
+    return (op_kernel(op) in ("cuda_ddmm", "cuda_ell_spdmm")
+            and op.attrs["weight_side"] in ("right", "right_t"))
+
+
+@register_batched("mm", when=_takes_batch)
 @register_op("mm")
 def run_mm(op: MatOp, env, params=None):
     kern = op_kernel(op)
@@ -114,7 +138,7 @@ def run_mm(op: MatOp, env, params=None):
     x = env[op.inputs[0]]
     if side == "right":
         x2 = x.reshape(-1, x.shape[-1])
-        shape = op.out_shape if op.out_shape else (-1,)
+        shape = (*x.shape[:batch_ndim()], *(op.out_shape or (-1,)))
         if kern not in ELL_KERNELS:
             return _dense(op, env, params, kern, x2,
                           weight(op, "w", params), shape)
@@ -145,14 +169,13 @@ def run_mm(op: MatOp, env, params=None):
         y = env[op.inputs[1]]
         return _dense(op, env, params, kern, x.reshape(-1, x.shape[-1]),
                       y.reshape(y.shape[0], -1), op.out_shape)
-    elif side == "right_t":                    # (C,T,V) x Aᵀ
-        c, t, v = x.shape
-        x2 = x.reshape(c * t, v)
+    elif side == "right_t":                    # (..., C, T, V) x Aᵀ
+        x2 = x.reshape(-1, x.shape[-1])
         if kern not in ELL_KERNELS:
             return _dense(op, env, params, kern, x2,
-                          weight(op, "adj", params).T, (c, t, v))
+                          weight(op, "adj", params).T, x.shape)
         idx, val = ell_pair(op, params)        # the ELL holds A itself
-        out = _sparse_rows(kern, idx, val, x2).reshape(c, t, v)
+        out = _sparse_rows(kern, idx, val, x2).reshape(x.shape)
     else:
         raise ValueError(side)
     return apply_epilogue(out, op, env, params)

@@ -4,16 +4,21 @@ slice that runs it.
 
 Both ported kinds have one plain-torch realization (Step 4b records them as
 ``torch_ew``).  Windows and strides may be scalars or ``(kh, kw)`` pairs.
+Batched, ``pool2d`` takes the batch as one more leading axis (each output
+reduces its own window in a fixed order); ``globalpool``, a reduction whose
+order may follow the number of outputs, loops per sample.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from repro_torch.core.plan import MatOp
-from repro_torch.core.runtime.registry import not_ported, register_op
+from repro_torch.core.runtime.registry import (not_ported, register_batched,
+                                               register_op)
 from repro_torch.kernels import ref
 
 
+@register_batched("pool2d")
 @register_op("pool2d")
 def run_pool2d(op: MatOp, env, params=None):
     """Max or average pooling over the last two axes, any leading axes.

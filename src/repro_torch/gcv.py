@@ -1,0 +1,341 @@
+"""One-call public API: ``gcv.compile`` (paper §V-A).
+
+Port of ``src/repro/gcv.py`` for a layer ``Graph`` or an ``ExecutionPlan``:
+
+    from repro_torch import gcv
+
+    model = gcv.compile(graph)                  # GraphBuilder graph
+    model = gcv.compile(plan)                   # pre-compiled ExecutionPlan
+
+    model.warmup()                              # capture the request now
+    out = model.run(x=sample)                   # one replay per request
+    runb = model.batched(4)                     # cached per-batch runner
+    model.swap_weights({"linear_1": {"w": w2}}) # in place, no re-capture
+    model.stats() / model.lint() / model.input_specs / model.plan
+
+``compile`` routes everything through the same internals (six passes ->
+plan/runner cache -> device-resident weights -> a CUDA graph per request
+signature); callers never stitch those stages together by hand.
+
+Where the port differs from the reference:
+
+  * ``device=None`` is the card, and raises without one; ``device="cpu"``
+    runs every kernel's plain version (no graphs there);
+  * ``kernels`` defaults to ``"cuda"`` (the reference: ``"auto"``).
+    ``"auto"`` and ``"measured"`` need the H100 cost model of ROADMAP
+    queue 1 item 3 and raise until it exists;
+  * a callable model (the tracing frontend, item 8), ``serve`` and more
+    than one device (item 6) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch import obs
+from repro_torch.core.compiler import CompileOptions
+from repro_torch.core.executor import (build_runner, random_inputs,
+                                       resolve_device, stack_inputs)
+from repro_torch.core.ir import Graph
+from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.runtime.cache import (cache_stats, cached_plan,
+                                            cached_runner)
+from repro_torch.core.runtime.residency import (collect_params,
+                                                plan_param_bytes, plan_slots)
+
+__all__ = ["CompiledModel", "compile", "serve", "stack_inputs", "trace_to"]
+
+
+def _resolve_options(options, overrides) -> CompileOptions:
+    if options is None:
+        return CompileOptions(**overrides)
+    assert not overrides, \
+        f"pass either options= or keyword overrides, not both: " \
+        f"{sorted(overrides)}"
+    return options
+
+
+def _one_device(devices, mesh) -> None:
+    """``devices=``/``mesh=`` of one device are the single-card path; more
+    raise until sharded serving is ported."""
+    n = mesh.size if mesh is not None else (
+        devices if isinstance(devices, int) or devices is None
+        else len(devices))
+    if n not in (None, 1):
+        raise NotImplementedError(
+            f"{n} devices: batch-axis sharding over several cards is ROADMAP "
+            f"queue 1 item 6; the port runs on one")
+
+
+@contextlib.contextmanager
+def trace_to(path: str):
+    """Record every span inside the block and write a Chrome/Perfetto
+    trace-event JSON file on exit (written even when the block raises):
+
+        with gcv.trace_to("trace.json"):
+            model = gcv.compile(task, telemetry=True)
+            model.warmup()
+            model.run(**model.random_inputs())
+    """
+    tracer = obs.get_tracer()
+    obs.clear()
+    tracer.enable()
+    try:
+        yield tracer
+    finally:
+        tracer.disable()
+        tracer.export_chrome_trace(path)
+
+
+class CompiledModel:
+    """The full lifecycle of one compiled model, owned in one object.
+
+    Construct via ``gcv.compile``.  Runners (per-sample and per-batch) are
+    built lazily; when the model was compiled from a ``Graph`` they come
+    from the process-wide plan/runner cache (``core.runtime.cache``), so
+    two holders of one graph share weights and captured graphs — until
+    ``swap_weights``, after which this model's runners are its own.
+    """
+
+    def __init__(self, plan: ExecutionPlan, *, graph: Graph | None = None,
+                 options: CompileOptions, device: torch.device,
+                 residency: bool = True, batch: int | None = None):
+        self.plan = plan
+        self.graph = graph
+        self.options = options
+        self.device = device
+        self.residency = residency
+        self.batch = batch                   # default batch for .run()
+        self._runners: dict[tuple, Callable] = {}
+        self._private = graph is None
+        self._swaps: dict[tuple[str, str], Any] = {}
+        self._sizing = None          # memoized host-side ResidentParams
+
+    # ------------------------------------------------------------ runners --
+    def runner(self, batch: int | None = None, *, jit: bool | None = None):
+        """The runner for ``batch`` (``run(**inputs)`` with ``aot_compile``,
+        ``resident`` and ``trace_count`` attached).  ``jit=None`` keeps
+        ``build_runner``'s default: a CUDA graph per sample, eager per op
+        batched."""
+        key = (batch, jit)
+        if not self._private:
+            run = cached_runner(self.graph, self.options, device=self.device,
+                                batch=batch, jit=jit,
+                                residency=self.residency)
+            self._runners[key] = run
+            return run
+        run = self._runners.get(key)
+        if run is None:
+            run = build_runner(self.plan, device=self.device, batch=batch,
+                               jit=jit, residency=self.residency)
+            self._apply_swaps(run)
+            self._runners[key] = run
+        return run
+
+    def run(self, **inputs) -> tuple:
+        """Execute the model (per-sample, or batched when the model was
+        compiled with ``batch=N`` — inputs then carry the leading axis)."""
+        return self.runner(self.batch)(**inputs)
+
+    __call__ = run
+
+    def batched(self, n: int, *, jit: bool | None = None):
+        """Cached runner expecting every input stacked on a leading axis of
+        size ``n`` (``gcv.stack_inputs`` builds that from samples)."""
+        assert n >= 1, f"batch must be >= 1, got {n}"
+        return self.runner(n, jit=jit)
+
+    # ------------------------------------------------------------- warmup --
+    def aot_compile(self):
+        """Capture the default runner's request now (see ``build_runner``);
+        None where it runs eagerly (batched by default, or on the CPU)."""
+        return self.runner(self.batch).aot_compile()
+
+    def warmup(self, batches=None) -> set:
+        """Capture runners ahead of traffic.  ``batches=None`` warms the
+        default ``run()`` runner; otherwise each listed batch size is warmed
+        as a graph runner (``jit=True``).  Returns the batch sizes captured
+        (eager and CPU runners have nothing to capture)."""
+        warmed = set()
+        if batches is None:
+            if self.aot_compile() is not None:
+                warmed.add(self.batch)
+            return warmed
+        for b in batches:
+            if self.batched(b, jit=True).aot_compile() is not None:
+                warmed.add(b)
+        return warmed
+
+    # ----------------------------------------------------------- hot swap --
+    def swap_weights(self, updates: Mapping) -> None:
+        """Replace compile-time weights without recompiling.
+
+        ``updates`` maps ``op_name -> {slot: value}`` (or flat
+        ``(op_name, slot) -> value``); op names and slots are the plan's.
+        The first swap makes the model's runners private (other holders of
+        the same graph keep the original weights) and rebuilds them lazily;
+        later swaps write into the private runners' buffers in place, which
+        their captured graphs read with no re-capture."""
+        assert self.residency, \
+            "swap_weights requires residency=True (the device-resident " \
+            "weight store is what gets swapped)"
+        flat: dict[tuple[str, str], Any] = {}
+        for key, value in updates.items():
+            if isinstance(key, tuple):
+                flat[key] = value
+            else:
+                for slot, v in value.items():
+                    flat[(key, slot)] = v
+        known = plan_slots(self.plan)
+        missing = [k for k in flat if k not in known]
+        assert not missing, \
+            f"unknown weight slots {missing}; known op/slot pairs come " \
+            f"from the plan's ops"
+        self._swaps.update(flat)
+        if not self._private:
+            self._private = True
+            self._runners.clear()
+            return
+        for run in self._runners.values():
+            for (op_name, slot), value in flat.items():
+                run.resident.swap(op_name, slot, value)
+
+    def _apply_swaps(self, run) -> None:
+        for (op_name, slot), value in self._swaps.items():
+            run.resident.swap(op_name, slot, value)
+
+    # -------------------------------------------------------- introspection
+    @property
+    def input_specs(self) -> dict[str, tuple]:
+        """Per-sample input specs, name -> ``(shape, dtype)``, from the
+        plan's recorded shapes.  ``run()`` on a ``batch=N`` model expects
+        each with an extra leading axis of N."""
+        shapes = self.plan.meta.get("input_shapes", {})
+        return {n: (tuple(shapes[n]), torch.float32)
+                for n in self.plan.input_names}
+
+    def lint(self) -> str:
+        """The layer-graph lint (not ported: it reads traced models, which
+        wait for ROADMAP queue 1 item 8), then the Step-4b kernel report."""
+        from repro_torch.core.passes import kernel_report
+        head = (f"plan {self.plan.name!r}: compiled from an "
+                f"ExecutionPlan — no layer graph to lint"
+                if self.graph is None else
+                f"graph {self.graph.name!r}: layer-graph lint waits for "
+                f"item 8 (ROADMAP queue 1)")
+        return head + "\n\n" + kernel_report(self.plan)
+
+    # ----------------------------------------------------------- profiling
+    def profile(self, inputs: Mapping[str, Any] | None = None, *,
+                repeats: int = 3) -> dict:
+        """Measured seconds per MatOp on the model's device (``op_name ->
+        row``): op by op, a synchronize between ops, best of ``repeats``."""
+        return obs.profile_plan(self.plan, inputs, repeats=repeats,
+                                device=self.device)
+
+    def profile_report(self, inputs: Mapping[str, Any] | None = None, *,
+                       repeats: int = 3) -> dict:
+        """``profile()`` plus the predicted-vs-measured verdict;
+        ``result['text']`` is the rendered table."""
+        return obs.profile_report(self.plan, inputs, repeats=repeats,
+                                  device=self.device)
+
+    def stats(self) -> dict:
+        """One dict over the whole lifecycle: plan shape, primitive and
+        kernel mix, memory planning, residency footprint (with the bytes
+        folded by content dedup), runner and capture state, and the process
+        plan/runner cache counters."""
+        resident = next((r.resident for r in self._runners.values()
+                         if r.resident is not None), None)
+        if resident is None and self.residency:
+            if self._sizing is None:      # hash once, not per stats() call
+                self._sizing = collect_params(self.plan, "cpu")
+            resident = self._sizing
+        out = {
+            "name": self.plan.name,
+            "frontend": self.plan.meta.get("frontend"),
+            "ops": len(self.plan.ops),
+            "primitives": self.plan.primitive_counts(),
+            "kernels": self.plan.kernel_counts(),
+            "kernels_mode": self.plan.meta.get("kernels_mode"),
+            "peak_live_bytes": self.plan.peak_live_bytes(),
+            "param_bytes": plan_param_bytes(self.plan),
+            "runners_built": len(self._runners),
+            "captures": sum(r.trace_count() for r in self._runners.values()),
+            "default_batch": self.batch,
+            "swapped_slots": len(self._swaps),
+            "device": str(self.device),
+            "devices": 1,
+        }
+        if resident is not None:
+            out["resident_bytes"] = resident.nbytes()
+            out["value_deduped_bytes"] = resident.value_dedup_bytes
+        out["cache"] = cache_stats()
+        return out
+
+    def random_inputs(self, seed: int = 0, *,
+                      batch: int | None = "default") -> dict:
+        """Random inputs matching ``input_specs``; ``batch`` defaults to
+        the model's."""
+        b = self.batch if batch == "default" else batch
+        return random_inputs(self.plan, seed=seed, batch=b)
+
+    def __repr__(self) -> str:
+        return (f"CompiledModel({self.plan.name!r}, "
+                f"frontend={self.plan.meta.get('frontend')!r}, "
+                f"ops={len(self.plan.ops)}, batch={self.batch}, "
+                f"device={str(self.device)!r})")
+
+
+def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
+            batch: int | None = None, options: CompileOptions | None = None,
+            residency: bool = True, device=None, devices=None, mesh=None,
+            **option_overrides) -> CompiledModel:
+    """Compile a layer ``Graph`` (from ``GraphBuilder``) or an
+    already-compiled ``ExecutionPlan`` into a ``CompiledModel`` on
+    ``device`` (``None``: the card, raising without one).
+
+    ``batch=N`` makes ``run()`` expect and return a leading batch axis of
+    N (per-batch runners for other sizes via ``.batched(n)``).  Compile
+    options come either as ``options=CompileOptions(...)`` or as keyword
+    overrides (``gcv.compile(g, kernels="torch")``); ``kernels`` is
+    ``"cuda"`` (the default) or ``"torch"``.  ``telemetry=True`` records
+    one span per compiler pass and is a distinct plan-cache key.
+    """
+    if not isinstance(model, (ExecutionPlan, Graph)):
+        if callable(model):
+            raise NotImplementedError(
+                "compiling a callable needs the torch tracing frontend "
+                "(ROADMAP queue 1 item 8); build a Graph with GraphBuilder")
+        raise AssertionError(
+            f"cannot compile {type(model).__name__}: expected a Graph or "
+            f"an ExecutionPlan")
+    opts = _resolve_options(options, option_overrides)
+    _one_device(devices, mesh)
+    dev = resolve_device(device)
+    if isinstance(model, ExecutionPlan):
+        assert example_inputs is None, \
+            "an ExecutionPlan is already compiled; example_inputs are " \
+            "only for tracing a callable"
+        if model.meta.get("kernels_mode") != opts.kernels:
+            # re-bind realizations in place: kernel selection is the only
+            # pass whose inputs (shapes/nnz) are already on the plan
+            from repro_torch.core.passes import select_kernels
+            select_kernels(model, kernels=opts.kernels)
+        return CompiledModel(model, graph=None, options=opts, device=dev,
+                             residency=residency, batch=batch)
+    assert example_inputs is None, \
+        "a layer Graph declares its own inputs; example_inputs are only " \
+        "for tracing a callable"
+    return CompiledModel(cached_plan(model, opts), graph=model, options=opts,
+                         device=dev, residency=residency, batch=batch)
+
+
+def serve(models: Mapping[str, Any], **kwargs):
+    """The micro-batching serving engine over compiled models: ROADMAP
+    queue 1 item 6 (CUDA streams and events over the captured graphs)."""
+    raise NotImplementedError(
+        "gcv.serve is ROADMAP queue 1 item 6; drive CompiledModel.run or "
+        ".batched(n) directly")

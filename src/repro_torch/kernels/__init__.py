@@ -13,7 +13,8 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
   csrc/          the CUDA sources
 
 Each wrapper runs its plain version for CPU tensors, launches its kernel
-for CUDA tensors (or raises), and counts its launches in ``<fn>.launches``.
+for CUDA tensors (or raises), and counts its launches in ``<fn>.launches``,
+those recorded into a CUDA graph also in ``<fn>.captured``.
 """
 from repro_torch.kernels.ddmm import ddmm                  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401

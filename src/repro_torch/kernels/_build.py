@@ -159,3 +159,12 @@ def require_cuda(name: str, *tensors, dtypes) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
         if t.numel() >= 2**31:
             raise ValueError(f"{name}: operand too large for int32 indexing")
+
+
+def counted(fn) -> None:
+    """Count one launch of ``fn``'s kernel, where ``fn`` launches it:
+    ``fn.launches`` counts every launch, ``fn.captured`` those recorded into
+    a CUDA graph (a graph's replays launch them again without a call)."""
+    fn.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1

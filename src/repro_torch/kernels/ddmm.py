@@ -168,8 +168,8 @@ def ddmm(x: torch.Tensor, y: torch.Tensor, *, bias=None, residual=None,
         torch._C._cuda_getCurrentRawStream(x.device.index))
     if err:
         _build.check(err, "ddmm")
-    ddmm.launches += 1
+    _build.counted(ddmm)
     return out
 
 
-ddmm.launches = 0
+ddmm.launches = ddmm.captured = 0

@@ -90,8 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
         ctypes.c_float(scale), *strides, _build.stream_of(q))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.counted(flash_attention)
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.captured = 0

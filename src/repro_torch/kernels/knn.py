@@ -50,8 +50,8 @@ def knn(x: torch.Tensor, k: int, *, mask: torch.Tensor | None = None,
     err = lib.repro_knn(_build.ptr(x), _build.ptr(mask), _build.ptr(out),
                         n, f, k, int(self_loops), _build.stream_of(x))
     _build.check(err, "knn")
-    knn.launches += 1
+    _build.counted(knn)
     return out
 
 
-knn.launches = 0
+knn.launches = knn.captured = 0

@@ -119,8 +119,8 @@ def sddmm(x: torch.Tensor, y: torch.Tensor,
         _build.ptr(x), _build.ptr(y), _build.ptr(mask), _build.ptr(out), M,
         K, N, layout[1], int(layout[0]), kt_per, split, _build.stream_of(x))
     _build.check(err, "sddmm")
-    sddmm.launches += 1
+    _build.counted(sddmm)
     return out
 
 
-sddmm.launches = 0
+sddmm.launches = sddmm.captured = 0

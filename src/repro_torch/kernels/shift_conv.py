@@ -157,8 +157,8 @@ def shift_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1,
         x.data_ptr(), w.data_ptr(), buf.data_ptr(), params,
         _build.stream_of(x))
     _build.check(err, "shift_conv2d")
-    shift_conv2d.launches += 1
+    _build.counted(shift_conv2d)
     return buf.select(0, 0)
 
 
-shift_conv2d.launches = 0
+shift_conv2d.launches = shift_conv2d.captured = 0

@@ -57,11 +57,11 @@ def spdmm(idx: torch.Tensor, val: torch.Tensor,
                               _build.ptr(y), _build.ptr(out), S1, L, S2, N,
                               _build.stream_of(y))
     _build.check(err, "spdmm")
-    spdmm.launches += 1
+    _build.counted(spdmm)
     return out
 
 
-spdmm.launches = 0
+spdmm.launches = spdmm.captured = 0
 
 
 def spdmm_rows(idx: torch.Tensor, val: torch.Tensor,
@@ -89,8 +89,8 @@ def spdmm_rows(idx: torch.Tensor, val: torch.Tensor,
         idx.data_ptr(), val.data_ptr(), x2.data_ptr(), out.data_ptr(), R, S1,
         L, S2, rows, _build.stream_of(x2))
     _build.check(err, "spdmm_rows")
-    spdmm_rows.launches += 1
+    _build.counted(spdmm_rows)
     return out
 
 
-spdmm_rows.launches = 0
+spdmm_rows.launches = spdmm_rows.captured = 0

@@ -163,7 +163,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.gnncv.tasks, repro_torch.core.weights, "
             "repro_torch.models.transformer, repro_torch.models.weights, "
             "repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.configs\n"
+            "repro_torch.configs, repro_torch.gcv, "
+            "repro_torch.obs.profile, repro_torch.core.runtime.cache\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

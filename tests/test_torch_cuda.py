@@ -646,12 +646,13 @@ def test_cuda_b4_request_runs_through_the_kernels(cuda):
     plain = compile_graph(build_task("b4"), CompileOptions(kernels="torch"))
     inputs = random_inputs(plan, seed=0)
     counts = (shift_conv2d.launches, spdmm_rows.launches, ddmm.launches)
-    got = build_runner(plan)(**inputs)[0]
+    got = build_runner(plan, jit=False)(**inputs)[0]
     torch.cuda.synchronize()
     assert (shift_conv2d.launches - counts[0],
             spdmm_rows.launches - counts[1],
             ddmm.launches - counts[2]) == (18, 9, 1)
-    close(got.cpu(), build_runner(plain)(**inputs)[0].cpu(), rtol=1e-4)
+    close(got.cpu(), build_runner(plain, jit=False)(**inputs)[0].cpu(),
+          rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -678,7 +679,7 @@ def test_cuda_b4_spdmm_runs_on_views_without_copies(cuda, monkeypatch):
     monkeypatch.setattr(matmul, "spdmm_rows", recording)
     names = [n for op in ell for n in (op.inputs[0], op.name)]
     run = build_runner(dataclasses.replace(plan, outputs=names),
-                       free_dead=False)
+                       free_dead=False, jit=False)
     before = spdmm_rows.launches
     outs = run(**random_inputs(plan, seed=0))
     torch.cuda.synchronize()
@@ -725,14 +726,15 @@ def test_cuda_request_runs_through_the_kernels(cuda, task, counts):
         inputs = {"nodes": inputs["nodes"] * VIP_SCALE}
     fns = (shift_conv2d, spdmm_rows, ddmm, knn, sddmm)
     before = [fn.launches for fn in fns]
-    got = build_runner(plan)(**inputs)[0]
+    got = build_runner(plan, jit=False)(**inputs)[0]
     torch.cuda.synchronize()
     assert tuple(fn.launches - b for fn, b in zip(fns, before)) == counts
     if task == "vip-masked":                   # the softmax mixes neighbours
         nodes = inputs["nodes"]
         assert np.abs(got.cpu().numpy() - nodes).max() > \
             0.1 * np.abs(nodes).max()
-    close(got.cpu(), build_runner(plain)(**inputs)[0].cpu(), rtol=1e-4)
+    close(got.cpu(), build_runner(plain, jit=False)(**inputs)[0].cpu(),
+          rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -847,3 +849,189 @@ def test_cuda_smoke_serve_runs_through_the_kernel(cuda):
                                device=cuda)
         logits, _ = lm_forward(params, cfg, toks[None], impl="naive")
         assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
+
+
+# ------------------------------------ CUDA graphs and batched execution --
+# Small configs of every GNN-CV path: the graph runner equals the eager
+# runner, and a batch equals its per-sample runs, bit for bit (the kernels'
+# launch plans follow the per-sample problem; the other ops loop per
+# sample or compute each element as its per-sample call does).
+GRAPH_TASKS = ["b1", "b2", "b3-r50", "b4", "b5", "b6", "b6-dyn",
+               "vip-masked"]
+
+
+def small_plan(task):
+    from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.core.ir import GraphBuilder
+    from repro_torch.gnncv.tasks import build_dynamic_task, build_task
+    if task == "vip-masked":
+        graph = vip_masked_graph(GraphBuilder, side=8, feat=16, win=3)
+    elif task == "b6-dyn":
+        graph = build_dynamic_task(task, small=True)
+    else:
+        graph = build_task(task, small=True)
+    return compile_graph(graph, CompileOptions(kernels="cuda"))
+
+
+def small_requests(task, plan, n):
+    from repro_torch.core.executor import random_inputs
+    if task == "b6-dyn":
+        pts = plan.meta["input_shapes"]["points"][0]
+        return [dyn_request(pts, seed=s, pad=pts // 16) for s in range(n)]
+    reqs = [random_inputs(plan, seed=s) for s in range(n)]
+    if task == "vip-masked":
+        reqs = [{"nodes": r["nodes"] * np.float32(0.25)} for r in reqs]
+    return reqs
+
+
+def assert_equal_outputs(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", GRAPH_TASKS)
+def test_cuda_graph_runner_equals_eager_bit_for_bit(cuda, task):
+    from repro_torch.core import build_runner
+    plan = small_plan(task)
+    eager, graph = build_runner(plan, jit=False), build_runner(plan)
+    assert graph.jit and not eager.jit
+    for req in small_requests(task, plan, 3):
+        assert_equal_outputs(graph(**req), eager(**req))
+    assert graph.trace_count() == 1 and eager.trace_count() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", GRAPH_TASKS)
+def test_cuda_graph_records_the_launches_of_one_eager_request(cuda, task):
+    """``<fn>.captured``, counted where each wrapper launches its kernel,
+    gives the launches a graph records: those of one eager request."""
+    from repro_torch import kernels as K
+    from repro_torch.core import build_runner
+    plan = small_plan(task)
+    req = small_requests(task, plan, 1)[0]
+    fns = [K.shift_conv2d, K.ddmm, K.spdmm, K.spdmm_rows, K.knn, K.sddmm]
+    eager = build_runner(plan, jit=False)
+    eager(**req)
+    for fn in fns:
+        fn.launches = fn.captured = 0
+    eager(**req)
+    walked = [fn.launches for fn in fns]
+    assert sum(walked) > 0 and not any(fn.captured for fn in fns)
+    graph = build_runner(plan)
+    for fn in fns:
+        fn.captured = 0
+    assert graph.aot_compile() is not None
+    assert [fn.captured for fn in fns] == walked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", GRAPH_TASKS)
+def test_cuda_batch_equals_per_sample_runs_bit_for_bit(cuda, task):
+    from repro_torch.core import build_runner
+    from repro_torch.core.executor import stack_inputs
+    plan = small_plan(task)
+    reqs = small_requests(task, plan, 4)
+    one = build_runner(plan, jit=False)
+    singles = [one(**r) for r in reqs]
+    for jit in (False, True):
+        batched = build_runner(plan, batch=4, jit=jit)(**stack_inputs(reqs))
+        for j, out in enumerate(batched):
+            for i in range(4):
+                assert torch.equal(out[i], singles[i][j]), (jit, i, j)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_outputs_are_copies(cuda):
+    from repro_torch.core import build_runner
+    plan = small_plan("b6")
+    run = build_runner(plan)
+    a_req, b_req = small_requests("b6", plan, 2)
+    a = run(**a_req)[0]
+    kept = a.clone()
+    b = run(**b_req)[0]
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, kept) and not torch.equal(a, b)
+    assert torch.equal(b, build_runner(plan, jit=False)(**b_req)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_reads_swaps_in_place_and_recaptures_once_to_unalias(
+        cuda):
+    from repro_torch.core import build_runner, compile_graph
+    from repro_torch.core.ir import GraphBuilder
+    rng = np.random.default_rng(1)
+    w1, w2 = (rng.standard_normal((8, 8)).astype(np.float32)
+              for _ in range(2))
+    b = GraphBuilder("alias_swap")
+    x = b.input((4, 8), name="x")
+    h = b.linear(x, w1, b=np.zeros(8, np.float32), name="l1")
+    h = b.linear(h, w2, b=np.zeros(8, np.float32), name="l2")
+    plan = compile_graph(b.output(h))
+    req = {"x": rng.standard_normal((4, 8)).astype(np.float32)}
+    run = build_runner(plan)
+    assert run.aot_compile() is not None and run.trace_count() == 1
+    base = run(**req)[0]
+    eager = build_runner(plan, jit=False)
+    run.resident.swap("l2", "w", w2 * 2.0)               # in place
+    eager.resident.swap("l2", "w", w2 * 2.0)
+    got = run(**req)[0]
+    assert not torch.equal(got, base)
+    assert torch.equal(got, eager(**req)[0]) and run.trace_count() == 1
+    delta = np.full(8, 0.5, np.float32)
+    run.resident.swap("l1", "b", delta)                  # un-aliases
+    eager.resident.swap("l1", "b", delta)
+    assert run.resident.slots[("l1", "b")] != run.resident.slots[("l2", "b")]
+    assert torch.equal(run(**req)[0], eager(**req)[0])
+    assert run.trace_count() == 2
+    run(**req)
+    assert run.trace_count() == 2
+
+
+@pytest.mark.cuda
+def test_cuda_trace_count_is_frozen_after_aot_compile(cuda):
+    from repro_torch.core import build_runner
+    from repro_torch.core.executor import stack_inputs
+    plan = small_plan("b6")
+    for batch in (None, 4):
+        run = build_runner(plan, batch=batch, jit=True)
+        g = run.aot_compile()
+        assert g is not None and run.trace_count() == 1
+        reqs = small_requests("b6", plan, 4)
+        for _ in range(3):
+            run(**(stack_inputs(reqs) if batch else reqs[0]))
+        assert run.trace_count() == 1 and run.aot_compile() is g
+
+
+@pytest.mark.cuda
+def test_cuda_coo_sums_give_the_same_bits_every_call(cuda):
+    """b5's COO sums (and the segment sum alone) give one result over 10
+    calls and across batch sizes: the row order fixes the order of
+    addition, where ``index_add_``'s atomics changed it run to run."""
+    from repro_torch.core import build_runner
+    from repro_torch.core.executor import stack_inputs
+    from repro_torch.core.runtime.elementwise import segment_sum
+    from repro_torch.core.runtime.residency import host_row_order
+    plan = small_plan("b5")
+    reqs = small_requests("b5", plan, 4)
+    run = build_runner(plan, jit=False)
+    first = run(**reqs[0])[0]
+    for _ in range(9):
+        assert torch.equal(run(**reqs[0])[0], first)
+    for batch in (2, 4):
+        out = build_runner(plan, batch=batch, jit=False)(
+            **stack_inputs(reqs[:batch]))[0]
+        assert torch.equal(out[0], first)
+    rng = np.random.default_rng(0)
+    seg = rng.integers(0, 500, 20000).astype(np.int32)
+    perm, lengths = (torch.from_numpy(a).to(cuda)
+                     for a in host_row_order(seg, 500))
+    for width in ((), (48,)):
+        x = torch.from_numpy(rng.standard_normal((20000, *width)).astype(
+            np.float32)).to(cuda)[perm]
+        want = segment_sum(x, lengths)
+        for _ in range(9):
+            assert torch.equal(segment_sum(x, lengths), want)
+        close(want.cpu(), segment_sum(x.cpu(), lengths.cpu()), rtol=1e-6)
