@@ -3,6 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-sweep    # shift-conv's tiles and splits
     python3 chip_smoke.py --ddmm-sweep    # DDMM's column tiles and splits
+    python3 chip_smoke.py --lattice       # Step 4b on the card alone
+    python3 chip_smoke.py --serve         # the serving phase alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -33,7 +35,26 @@ graph outputs must equal the eager runner's bit for bit, a batch of 4
 (eager and graph) each sample's batch-1 output bit for bit, and the
 runner cache may miss no more after the warmup; request times (eager
 against graph, in turns), samples/s at batch 4 and the device's idle share
-under replay are printed.  Every number printed is measured in this run.
+under replay are printed.  Then Step 4b on the card (``lattice_phase``):
+each path compiled with ``kernels="auto"`` (the H100 cost model), which
+ops bind a plain twin, the ``auto`` plan's outputs against the ``cuda``
+plan's, the predicted-vs-measured report (an op whose measured rivals
+differ by more than 20% must be ranked right, closer rivals are a tie;
+``agreement.rate`` printed), and ``kernels="measured"`` compiled twice
+into an autotune cache under ``build/`` (the warm compile measures
+nothing); then the same ranking rule at held-out shapes no path has
+(``heldout_phase``), where the model was not fitted.  Then the nine paths
+through ``gcv.serve`` engines (``serving_phase``): the first engine's
+warmup one (task, bucket) at a time, each capture held to that bucket's
+eager batched launches; FIFO closed batches at pipeline depth 1 and 2
+(req/s over 360 batches), buckets 1, 2, 4 and 8 each held to the batch-1
+run bit for bit and, under the profiler, to the kernels their graphs
+recorded; open-loop Poisson streams under the SLO scheduler below and
+past the knee (req/s, goodput, deadline misses, sojourn p50/p99 over the
+served and over every arrival, the adaptive depth, the device's idle
+share); and b6-dyn over graph buckets, held as the paths are.  A served
+batch must launch nothing from the host.  Every number printed is
+measured in this run.
 The last line is the JSON result; any failure exits nonzero before it.
 Imports the port only (``repro_torch``), never JAX.
 
@@ -96,6 +117,41 @@ E2E_RTOL = 1e-4
 # fp32-level (~2^-21 of each product): KERNEL_RTOL holds for it.
 FLASH_BF16_RTOL = 2.0 ** -7
 REQUESTS = 8
+# The lattice phase: an op whose measured rivals differ by more than this
+# share must be ranked right by the H100 model (closer rivals may swap
+# between runs: a launch-bound call's time is the host's).  The verdict
+# takes each candidate's median over AGREE_MEASUREMENTS independent
+# measurements (``measure_op``, each the best of its rounds): one
+# measurement of a launch-bound pair has moved by up to 70% between runs.
+AGREE_GAP = 0.2
+AGREE_MEASUREMENTS = 5
+# At the held-out shapes (``heldout_graphs``) at least this share of the
+# ops whose rivals are more than AGREE_GAP apart must be ranked right.  The
+# model's host floors are constants, while the host's speed for the
+# multi-kernel plain twins moved 1.5-2.7x between two machines (the gather
+# SpDMM at 300 x 5 slots @ (300, 1024): 83.6 and 226.1 us, PERF.md §5), so
+# a pair near its crossover ranks one way on one host and the other way on
+# the next.
+HELDOUT_RATE = 0.8
+# The serving phase: engines over the nine paths (buckets 1, 2, 4, 8).
+# (a) takes its req/s over SERVE_ROUNDS rounds of one bucket-8 batch of
+# every path (360 batches: one short window moved by 15% between runs).
+# (b) draws Poisson arrivals of uniformly drawn tasks (a smoke mix with no
+# published source) for STREAM_S seconds at two rates: STREAM_BELOW req/s,
+# below the knee PERF.md §5 measured, and STREAM_LOAD of (a)'s depth-2
+# req/s, which lies past it; each request is due SLO_FACTOR x b3-r101's
+# batch-1 graph p50 after it arrives.  (c) serves b6-dyn at DYN_BUCKETS
+# points, DYN_REQUESTS clouds of DYN_POINTS points each.
+SERVE_MAX_BATCH = 8
+SERVE_ROUNDS = 40
+STREAM_BELOW = 1000.0
+STREAM_LOAD = 0.7
+STREAM_S = 2.0
+SLO_FACTOR = 10
+DYN_BUCKETS = (512, 1024)
+DYN_POINTS = (400, 1024)
+DYN_REQUESTS = 16
+GNNCV_KERNELS = ("shift_conv2d", "spdmm", "ddmm", "knn", "sddmm")
 # The graph phase: batch-1 request times over GRAPH_TURNS turns of the
 # REQUESTS requests for each runner (eager, graph), and BATCH_TURNS turns
 # of the two batches of GRAPH_BATCH for each batched runner.
@@ -796,16 +852,62 @@ def check_case(case: Case) -> float:
     return err
 
 
-def device_events(fn, n: int) -> list:
-    """The device kernels of ``n`` calls of ``fn`` under ``torch.profiler``."""
+MARKER = "spin_kernel"      # torch.cuda._sleep's kernel: a window's bounds
+WINDOW_GAP_S = 0.02         # host pause inside each end of a scheduled window
+
+
+def device_events(fn, n: int, warm=None) -> list:
+    """The device kernels of ``n`` calls of ``fn`` under ``torch.profiler``.
+    ``warm``: called first, in the profiler's warm-up step, whose events
+    are dropped (a window that opens on a graph replay has lost its first
+    few device events).
+
+    The profiler places device events in its window by the host's clock,
+    which does not agree with the card's to the kernel: a window can keep
+    the last kernels of the warm-up step and drop its own first or last
+    ones.  So a scheduled window is bracketed on the card by two
+    ``MARKER`` kernels, each ``WINDOW_GAP_S`` on the host's clock inside
+    the window, and only the events between them on the card's own
+    timeline count (none if either marker was lost).  An event the
+    profiler reports twice counts once."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    steps = None if warm is None else schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=steps) as prof:
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(WINDOW_GAP_S)
+            torch.cuda._sleep(1000)
         for _ in range(n):
             fn()
+        if warm is not None:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if warm is not None:
+            time.sleep(WINDOW_GAP_S)
+            prof.step()
+    # a scheduled profile also puts each step's span on the device's
+    # timeline ("ProfilerStep#n"), which no kernel is
+    events, seen = [], set()
+    for e in prof.events():
+        key = (e.name, e.time_range.start, e.time_range.end)
+        if e.device_type == DeviceType.CUDA and key not in seen \
+                and not e.name.startswith("ProfilerStep"):
+            seen.add(key)
+            events.append(e)
+    if warm is None:
+        return events
+    marks = sorted(e.time_range.start for e in events
+                   if kernel_base(e.name) == MARKER)
+    if len(marks) != 2:
+        return []
+    return [e for e in events if kernel_base(e.name) != MARKER
+            and marks[0] < e.time_range.start < marks[1]]
 
 
 def kernel_base(name: str) -> str:
@@ -840,11 +942,13 @@ def profile_requests(run, requests, card, task) -> None:
                    f"{task} requests", "request", card)
 
 
-def profile_window(fn, n: int, what: str, per: str, card: str) -> list:
-    """Profile ``n`` calls of ``fn``: device kernels and busy time per
-    call, the idle share of the device window, the largest kernels.
-    Returns the device events (empty where none was recorded)."""
-    kernels = device_events(fn, n)
+def profile_window(fn, n: int, what: str, per: str, card: str,
+                   warm=None) -> list:
+    """Profile ``n`` calls of ``fn`` (after ``warm``, as in
+    ``device_events``): device kernels and busy time per call, the idle
+    share of the device window, the largest kernels.  Returns the device
+    events (empty where none was recorded)."""
+    kernels = device_events(fn, n, warm)
     if not kernels:
         log(f"profile of {what}: no device events recorded (device "
             "breakdown not measured)")
@@ -1166,15 +1270,14 @@ def graph_times(task, ones, batched, requests, batches, card) -> None:
     profile_window(lambda: batched[1](**next(it_b)), len(batches),
                    f"{task} batch-{GRAPH_BATCH} graph replays", "batch",
                    card)
-    # A profile now and then records only some of a graph's device events:
-    # a count that falls short of the want (and never over it) is profiled
-    # again, up to two more times, and every count is printed.
+    # A profile now and then records only some of a graph's device events,
+    # or none: a count that falls short of the want (and never over it) is
+    # profiled again, up to two more times, and every count is printed.
     want = {name: PER_REQUEST[task][name] for name in MAIN_KERNELS}
     for attempt in range(3):
         if attempt:
             events = device_events(lambda: ones[1](**next(it)),
                                    len(requests))
-        assert events, f"{task}: the profiler recorded no device event"
         per_replay = {name: sum(kernel_base(e.name) in bases
                                 for e in events) / len(requests)
                       for name, bases in MAIN_KERNELS.items()}
@@ -1185,6 +1288,505 @@ def graph_times(task, ones, batched, requests, batches, card) -> None:
         assert all(per_replay[k] <= want[k] for k in want), \
             (task, per_replay, want)
     raise AssertionError((task, per_replay, want))
+
+
+def lattice_phase(task, graph, requests, cache_path, card) -> dict:
+    """Step 4b on the card: ``gcv.compile(graph, kernels="auto")`` (the
+    H100 model), which ops bind a twin, the ``auto`` plan's outputs on the
+    requests against the ``cuda`` plan's (``E2E_RTOL``), the
+    predicted-vs-measured report (``profile_report``, its agreement rate
+    printed; every op whose rivals differ by more than ``AGREE_GAP``, by
+    the median of ``AGREE_MEASUREMENTS`` measurements, must be ranked
+    right by the model), then ``kernels="measured"`` compiled twice into
+    ``cache_path``: the second compile, from the warm cache, measures
+    nothing.  Returns the report's agreement block."""
+    from repro_torch import gcv
+    from repro_torch.core import CompileOptions, compile_graph
+    auto = gcv.compile(graph, kernels="auto")
+    cuda = gcv.compile(graph, kernels="cuda")
+    choices = auto.plan.meta["kernel_choices"]
+    assert auto.plan.meta["kernels_backend"] == "cuda"
+    twins = [f"{name}:{c['kernel']}" for name, c in choices.items()
+             if len(c["candidates"]) > 1 and c["kernel"].startswith("torch_")]
+    multi = sum(len(c["candidates"]) > 1 for c in choices.values())
+    log(f"{task} lattice: kernels='auto' binds a twin on {len(twins)} of "
+        f"{multi} multi-candidate ops: {', '.join(twins) or '-'}; counts "
+        f"{auto.plan.kernel_counts()}")
+    run_auto, run_cuda = auto.runner(jit=False), cuda.runner(jit=False)
+    worst = 0.0
+    for s, req in enumerate(requests):
+        for a, c in zip(run_auto(**req), run_cuda(**req)):
+            assert torch.isfinite(a).all(), f"{task} auto request {s}"
+            worst = max(worst, rel_err(a, c)[1])
+    log(f"{task} lattice: auto vs cuda plan over {len(requests)} requests: "
+        f"rel up to {worst:.3e}")
+    assert worst <= E2E_RTOL, f"{task}: the auto plan disagrees"
+    report = auto.profile_report(inputs=requests[0])
+    verdicts = rank_ops(task, auto.plan, report)
+    ag = report["agreement"]
+    assert ag["considered"], f"{task}: no op with two measured candidates"
+    log(f"{task} lattice: agreement.rate {ag['rate']:.3f} "
+        f"({ag['agree']}/{ag['considered']}); over rivals more than "
+        f"{AGREE_GAP:.0%} apart (median of {AGREE_MEASUREMENTS}): "
+        f"{verdicts['agree']} ranked right, {verdicts['tie']} ties  [{card}]")
+    cuda_prof = cuda.profile(inputs=requests[0])
+    for name, rows in (("auto", report["rows"]),
+                       ("cuda", [dict(predicted_s=r["predicted_s"],
+                                      measured_s=r["s"])
+                                 for r in cuda_prof.values()])):
+        log(f"{task} lattice: {name} plan over its {len(rows)} ops: "
+            f"predicted {sum(r['predicted_s'] for r in rows) * 1e3:.4f} "
+            f"ms (the sum of its bound kernels' predictions), measured "
+            f"{sum(r['measured_s'] for r in rows) * 1e3:.4f} ms (op by "
+            f"op, a synchronize between ops, best of 3)  [{card}]")
+    opts = CompileOptions(kernels="measured", autotune_cache=str(cache_path))
+    t_a = time.perf_counter()
+    cold = compile_graph(graph, opts, backend="cuda")
+    t_b = time.perf_counter()
+    warm = compile_graph(graph, opts, backend="cuda")
+    t_c = time.perf_counter()
+    at_cold, at_warm = cold.meta["autotune"], warm.meta["autotune"]
+    differ = [name for name, c in cold.meta["kernel_choices"].items()
+              if c["kernel"] != choices[name]["kernel"]]
+    log(f"{task} lattice: kernels='measured' first compile {t_b - t_a:.2f} "
+        f"s ({at_cold['measured_signatures']} signatures measured, "
+        f"{at_cold['cache_hits']} found in the cache the paths share), warm "
+        f"{t_c - t_b:.2f} s ({at_warm['measured_signatures']} measured, "
+        f"{at_warm['cache_hits']} hits); binds other than auto on "
+        f"{len(differ)} ops: {', '.join(differ) or '-'}")
+    assert at_warm["measured_signatures"] == 0, \
+        f"{task}: the warm autotune cache measured again"
+    assert {n: c["kernel"] for n, c in warm.meta["kernel_choices"].items()} \
+        == {n: c["kernel"] for n, c in cold.meta["kernel_choices"].items()}
+    return ag
+
+
+def rank_ops(what: str, plan, report, *,
+             strict: bool = True) -> dict[str, int]:
+    """The H100 model's ranking of every op of ``report`` (a
+    ``profile_report``) with two measured candidates: each candidate's
+    median over ``AGREE_MEASUREMENTS`` measurements (the report's and
+    fresh ones); rivals within ``AGREE_GAP`` of each other are a tie (the
+    measurement cannot rank them), an op whose rivals are further apart
+    must be ranked right (``strict``; otherwise it is counted as
+    ``WRONG``).  Returns the count of each verdict."""
+    from repro_torch.core.autotune import AutotuneCache, measure_op
+    ops = {op.name: op for op in plan.ops}
+    again = [AutotuneCache(path=ROOT / "build" / "never_written.json")
+             for _ in range(AGREE_MEASUREMENTS - 1)]
+    verdicts = {"agree": 0, "tie": 0, "WRONG": 0}
+    for row in report["rows"]:
+        meas, pred = row["candidates_s"], row["candidates_predicted_s"]
+        if not meas or len(meas) < 2:
+            continue
+        op = ops[row["op"]]
+        runs = [meas] + [measure_op(op, list(meas), cache, backend="cuda")
+                         for cache in again]
+        med = {k: statistics.median(r[k] for r in runs) for k in meas}
+        gap = max(med.values()) / min(med.values()) - 1
+        agree = min(med, key=med.get) == min(meas, key=pred.get)
+        verdict = "tie" if gap <= AGREE_GAP else \
+            "agree" if agree else "WRONG"
+        dims = ("x".join(str(op.attrs[k]) for k in ("s1", "s2", "s3"))
+                if op.kind != "conv" else "x".join(
+                    str(d) for d in (*op.weights["w"].shape[:2],
+                                     *op.out_shape)))
+        log(f"  {row['op']:<24} {dims:<15} {row['kernel']:<16} predicted "
+            + ", ".join(f"{k} {pred[k] * 1e6:.2f}" for k in meas)
+            + " us; measured (median of " + str(len(runs)) + ") "
+            + ", ".join(f"{k} {v * 1e6:.2f}" for k, v in med.items())
+            + f" us; gap {gap:.2f}; {verdict} (first measurement ranked "
+            + f"{'right' if row['agree'] else 'wrong'})")
+        assert verdict != "WRONG" or not strict, \
+            f"{what} {row['op']}: the H100 model ranks a {gap:.0%} gap wrong"
+        verdicts[verdict] += 1
+    return verdicts
+
+
+def heldout_graphs() -> dict:
+    """Ops at shapes none of the nine paths has (PERF.md §5 says which
+    of them a constant of the H100 model was later fitted to): Gram
+    products ``x @ xᵀ``, dense products, convs (the 3x3 over 384 channels
+    is ranked by the plain conv's per-tap host cost), a masked VIP, KNN,
+    and ELL products with the ELL matrix on the left (the columns
+    kernel)."""
+    from repro_torch.core.ir import GraphBuilder
+    rng = np.random.default_rng(7)
+
+    def rand(*shape):
+        return (rng.standard_normal(shape) / math.sqrt(shape[-2] if len(
+            shape) > 1 else 1)).astype(np.float32)
+
+    graphs = {}
+    for n, f in ((64, 2048), (128, 1024), (1024, 64), (1024, 2048)):
+        b = GraphBuilder(f"gram_{n}x{f}")
+        b.output(b.vip(b.input((n, f), name="x"), name=f"gram_{n}x{f}"))
+        graphs[f"gram-{n}x{f}"] = b.g
+    for m, k, n in ((4096, 1024, 1024), (256, 4096, 256)):
+        b = GraphBuilder(f"dense_{m}x{k}x{n}")
+        b.output(b.linear(b.input((m, k), name="x"), rand(k, n),
+                          name=f"dense_{m}x{k}x{n}"))
+        graphs[f"dense-{m}x{k}x{n}"] = b.g
+    for kk, c_in, c_out, side in ((5, 256, 256, 16), (3, 32, 32, 64),
+                                  (3, 384, 384, 20)):
+        b = GraphBuilder(f"conv{kk}x{kk}")
+        b.output(b.conv(b.input((c_in, side, side), name="x"),
+                        rand(kk, kk, c_in, c_out),
+                        name=f"conv{kk}x{kk}_{c_in}_{side}"))
+        graphs[f"conv{kk}x{kk}-{c_in}-{side}"] = b.g
+    graphs["vip-masked-10x10x1024"] = vip_masked_graph(
+        GraphBuilder, side=10, feat=1024, win=3)
+    b = GraphBuilder("knn_768x6")
+    x = b.input((768, 6), name="x")
+    b.output(b.mp(x, knn_input=b.knn_graph(x, k=16, name="knn_768x6"),
+                  name="knn_mp"))
+    graphs["knn-768x6-k16"] = b.g
+    for n, f, slots in ((300, 1024, 5), (120, 4096, 3), (1000, 256, 8)):
+        adj = np.zeros((n, n), np.float32)
+        for i in range(n):
+            adj[i, rng.choice(n, slots, replace=False)] = 1.0
+        b = GraphBuilder(f"ell_{n}")
+        b.output(b.mp(b.input((n, f), name="x"), adj=adj,
+                      name=f"ell_{n}x{f}"))
+        graphs[f"ell-{n}x{f}-{slots}"] = b.g
+    return graphs
+
+
+def heldout_phase(card) -> None:
+    """The H100 model's ranking at ``heldout_graphs``' shapes
+    (``rank_ops``): of the ops whose rivals are more than ``AGREE_GAP``
+    apart, at least ``HELDOUT_RATE`` must be ranked right."""
+    from repro_torch import gcv
+    total = {"agree": 0, "tie": 0, "WRONG": 0}
+    for name, graph in heldout_graphs().items():
+        model = gcv.compile(graph, kernels="auto")
+        report = model.profile_report(inputs=model.random_inputs(seed=0))
+        for k, v in rank_ops(f"held-out {name}", model.plan, report,
+                             strict=False).items():
+            total[k] += v
+    decided = total["agree"] + total["WRONG"]
+    rate = total["agree"] / decided if decided else 1.0
+    log(f"held-out lattice: over rivals more than {AGREE_GAP:.0%} apart: "
+        f"{total['agree']} ranked right, {total['WRONG']} wrong "
+        f"({rate:.3f}), {total['tie']} ties  [{card}]")
+    assert decided and rate >= HELDOUT_RATE, \
+        f"held out, the H100 model ranks {rate:.0%} of {decided} ops right"
+
+
+def request_key(inputs: dict) -> tuple:
+    """A request's identity by its arrays (``submit`` copies the dict,
+    not the arrays)."""
+    return tuple(id(v) for v in inputs.values())
+
+
+def served_equal(reqs, singles, what: str) -> None:
+    """Every served request's outputs equal its batch-1 run's bit for
+    bit (``reqs``: (task, request index, TaskRequest))."""
+    for task, i, req in reqs:
+        assert req.done and req.result is not None, (what, task, i)
+        for got, want in zip(req.result, singles[task][i]):
+            assert np.array_equal(got, want), \
+                f"{what}: {task} request {i} != its batch-1 run"
+
+
+def closed_batches(eng, tasks, requests, singles, take,
+                   rounds: int = 1) -> float:
+    """Submit ``rounds`` rounds of ``take`` requests of every task (task by
+    task in each round), drain the engine, hold every output to its
+    batch-1 run; returns req/s on the host clock."""
+    reqs = [(t, i % len(requests[t]), eng.submit(
+        t, **requests[t][i % len(requests[t])]))
+        for r in range(rounds) for t in tasks
+        for i in range(r * take, (r + 1) * take)]
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    served = eng.run()
+    rate = served / (time.perf_counter() - t_a)
+    assert served == len(reqs), (served, len(reqs))
+    served_equal(reqs, singles, f"closed batches of {take}")
+    return rate
+
+
+def eager_bucket_launches(kernels, model, samples) -> dict[str, int]:
+    """Each GNN-CV wrapper's launches in one eager batched run of
+    ``samples`` (the launches a graph of that bucket must record)."""
+    from repro_torch.core.executor import stack_inputs
+    run = model.batched(len(samples), jit=False)
+    for name in GNNCV_KERNELS:
+        kernels[name].launches = 0
+    run(**stack_inputs(samples))
+    torch.cuda.synchronize()
+    return {name: kernels[name].launches for name in GNNCV_KERNELS}
+
+
+def warm_each(eng, want, kernels, what: str) -> None:
+    """The engine's ``warmup`` one (task, bucket) at a time: each capture
+    must record ``want[(task, bucket)]``, the launches of that bucket's
+    eager batched run (every count set to 0 just before, read just
+    after)."""
+    for task, bucket in want:
+        for name in GNNCV_KERNELS:
+            kernels[name].captured = 0
+        assert eng.warmup([task], [bucket]) >= {(task, bucket)}
+        got = {name: kernels[name].captured for name in GNNCV_KERNELS}
+        assert got == want[(task, bucket)], (what, task, bucket, got,
+                                             want[(task, bucket)])
+    assert eng.stats()["warmed"] == len(want)
+    log(f"{what}: the engine's warmup captured {len(want)} (task, bucket) "
+        f"graphs, each recording its bucket's eager batched launches")
+
+
+def served_kernels(eng, drive, want, what: str, card: str, *,
+                   exact: bool = True) -> None:
+    """``drive()`` under the profiler, after a first ``drive()`` in its
+    warm-up step: each GNN-CV kernel's device count must equal the
+    launches the dispatched (task, bucket) graphs recorded at capture
+    (``want``), summed over the batches the engine dispatched in the
+    recorded step (its per-bucket service histograms).  A profile now and
+    then records only some of a window's device events, or none: a count
+    that falls short (never over) is profiled again, up to two more times.
+    ``exact=False``: every kernel seen and none over."""
+    def batches():
+        return {p: eng.metrics.histogram(f"service_ms.{p[0]}.b{p[1]}").count
+                for p in want}
+
+    before = {}
+
+    def warm() -> None:
+        drive()
+        torch.cuda.synchronize()
+        before.update(batches())
+
+    for attempt in range(3):
+        events = profile_window(drive, 1, what, "window", card, warm=warm)
+        ran_b = {p: n - before[p] for p, n in batches().items()}
+        expect = {name: sum(n * want[p][name] for p, n in ran_b.items())
+                  for name in MAIN_KERNELS}
+        ran = {name: sum(kernel_base(e.name) in bases for e in events)
+               for name, bases in MAIN_KERNELS.items()}
+        log(f"{what}: {sum(ran_b.values())} batches dispatched; main "
+            f"kernels under the profiler {ran}, recorded by their graphs "
+            f"{expect} (profile {attempt + 1})")
+        assert all(ran[k] <= expect[k] for k in expect), (what, ran, expect)
+        if ran == expect or (not exact and all(
+                ran[k] for k in expect if expect[k])):
+            return
+    raise AssertionError((what, ran, expect))
+
+
+def stream_arrivals(tasks, requests, rate: float, seconds: float,
+                    seed: int) -> list:
+    """Poisson arrivals at ``rate`` req/s for ``seconds``, tasks and
+    requests drawn uniformly (a smoke mix, not a sourced one)."""
+    rng = np.random.default_rng(seed)
+    n = int(rate * seconds)
+    at = np.cumsum(rng.exponential(1.0 / rate, n))
+    picks = zip(rng.integers(len(tasks), size=n),
+                rng.integers(REQUESTS, size=n))
+    return [(float(a), tasks[t], requests[tasks[t]][i])
+            for a, (t, i) in zip(at, picks)]
+
+
+def serving_phase(kernels, requests, card) -> None:
+    """The nine paths served by ``gcv.serve`` engines (``kernels="cuda"``,
+    ``max_batch=8``), the launch and capture counts set to 0 just before
+    each engine's warmup and before its traffic, and read just after:
+
+    (a) FIFO closed batches, ``SERVE_ROUNDS`` rounds of 8 requests of
+        every path (bucket-8 batches) at ``pipeline_depth`` 1, then 2,
+        req/s printed; the first engine's warmup is taken one (task,
+        bucket) at a time, each capture held to its bucket's eager batched
+        launches; then, under the profiler, 8, 1, 2 and 3 requests of every
+        path (buckets 8, 1, 2 and 4, the last padded), the kernels the card
+        ran held to the launches the dispatched graphs recorded;
+    (b) open-loop streams under the SLO scheduler (``STREAM_*``,
+        ``SLO_FACTOR``) at a fixed rate below the knee and at
+        ``STREAM_LOAD`` of (a)'s depth-2 req/s: req/s, goodput, deadline
+        misses, sojourn p50 and p99 (over the served requests and over
+        every arrival, a shed one counted as never served), the adaptive
+        depth's trace; each again under the profiler for the device's
+        idle share and the kernels it ran;
+    (c) b6-dyn over graph buckets (``DYN_*``): routing, padding counted,
+        its warmup and its served batches held as in (a).
+
+    Every served output must equal that request's batch-1
+    ``CompiledModel.run`` bit for bit; a served batch launches no kernel
+    from the host (every one is a graph replay); the runner cache may not
+    miss after an engine's warmup, and a later engine over the same models
+    captures nothing; under depth 2 some dispatch must return before the
+    card finished its batch."""
+    from repro_torch import gcv
+    from repro_torch.core.runtime.cache import cache_stats
+    from repro_torch.gnncv.tasks import build_dynamic_task
+    tasks = list(requests)
+    models = {t: gcv.compile(task_graph(t), kernels="cuda") for t in tasks}
+    singles = {t: [tuple(o.cpu().numpy() for o in models[t].run(**r))
+                   for r in requests[t]] for t in tasks}
+    first = gcv.serve(models, max_batch=SERVE_MAX_BATCH, pipeline_depth=1,
+                      scheduler="fifo")
+    want = {(t, b): eager_bucket_launches(kernels, models[t],
+                                          requests[t][:b])
+            for t in tasks for b in first.buckets()}
+
+    def zero() -> None:
+        for name in GNNCV_KERNELS:
+            kernels[name].launches = kernels[name].captured = 0
+
+    def no_host_launches(what: str) -> None:
+        launched = {n: kernels[n].launches for n in GNNCV_KERNELS}
+        assert not any(launched.values()), (what, launched)
+
+    def engine(**kw):
+        """A later engine over the same models: its warmup finds every
+        graph in the runner cache and captures nothing."""
+        zero()
+        eng = gcv.serve(models, max_batch=SERVE_MAX_BATCH, warmup=True,
+                        **kw)
+        assert eng.stats()["warmed"] == len(want)
+        captured = {n: kernels[n].captured for n in GNNCV_KERNELS}
+        assert not any(captured.values()), captured
+        zero()
+        return eng, cache_stats()["runner_misses"]
+
+    rates = {}
+    for depth in (1, 2):
+        if depth == 1:
+            eng = first
+            warm_each(eng, want, kernels, "serve (a)")
+            zero()
+            misses = cache_stats()["runner_misses"]
+        else:
+            eng, misses = engine(pipeline_depth=2, scheduler="fifo")
+        rates[depth] = closed_batches(eng, tasks, requests, singles,
+                                      SERVE_MAX_BATCH, SERVE_ROUNDS)
+        log(f"serve (a): closed batches, {SERVE_ROUNDS} rounds of "
+            f"{SERVE_MAX_BATCH} requests x {len(tasks)} paths, FIFO, "
+            f"pipeline_depth {depth}: {rates[depth]:.1f} req/s (host clock; "
+            f"{eng.stats()['steps']} dispatches; "
+            f"{eng.metrics.counter('dispatch_returned_ahead').value} "
+            f"returned before the card finished their batch)  [{card}]")
+        no_host_launches(f"serve (a) depth {depth}")
+        if depth == 2:
+            assert eng.metrics.counter("dispatch_returned_ahead").value, \
+                "no dispatch returned before its batch finished"
+            served_kernels(eng, lambda: [
+                closed_batches(eng, tasks, requests, singles, take)
+                for take in (SERVE_MAX_BATCH, 1, 2, 3)],
+                want, "serve (a) buckets 8, 1, 2, 4", card)
+            no_host_launches("serve (a) buckets")
+            seen = {t: sorted(b for b in eng.buckets() if eng.metrics
+                              .histogram(f"service_ms.{t}.b{b}").count)
+                    for t in tasks}
+            assert all(v == eng.buckets() for v in seen.values()), seen
+            log(f"serve (a): buckets {eng.buckets()} served on every path; "
+                f"every output == its batch-1 run bit for bit")
+        assert cache_stats()["runner_misses"] == misses, \
+            "the runner cache missed after the engine's warmup"
+
+    b3 = models["b3-r101"]
+    t_b3 = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        b3.run(**requests["b3-r101"][0])
+        torch.cuda.synchronize()
+        t_b3.append((time.perf_counter() - t_a) * 1e3)
+    slo_ms = SLO_FACTOR * statistics.median(t_b3)
+    index = {request_key(r): i for t in tasks
+             for i, r in enumerate(requests[t])}
+    streams = (("below the knee", STREAM_BELOW),
+               (f"{STREAM_LOAD} x depth 2", STREAM_LOAD * rates[2]))
+    for seed, (label, rate) in enumerate(streams):
+        arrivals = stream_arrivals(tasks, requests, rate, STREAM_S, seed)
+        log(f"serve (b): open loop, {len(arrivals)} Poisson arrivals at "
+            f"{rate:.1f} req/s ({label}) over {arrivals[-1][0]:.2f} s, "
+            f"tasks uniform, slo_ms {slo_ms:.3f} ({SLO_FACTOR} x b3-r101's "
+            f"batch-1 graph p50 {statistics.median(t_b3):.4f} ms), "
+            f"scheduler slo")
+        for profiled in (False, True):
+            eng, misses = engine(slo_ms=slo_ms, scheduler="slo")
+            if profiled:
+                served_kernels(eng, lambda: eng.stream(arrivals), want,
+                               f"served stream (b), {label}", card,
+                               exact=False)
+                no_host_launches("serve (b), profiled")
+                break
+            trace, t0 = [], time.perf_counter()
+            adapt = eng._adapt_depth
+
+            def traced_adapt():
+                d = adapt()
+                if not trace or trace[-1][1] != d:
+                    trace.append((round((time.perf_counter() - t0) * 1e3,
+                                        1), d))
+                return d
+            eng._adapt_depth = traced_adapt
+            reqs = eng.stream(arrivals)
+            st = eng.stats()
+            done = [r for r in reqs if r.result is not None]
+            served = sorted((r.t_done - r.t_submit) * 1e3 for r in done)
+            every = served + [math.inf] * (len(reqs) - len(done))
+
+            def pct(xs, q):
+                return xs[min(len(xs) - 1, round(q * (len(xs) - 1)))]
+            log(f"serve (b), {label}: {st['completed']} served, "
+                f"{st['shed']} shed, {st['expired_at_submit']} expired at "
+                f"submit; {st['req_per_s']:.1f} req/s, goodput "
+                f"{st['goodput_req_per_s']:.1f} req/s, deadline-miss rate "
+                f"{st['deadline_miss_rate']:.4f} (shed counted as missed); "
+                f"sojourn over the served p50 {pct(served, 0.5):.3f} ms "
+                f"p99 {pct(served, 0.99):.3f} ms, over every arrival (a "
+                f"shed request never served) p50 {pct(every, 0.5):.3f} ms "
+                f"p99 {pct(every, 0.99):.3f} ms; depth trace (ms, depth): "
+                f"{trace[:12]}{' ...' if len(trace) > 12 else ''} "
+                f"({len(trace)} changes)  [{card}]")
+            served_equal([(r.task, index[request_key(r.inputs)], r)
+                          for r in done], singles, "the stream")
+            no_host_launches("serve (b)")
+            assert cache_stats()["runner_misses"] == misses
+
+    zero()
+    dyn = gcv.serve(
+        {"b6-dyn": lambda n: build_dynamic_task("b6-dyn", n_points=n)},
+        graph_buckets={"b6-dyn": list(DYN_BUCKETS)},
+        max_batch=SERVE_MAX_BATCH)
+    rng = np.random.default_rng(1)
+
+    def cloud(n: int) -> dict:
+        return dict(points=rng.standard_normal((n, 3)).astype(np.float32),
+                    mask=np.ones(n, np.float32))
+    want_dyn = {(f"b6-dyn@g{g}", b): eager_bucket_launches(
+        kernels, dyn.models[f"b6-dyn@g{g}"], [cloud(g)] * b)
+        for g in DYN_BUCKETS for b in dyn.buckets()}
+    warm_each(dyn, want_dyn, kernels, "serve (c)")
+    zero()
+    misses = cache_stats()["runner_misses"]
+    sizes = rng.integers(DYN_POINTS[0], DYN_POINTS[1] + 1, DYN_REQUESTS)
+    clouds = [cloud(int(n)) for n in sizes]
+    reqs, runs = [], []
+
+    def drive() -> None:
+        reqs[:] = [dyn.submit("b6-dyn", **c) for c in clouds]
+        assert dyn.run() == len(reqs)
+        runs.append(len(reqs))
+    served_kernels(dyn, drive, want_dyn, "serve (c) b6-dyn graph buckets",
+                   card)
+    no_host_launches("serve (c)")
+    assert cache_stats()["runner_misses"] == misses
+    for n, req in zip(sizes, reqs):
+        g = next(b for b in DYN_BUCKETS if b >= n)
+        assert req.task == f"b6-dyn@g{g}", (n, req.task)
+        want_out = dyn.models[req.task].run(**req.inputs)
+        for got, w in zip(req.result, want_out):
+            assert np.isfinite(got).all() and np.array_equal(
+                got, w.cpu().numpy()), f"b6-dyn {n} points"
+    st = dyn.stats()["graph_buckets"]["b6-dyn"]
+    assert sum(v["pad_nodes"] for v in st.values()) == len(runs) * sum(
+        next(b for b in DYN_BUCKETS if b >= n) - n for n in sizes)
+    log(f"serve (c): b6-dyn over graph buckets {list(DYN_BUCKETS)}: "
+        f"{len(reqs)} clouds of {sizes.min()}-{sizes.max()} points, per "
+        f"bucket over {len(runs)} run(s) {st}; each output == its "
+        f"padded request's batch-1 run")
 
 
 def kernel_rows(task, cases, launches, per_request, max_err, card,
@@ -1818,6 +2420,18 @@ def main() -> int:
 
     tasks = list(PER_REQUEST)
     plans = {task: task_plans(task) for task in tasks}
+    autotune_cache = ROOT / "build" / "autotune_smoke.json"
+    autotune_cache.unlink(missing_ok=True)
+    if "--lattice" in sys.argv[1:] or "--serve" in sys.argv[1:]:
+        reqs = {task: task_requests(task, *plans[task]) for task in tasks}
+        if "--lattice" in sys.argv[1:]:
+            for task in tasks:
+                lattice_phase(task, task_graph(task), reqs[task],
+                              autotune_cache, card)
+            heldout_phase(card)
+        if "--serve" in sys.argv[1:]:
+            serving_phase(kernels, reqs, card)
+        return finish()
 
     # ---- phase 2: every kernel against its plain version ----------------
     rng = np.random.default_rng(0)
@@ -1842,6 +2456,11 @@ def main() -> int:
                 for task in tasks}
     for task in tasks:
         graph_phase(task, requests[task], kernels, card)
+    for task in tasks:
+        lattice_phase(task, task_graph(task), requests[task], autotune_cache,
+                      card)
+    heldout_phase(card)
+    serving_phase(kernels, requests, card)
     launches["lm-serve"] = lm_serve(lm_cfg, kernels)
     lm_params = init_lm(0, lm_cfg, device="cuda")
     eng, lm_reqs = lm_engine_run(lm_cfg, lm_params, kernels, card)

@@ -37,8 +37,12 @@ class CompileOptions:
     vmem_budget_bytes: int = 8 * 2**20
     # Step 4b — per-op kernel realization: 'cuda' (hand-written kernel
     # wherever the family has one, with recorded fallbacks) | 'torch'
-    # (plain-torch twins everywhere)
+    # (plain-torch twins everywhere) | 'auto' (the H100 cost model) |
+    # 'measured' (timed through the on-disk autotune cache)
     kernels: str = "cuda"
+    # JSON cache path for kernels='measured'; None = $REPRO_AUTOTUNE_CACHE
+    # or .autotune_cache.json in the cwd
+    autotune_cache: str | None = None
     # Record obs spans for this compile even outside a tracing block
     # (the spans land in the process tracer; export them with
     # obs.export_chrome_trace).  Tracing never changes the compiled plan.
@@ -46,8 +50,11 @@ class CompileOptions:
 
 
 def compile_graph(g: Graph,
-                  options: CompileOptions = CompileOptions()
-                  ) -> ExecutionPlan:
+                  options: CompileOptions = CompileOptions(), *,
+                  backend: str | None = None) -> ExecutionPlan:
+    """Run the six passes.  ``backend`` is where the plan will run
+    (``"cuda"`` or ``"cpu"``; None: the card when there is one), which
+    Step 4b's ``auto`` and ``measured`` modes cost against."""
     with obs.telemetry(options.telemetry), \
             obs.span("compile", cat="compile", graph=g.name,
                      layers=len(g.layers),
@@ -59,7 +66,9 @@ def compile_graph(g: Graph,
                             vmem_budget_bytes=options.vmem_budget_bytes)
         plan = select_primitives(plan, target=options.target,   # Step 4
                                  enable=options.sparsity_aware)
-        plan = select_kernels(plan, kernels=options.kernels)    # Step 4b
+        plan = select_kernels(plan, kernels=options.kernels,    # Step 4b
+                              autotune_cache=options.autotune_cache,
+                              backend=backend)
         plan = schedule_plan(plan)                          # Step 5
         plan = annotate_liveness(plan)                      # Step 6
         sp.set(ops=len(plan.ops))

@@ -25,7 +25,8 @@ it:
     one ``torch.cuda.CUDAGraph``, so a request costs one replay of host
     time.  Graphs are keyed by the inputs' shapes and dtypes, as jit keys
     its traces; ``run.trace_count()`` counts captures.  Inputs are copied
-    into the graph's static input tensors; ``run`` returns copies of its
+    into the graph's static input tensors (page-locked inputs without
+    waiting for the stream, ``_pinned``); ``run`` returns copies of its
     static outputs, so an output already returned never changes under the
     next request.  A capture first runs the request once eagerly on a side
     stream (the kernel library builds and loads, first launches set their
@@ -75,6 +76,16 @@ def _host_tensor(value) -> torch.Tensor:
     if t.is_floating_point() and t.element_size() > 4:
         t = t.to(torch.float32)
     return t
+
+
+def _pinned(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` is a page-locked host tensor bound for the card, which
+    a host-to-device copy reads without waiting for the stream: the caller
+    then keeps it unchanged until the request's outputs are ready (the
+    serving engine's staging slots).  A pageable input is copied as
+    PyTorch copies it, after the stream's earlier work."""
+    return device.type == "cuda" and t.device.type == "cpu" \
+        and t.is_pinned()
 
 
 def _as_tensor(value, device: torch.device) -> torch.Tensor:
@@ -215,10 +226,11 @@ def build_runner(plan: ExecutionPlan, *, device=None,
     def run(**inputs):
         env = stage(inputs)
         if not graphs:
-            return walk({k: v.to(device) for k, v in env.items()})
+            return walk({k: v.to(device, non_blocking=_pinned(v, device))
+                         for k, v in env.items()})
         g = graph_for(env)
         for k, v in env.items():
-            g.inputs[k].copy_(v)
+            g.inputs[k].copy_(v, non_blocking=_pinned(v, device))
         g.graph.replay()
         return tuple(o.clone() for o in g.outputs)
 

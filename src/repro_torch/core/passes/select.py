@@ -17,16 +17,31 @@ on-the-fly sparsity profiling (FlowGNN discussion, §VII-D2).
 Step 4b (``select_kernels``) then binds each op's *software realization*
 (``op.kernel``, from ``plan.KERNELS``) of the primitive just chosen:
 
-  * ``kernels="torch"`` — the plain-torch member of every family (the
+  * ``kernels="auto"``     — pick per candidate family by the H100 model's
+    ``predict_kernel_seconds`` at the op's shapes/nnz: the hand-written
+    CUDA kernel where it beats its plain twin on the card, the twin where
+    it does not (cuBLAS on large dense products); off the card every
+    ``cuda_*`` candidate pays the off-card penalty, so ``auto`` binds
+    exactly what ``torch`` binds there;
+  * ``kernels="torch"``    — the plain-torch member of every family (the
     reference's ``"xla"``);
-  * ``kernels="cuda"``  — the hand-written CUDA member wherever the family
-    has one, falling back with a recorded reason where none does (the
-    reference's ``"pallas"``);
-  * ``"auto"`` and ``"measured"`` need a GPU cost model and raise until it
-    exists (ROADMAP queue 1 item 3).
+  * ``kernels="cuda"``     — the hand-written CUDA member wherever the
+    family has one, falling back with a recorded reason where none does
+    (the reference's ``"pallas"``);
+  * ``kernels="measured"`` — time the candidates through the on-disk
+    ``core.autotune`` cache and bind the measured winner (the one mode
+    allowed to cross primitive families: an ELL op with a live dense
+    operand also races the dense kernels).  Off the card the ``cuda_*``
+    candidates cannot run, so they are not measured and the twin is bound
+    with the reason recorded.
 
-Decisions — kernel, candidate set, decision source, fallback reason — land
-in ``plan.meta["kernel_choices"]`` keyed by op name; ``kernel_report``
+``backend`` is where the plan runs: ``"cuda"`` or ``"cpu"`` (the resolved
+device's type; ``None`` reads ``torch.cuda.is_available()``, the
+counterpart of the reference's ``jax.default_backend()``).
+
+Decisions — kernel, candidate set, predicted (and measured) seconds of
+every candidate, decision source, fallback reason — land in
+``plan.meta["kernel_choices"]`` keyed by op name; ``kernel_report``
 renders them.
 """
 from __future__ import annotations
@@ -34,10 +49,11 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.core.perf_model import select_primitive
-from repro_torch.core.plan import ExecutionPlan, MatOp
+from repro_torch.core.perf_model import (predict_kernel_seconds,
+                                         select_primitive)
+from repro_torch.core.plan import ELL_KERNELS, ExecutionPlan, MatOp
 
-KERNEL_MODES = ("torch", "cuda")
+KERNEL_MODES = ("auto", "torch", "cuda", "measured")
 
 
 def dense_to_ell(x: np.ndarray,
@@ -179,62 +195,149 @@ def _candidates(op: MatOp) -> tuple[list[str], str | None]:
     return ["torch_ew"], "elementwise/layout op — single torch realization"
 
 
-def select_kernels(plan: ExecutionPlan, *,
-                   kernels: str = "cuda") -> ExecutionPlan:
+def _op_dims(op: MatOp, kernel: str) -> dict:
+    """Product dims + nnz of ``op`` under ``kernel`` for
+    ``predict_kernel_seconds`` (its docstring gives the orientation)."""
+    a = op.attrs
+    out_elems = int(np.prod(op.out_shape)) if op.out_shape else 1
+    if op.kind == "conv":
+        k1, k2, cin, cout = op.weights["w"].shape
+        spatial = int(np.prod(op.out_shape[:-3] + op.out_shape[-2:]))
+        return {"s1": spatial, "s2": k1 * k2 * cin, "s3": cout,
+                "out_elems": out_elems, "taps": k1 * k2, "conv": True}
+    if op.kind == "maxagg":
+        n = op.out_shape[0] if op.out_shape else 1
+        return {"s1": n, "s2": n, "s3": a.get("s3", 1), "nnz": a.get("nnz")}
+    dims = {"s1": a.get("s1", 1), "s2": a.get("s2", 1),
+            "s3": a.get("s3", 1), "nnz": a.get("nnz"),
+            "out_elems": out_elems}
+    if kernel in ELL_KERNELS and op.ell is not None:
+        # the ELL matrix on the left, its stored slots as nnz; the right
+        # sides run (A @ x2ᵀ)ᵀ in the rows layout
+        dims["nnz"] = int(op.ell[0].size)
+        if a.get("weight_side") in ("right", "right_t"):
+            dims["s1"], dims["s3"] = dims["s3"], dims["s1"]
+        else:
+            dims["columns"] = True
+    if op.kind == "sddmm":
+        dims["masked"] = "mask" in op.weights
+    return dims
+
+
+def default_backend() -> str:
+    """Where a plan runs when no device is named: ``"cuda"`` on a machine
+    with a card, else ``"cpu"``."""
+    import torch
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def select_kernels(plan: ExecutionPlan, *, kernels: str = "cuda",
+                   autotune_cache=None,
+                   backend: str | None = None) -> ExecutionPlan:
     """Bind ``op.kernel`` for every MatOp and record the decisions.
 
-    Idempotent and re-runnable: calling again with a different mode
-    rebinds in place.
+    Idempotent and re-runnable: calling again with a different mode or
+    backend rebinds in place (``gcv.compile(plan, kernels=...)`` uses
+    that to re-target an existing plan).
     """
-    if kernels in ("auto", "measured"):
-        raise NotImplementedError(
-            f"kernels={kernels!r} needs a GPU cost model "
-            f"(ROADMAP queue 1 item 3); use 'torch' or 'cuda'")
     if kernels not in KERNEL_MODES:
         raise ValueError(
             f"kernels must be one of {KERNEL_MODES}, got {kernels!r}")
+    if backend is None:
+        backend = default_backend()
+    if backend not in ("cuda", "cpu"):
+        raise ValueError(f"backend must be 'cuda' or 'cpu', got "
+                         f"{backend!r}")
     with obs.span("pass.select_kernels", cat="compile", plan=plan.name,
                   ops=len(plan.ops), mode=kernels):
-        return _select_kernels(plan, kernels=kernels)
+        return _select_kernels(plan, kernels=kernels,
+                               autotune_cache=autotune_cache,
+                               backend=backend)
 
 
-def _select_kernels(plan: ExecutionPlan, *, kernels: str) -> ExecutionPlan:
+def _select_kernels(plan: ExecutionPlan, *, kernels: str,
+                    autotune_cache, backend: str) -> ExecutionPlan:
+    cache = None
+    if kernels == "measured":
+        from repro_torch.core.autotune import AutotuneCache, measure_op
+        cache = autotune_cache if isinstance(autotune_cache, AutotuneCache) \
+            else AutotuneCache(autotune_cache)
     choices: dict[str, dict] = {}
     for op in plan.ops:
         cands, note = _candidates(op)
-        reason = note
+        if (kernels == "measured" and op.kind == "mm"
+                and cands[0] in ELL_KERNELS
+                and op.weights.get("adj", op.weights.get("w")) is not None):
+            # measured mode may cross the primitive family: the dense
+            # operand the ELL superseded is still on the op, so the dense
+            # kernels are real (float-tolerance, not bit-identical) rivals
+            cands = cands + ["torch_dense", "cuda_ddmm"]
+        predicted = {k: predict_kernel_seconds(k, backend=backend,
+                                               **_op_dims(op, k))
+                     for k in cands}
+        measured = None
+        source, reason = "predicted", note
         if len(cands) == 1:
             kern, source = cands[0], "only"
         elif kernels == "torch":
             kern, source = cands[0], "forced"
-        else:
+        elif kernels == "cuda":
             kern, source = cands[1], "forced"
+        elif kernels == "measured":
+            measured = measure_op(op, cands, cache, backend=backend)
+            if measured:
+                kern, source = min(measured, key=measured.get), "measured"
+            else:
+                kern = min(predicted, key=predicted.get)
+            skipped = [k for k in cands if k not in (measured or {})]
+            if skipped:
+                reason = (f"{', '.join(skipped)} not measured: the CUDA "
+                          f"kernels run only on the card (backend "
+                          f"{backend!r})")
+        else:                                   # auto
+            kern = min(predicted, key=predicted.get)
         op.kernel = kern
-        # no predicted seconds until the GPU cost model exists
-        choices[op.name] = {"kernel": kern, "kind": op.kind,
-                            "primitive": op.primitive, "candidates": cands,
-                            "source": source, "reason": reason}
+        choices[op.name] = {
+            "kernel": kern, "kind": op.kind,
+            "primitive": op.primitive, "candidates": cands,
+            "source": source,
+            "predicted_s": {k: float(v) for k, v in predicted.items()},
+            "measured_s": ({k: float(v) for k, v in measured.items()}
+                           if measured else None),
+            "reason": reason,
+        }
+    if cache is not None:
+        cache.save()
+        plan.meta["autotune"] = {
+            "cache": str(cache.path),
+            "measured_signatures": cache.measured_now,
+            "cache_hits": cache.hits,
+        }
+    else:
+        plan.meta.pop("autotune", None)
     plan.meta["kernel_choices"] = choices
     plan.meta["kernel_counts"] = plan.kernel_counts()
     plan.meta["kernels_mode"] = kernels
+    plan.meta["kernels_backend"] = backend
     return plan
 
 
 def kernel_report(plan: ExecutionPlan) -> str:
     """Human-readable view of ``plan.meta["kernel_choices"]`` — one line
-    per op: chosen kernel, decision source and, for a singleton family,
-    its reason.  The predicted-cost column stays empty until the GPU cost
-    model exists (ROADMAP queue 1 item 3)."""
+    per op: chosen kernel, decision source, predicted/measured cost."""
     choices = plan.meta.get("kernel_choices")
     if not choices:
         return (f"plan {plan.name!r}: no kernel choices recorded "
                 f"(compiled before kernel selection?)")
     lines = [f"kernel choices for {plan.name!r} "
-             f"(mode={plan.meta.get('kernels_mode')}):"]
+             f"(mode={plan.meta.get('kernels_mode')}, "
+             f"backend={plan.meta.get('kernels_backend')}):"]
     for name, c in choices.items():
+        cost = (c["measured_s"] or c["predicted_s"]).get(c["kernel"])
+        unit = "measured" if c["measured_s"] else "predicted"
         line = (f"  {name:<28} {c['kernel']:<18} [{c['source']}] "
-                f"predicted        -")
-        if c["source"] in ("fallback", "only") and c["reason"]:
+                f"{unit} {cost * 1e6:8.2f} us")
+        if c["source"] in ("fallback", "only", "measured") and c["reason"]:
             line += f"  ({c['reason']})"
         lines.append(line)
     counts = plan.meta.get("kernel_counts", {})

@@ -27,16 +27,31 @@ def _stat(name: str) -> obs.Counter:
     return obs.metrics().counter(f"cache.{name}")
 
 
-def cached_plan(graph: Graph,
-                options: CompileOptions = CompileOptions()) -> ExecutionPlan:
-    """Compile ``graph`` once per distinct ``options``."""
+# Step 4b modes whose bindings depend on where the plan runs: a plan they
+# select for the CPU (every twin) must never serve the card, so their plans
+# are keyed on the backend too.
+BACKEND_MODES = ("auto", "measured")
+
+
+def cached_plan(graph: Graph, options: CompileOptions = CompileOptions(),
+                *, backend: str | None = None) -> ExecutionPlan:
+    """Compile ``graph`` once per distinct ``options`` — and, under the
+    ``auto`` and ``measured`` kernel modes, per ``backend`` (``"cuda"`` or
+    ``"cpu"``; None: the card when there is one)."""
+    if options.kernels in BACKEND_MODES:
+        if backend is None:
+            from repro_torch.core.passes.select import default_backend
+            backend = default_backend()
+        key = (options, backend)
+    else:
+        key = (options, None)
     per_graph = _PLANS.setdefault(graph, {})
-    if options not in per_graph:
+    if key not in per_graph:
         _stat("plan_misses").inc()
-        per_graph[options] = compile_graph(graph, options)
+        per_graph[key] = compile_graph(graph, options, backend=key[1])
     else:
         _stat("plan_hits").inc()
-    return per_graph[options]
+    return per_graph[key]
 
 
 def cached_runner(graph: Graph,
@@ -47,7 +62,8 @@ def cached_runner(graph: Graph,
     """Runner for ``graph``, one per (options, device, batch, jit, ...).
 
     Kernel realizations are compile-time plan state (``options.kernels``
-    via Step 4b), so two kernel modes are two plans.  ``device`` is
+    via Step 4b), so two kernel modes are two plans, and under ``auto``
+    and ``measured`` each device type selects its own plan.  ``device`` is
     resolved first (``None`` is the card), so ``None`` and ``"cuda"`` share
     an entry.  ``jit=None`` lets ``build_runner`` resolve it (a CUDA graph
     per sample, eager per op batched).  A graph runner keeps its captures,
@@ -59,7 +75,8 @@ def cached_runner(graph: Graph,
     if key not in per_graph:
         _stat("runner_misses").inc()
         per_graph[key] = build_runner(
-            cached_plan(graph, options), device=device, batch=batch, jit=jit,
+            cached_plan(graph, options, backend=device.type), device=device,
+            batch=batch, jit=jit,
             free_dead=free_dead, residency=residency)
     else:
         _stat("runner_hits").inc()

@@ -4,12 +4,13 @@ Port of ``src/repro/obs/profile.py``.  ``profile_plan`` executes an
 ``ExecutionPlan`` op by op, so each MatOp's time is attributable to that
 op (a whole-request CUDA graph hides per-op cost).  On the card each op is
 timed by CUDA events with a synchronize between ops; on the CPU by the
-host clock.  ``profile_report`` lines the measurements up with Step 4b's
-predictions and computes the **cost-model agreement rate** over ops with
-competing candidates.  The port's Step 4b has no predicted cost yet
-(ROADMAP queue 1 item 3), so no op has a prediction to validate and
-``agreement.rate`` is None — the reference's own answer when no op has
-competing candidates.
+host clock.  ``profile_report`` then lines the measurements up with Step
+4b's H100-model predictions (``plan.meta["kernel_choices"]``) and — for
+ops whose realization family has real alternatives — times the rival
+kernels standalone to compute the **cost-model agreement rate**: the
+fraction of multi-candidate ops where the predicted argmin picks the same
+kernel the measurement does.  Off the card only the plain twins can run,
+so an op with one measurable candidate is not considered.
 
 Profiling is measurement-time only: it never touches the serving path.
 """
@@ -77,35 +78,76 @@ def profile_plan(plan, inputs=None, *, repeats: int = 3,
         for _ in range(repeats):
             one_pass(best)
 
+    choices = plan.meta.get("kernel_choices", {})
     return {op.name: {"s": best[op.name], "kernel": op.kernel,
                       "kind": op.kind, "primitive": op.primitive,
-                      "predicted_s": None}
+                      "predicted_s": (choices.get(op.name, {}).get(
+                          "predicted_s") or {}).get(op.kernel)}
             for op in plan.ops}
 
 
-def profile_report(plan, inputs=None, *, repeats: int = 3,
-                   device=None) -> dict:
+def _measure_candidates(plan, names, *, repeats: int, backend: str) -> dict:
+    """Standalone timings of every rival kernel for the named
+    multi-candidate ops (the same measurement ``kernels="measured"`` runs,
+    through a throwaway in-memory cache that is never written to disk)."""
+    from repro_torch.core.autotune import AutotuneCache, measure_op
+
+    cache = AutotuneCache(path=".obs_profile_scratch.does_not_exist")
+    choices = plan.meta.get("kernel_choices", {})
+    measured = {}
+    by_name = {op.name: op for op in plan.ops}
+    for name in names:
+        timings = measure_op(by_name[name], choices[name]["candidates"],
+                             cache, backend=backend, repeats=repeats)
+        if timings:
+            measured[name] = timings
+    return measured
+
+
+def profile_report(plan, inputs=None, *, repeats: int = 3, device=None,
+                   measure_candidates: bool = True) -> dict:
     """Predicted-vs-measured report over one plan: one row per op (bound
-    kernel, decision source, prediction, measured seconds, agreement) and
-    the aggregate ``agreement`` block ``{"agree", "considered", "rate"}``.
-    With no predictions (ROADMAP queue 1 item 3) nothing is considered and
-    ``rate`` is None.  ``render_report`` turns the dict into the table."""
+    kernel, decision source, prediction, in-plan measured seconds, the
+    rivals' standalone timings and whether the predicted argmin agrees
+    with the measured argmin over the family), plus the aggregate
+    ``agreement`` block ``{"agree", "considered", "rate"}`` — ``rate`` is
+    None when no op has two measurable candidates.  ``render_report``
+    turns the dict into the table."""
     from repro_torch.core.executor import resolve_device
     device = resolve_device(device)
     profiled = profile_plan(plan, inputs, repeats=repeats, device=device)
     choices = plan.meta.get("kernel_choices", {})
-    rows = [{"op": name, "kind": p["kind"], "kernel": p["kernel"],
-             "source": choices.get(name, {}).get("source"),
-             "predicted_s": p["predicted_s"], "measured_s": p["s"],
-             "candidates_s": None, "agree": None}
-            for name, p in profiled.items()]
+    multi = [n for n, c in choices.items() if len(c["candidates"]) > 1]
+    rivals = _measure_candidates(plan, multi, repeats=repeats,
+                                 backend=device.type) \
+        if measure_candidates and multi else {}
+
+    rows, agree, considered = [], 0, 0
+    for name, p in profiled.items():
+        choice = choices.get(name, {})
+        row = {"op": name, "kind": p["kind"], "kernel": p["kernel"],
+               "source": choice.get("source"),
+               "predicted_s": p["predicted_s"], "measured_s": p["s"],
+               "candidates_s": rivals.get(name),
+               "candidates_predicted_s": choice.get("predicted_s"),
+               "agree": None}
+        meas = rivals.get(name)
+        pred = choice.get("predicted_s") or {}
+        if meas and len(meas) > 1 and all(k in pred for k in meas):
+            considered += 1
+            row["agree"] = (min(meas, key=meas.get)
+                            == min({k: pred[k] for k in meas},
+                                   key=lambda k: pred[k]))
+            agree += row["agree"]
+        rows.append(row)
     report = {
         "plan": plan.name,
         "kernels_mode": plan.meta.get("kernels_mode"),
         "backend": device.type,
         "repeats": repeats,
         "rows": rows,
-        "agreement": {"agree": 0, "considered": 0, "rate": None},
+        "agreement": {"agree": agree, "considered": considered,
+                      "rate": agree / considered if considered else None},
     }
     report["text"] = render_report(report)
     return report
@@ -129,7 +171,7 @@ def render_report(report: dict) -> str:
                      f"{_us(r['predicted_s']):>12} "
                      f"{_us(r['measured_s']):>12}  {mark}")
     ag = report["agreement"]
-    rate = "n/a (no predicted costs: ROADMAP queue 1 item 3)" \
+    rate = "n/a (no op with two measurable candidates)" \
         if ag["rate"] is None \
         else f"{ag['rate']:.0%} ({ag['agree']}/{ag['considered']})"
     lines.append(f"  cost-model agreement: {rate}")

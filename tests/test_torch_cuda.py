@@ -1035,3 +1035,77 @@ def test_cuda_coo_sums_give_the_same_bits_every_call(cuda):
         for _ in range(9):
             assert torch.equal(segment_sum(x, lengths), want)
         close(want.cpu(), segment_sum(x.cpu(), lengths.cpu()), rtol=1e-6)
+
+
+# --------------------------------------------- the GNN-CV serving engine --
+def small_engine(tasks, **kw):
+    """A ``gcv.serve`` engine on the card over small plans, warmed."""
+    from repro_torch import gcv
+    return gcv.serve({t: small_plan(t) for t in tasks}, max_batch=4,
+                     warmup=True, **kw)
+
+
+def hold_stream(eng, ms: float = 200.0):
+    """Keep the engine's serving stream busy for about ``ms``, so what is
+    queued behind it cannot have finished when the host looks."""
+    with torch.cuda.stream(eng._stream):
+        torch.cuda._sleep(int(ms * 1e-3 * 1.98e9))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_returns_before_its_event_completes(cuda):
+    eng = small_engine(["b6"])
+    plan = eng.plans["b6"]
+    reqs = [eng.submit("b6", **r) for r in small_requests("b6", plan, 4)]
+    hold_stream(eng)
+    assert eng.dispatch() == 4
+    _, pending, _ = eng._inflight[-1]
+    assert not pending.event.query() and not eng._oldest_ready()
+    assert eng.metrics.counter("dispatch_returned_ahead").value == 1
+    assert eng.poll() == (0, 0) and not reqs[0].done
+    assert eng.harvest() == 4 and all(r.done for r in reqs)
+    single = eng.models["b6"]
+    for r in reqs:
+        for got, want in zip(r.result, single.run(**r.inputs)):
+            assert np.array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_slots_are_not_reused_early(cuda):
+    """Two batches of one bucket in flight hold two page-locked slots; a
+    slot goes back to its free list only at its batch's harvest."""
+    eng = small_engine(["b4"], pipeline_depth=2)
+    plan = eng.plans["b4"]
+    reqs = small_requests("b4", plan, 8)
+    for r in reqs:
+        eng.submit("b4", **r)
+    hold_stream(eng)
+    assert eng.dispatch() == 4 and eng.dispatch() == 4
+    slots = [p.slot for _, p, _ in eng._inflight]
+    assert slots[0] is not slots[1]
+    for a, b in zip(slots[0].inputs.values(), slots[1].inputs.values()):
+        assert a.is_pinned() and a.data_ptr() != b.data_ptr()
+    assert eng._slots[("b4", 4)] == []          # both in flight
+    eng.harvest()
+    assert eng._slots[("b4", 4)] == [slots[0]]
+    eng.harvest()
+    assert eng._slots[("b4", 4)] == [slots[0], slots[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["b4", "b6-dyn", "b1"])
+def test_cuda_two_inflight_batches_of_one_bucket_stay_distinct(cuda, task):
+    """Two batches replay one bucket's graph back to back on the serving
+    stream while the card is held: each request's result equals its own
+    batch-1 run bit for bit."""
+    eng = small_engine([task], pipeline_depth=2)
+    plan = eng.plans[task]
+    reqs = [eng.submit(task, **r) for r in small_requests(task, plan, 8)]
+    hold_stream(eng)
+    assert eng.dispatch() == 4 and eng.dispatch() == 4
+    assert eng.inflight() == 8
+    assert eng.run() == 8
+    single = eng.models[task]
+    for r in reqs:
+        for got, want in zip(r.result, single.run(**r.inputs)):
+            assert np.array_equal(got, want.cpu().numpy())

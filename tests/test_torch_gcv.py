@@ -1,9 +1,10 @@
 """The port's ``gcv`` façade, runner cache and per-op profile, on the CPU.
 
 Counterparts of ``tests/test_gcv_api.py`` for a ``Graph`` or an
-``ExecutionPlan`` (its callable, tracing, serve and shim cases wait for
-ROADMAP queue 1 items 8 and 6): the façade equals ``build_runner`` on the
-same plan bit for bit, per sample and batched, and the port's façade
+``ExecutionPlan`` (its callable, tracing and shim cases wait for ROADMAP
+queue 1 items 8 and 6; serving is ``tests/test_torch_serve.py``): the
+façade equals ``build_runner`` on the same plan bit for bit, per sample
+and batched, and the port's façade
 matches the reference's on the same task within the port's per-task
 bounds (``max|Δ| <= 1e-5 · max|ref|`` for b1-b3, deep fp32 chains summed
 in another order; ``1e-6`` for b4, whose reference batch drifts 3.3e-7
@@ -142,22 +143,36 @@ def test_compile_options_as_keywords():
 
 
 def test_kernels_default_to_cuda_and_auto_waits_for_item_3():
+    """Kept under its earlier name.  Checks that the default stays
+    ``"cuda"`` and that ``auto`` and ``measured`` now compile (off the card
+    they bind every twin, as ``"torch"`` does)."""
     assert gcv.compile(_graph("b4"), device=CPU).plan.meta[
         "kernels_mode"] == "cuda"
+    plain = gcv.compile(build_task("b4", small=True), kernels="torch",
+                        device=CPU).plan.kernel_counts()
     for mode in ("auto", "measured"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            gcv.compile(build_task("b4", small=True), kernels=mode,
-                        device=CPU)
+        model = gcv.compile(build_task("b4", small=True), kernels=mode,
+                            device=CPU)
+        assert model.plan.meta["kernels_mode"] == mode
+        if mode == "auto":
+            assert model.plan.kernel_counts() == plain
+        assert not any(k.startswith("cuda_")
+                       for k in model.plan.kernel_counts())
 
 
 def test_more_than_one_device_and_serve_wait_for_item_6():
+    """Kept under its earlier name.  Checks that above one device
+    compile and serve still raise, and that one device is the single-card
+    path, where ``serve`` now builds the engine."""
     for kw in (dict(devices=2), dict(devices=["cuda:0", "cuda:1"])):
         with pytest.raises(NotImplementedError, match="item 6"):
             gcv.compile(_graph("b6"), device=CPU, **kw)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            gcv.serve({"b6": _graph("b6")}, device=CPU, **kw)
     assert gcv.compile(_graph("b6"), device=CPU, devices=1).stats()[
         "devices"] == 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gcv.serve({"b6": _graph("b6")})
+    eng = gcv.serve({"b6": _graph("b6")}, device=CPU, devices=1)
+    assert eng.stats()["devices"] == 1 and eng.device.type == "cpu"
 
 
 def test_device_none_is_the_card(monkeypatch):
@@ -293,16 +308,22 @@ def test_gcv_random_inputs_match_specs():
 
 # ------------------------------------------------- profile and tracing ----
 def test_profile_report_times_every_op_and_predicts_nothing():
+    """Kept under its earlier name.  Checks that every op now records
+    its bound kernel's prediction, and that off the card only the twins
+    can be timed, so no op has two measurable rivals and the agreement
+    rate stays None."""
     model = gcv.compile(_graph("b4"), options=OPTS, device=CPU)
     prof = model.profile(repeats=1)
     assert list(prof) == [op.name for op in model.plan.ops]
-    assert all(r["s"] > 0 and r["predicted_s"] is None
-               for r in prof.values())
+    choices = model.plan.meta["kernel_choices"]
+    assert all(r["s"] > 0 and r["predicted_s"]
+               == choices[name]["predicted_s"][r["kernel"]]
+               for name, r in prof.items())
     report = model.profile_report(repeats=1)
     assert report["agreement"] == {"agree": 0, "considered": 0,
                                    "rate": None}
     assert report["backend"] == "cpu" and len(report["rows"]) == len(prof)
-    assert "item 3" in report["text"]
+    assert "no op with two measurable candidates" in report["text"]
 
 
 def test_trace_to_writes_the_runner_spans(tmp_path):
