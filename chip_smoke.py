@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ddmm-sweep    # DDMM's column tiles and splits
     python3 chip_smoke.py --lattice       # Step 4b on the card alone
     python3 chip_smoke.py --serve         # the serving phase alone
+    python3 chip_smoke.py --frontend      # the tracing frontend alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -35,7 +36,20 @@ graph outputs must equal the eager runner's bit for bit, a batch of 4
 (eager and graph) each sample's batch-1 output bit for bit, and the
 runner cache may miss no more after the warmup; request times (eager
 against graph, in turns), samples/s at batch 4 and the device's idle share
-under replay are printed.  Then Step 4b on the card (``lattice_phase``):
+under replay are printed.  Then the tracing frontend
+(``frontend_phase``): every task of ``gnncv/torch_tasks.py`` traced from
+its torch function by ``gcv.compile(fn, example_inputs)`` at its published
+defaults; b1-b6, b3-r101 and b6-dyn must give the builder's plan up to
+names and its outputs bit for bit on the same requests; b7 (ViG-Ti's
+width: 224x224, 16x16 patches, 192 features, 12 blocks, 1000 classes) and
+b7-dyn (its KNN graph built per request, k = 9), which exist only traced,
+run as the paths above do (launch counts, the plain plan within 1e-4,
+graph == eager and batch 4 == batch 1 bit for bit, times), b7-dyn's KNN
+indices must equal ``knn_ref`` on the same embeddings and its outputs its
+precomputed-graph twin's bit for bit, and b7, b7-dyn and a traced b6-dyn
+over graph buckets are served by one ``gcv.serve`` engine, each request
+held to its batch-1 run bit for bit.  Then Step 4b on the card
+(``lattice_phase``):
 each path compiled with ``kernels="auto"`` (the H100 cost model), which
 ops bind a plain twin, the ``auto`` plan's outputs against the ``cuda``
 plan's, the predicted-vs-measured report (an op whose measured rivals
@@ -199,6 +213,19 @@ PER_REQUEST = {
     "vip-masked": {"shift_conv2d": 0, "spdmm": 0, "ddmm": 1, "knn": 0,
                    "sddmm": 1},
 }
+# The traced-only paths (``repro_torch.gnncv.torch_tasks``), at ViG-Ti's
+# width: a 224x224 image in 16x16 patches (196 nodes of 192 features), 12
+# blocks, ImageNet's 1000 classes; b7-dyn builds its graph per request with
+# ViG's k = 9.  One patch-embedding conv, 12 blocks x 4 linears and the
+# classifier; b7's patch graph is a COO (coo_scatter, no kernel).
+TRACED_PER_REQUEST = {
+    "b7": {"shift_conv2d": 1, "spdmm": 0, "ddmm": 49, "knn": 0, "sddmm": 0},
+    "b7-dyn": {"shift_conv2d": 1, "spdmm": 0, "ddmm": 49, "knn": 1,
+               "sddmm": 0},
+}
+# b7-dyn against its precomputed-graph twin on this many requests (each
+# twin is traced and compiled with its request's indices baked in)
+TWIN_REQUESTS = 2
 # The LM path: qwen3-0.6b at full width (28 layers, 16 query and 8 kv heads
 # of 128), random weights from seed 0, the launcher's defaults: 16 requests
 # with prompt lengths in [8, 48) from seed 0 (buckets of 16, 32 and 48),
@@ -1065,13 +1092,14 @@ def request_scale(task, plan, plan_torch, reqs) -> float:
     return scale
 
 
-def serve(task, plan, plan_torch, requests, kernels) -> dict[str, int]:
+def serve(task, plan, plan_torch, requests, kernels,
+          per_request=None) -> dict[str, int]:
     """Drive one task's main path: every launch count set to 0 just
-    before, read just after.  Checks counts and outputs; returns the
-    counts."""
+    before, read just after.  Checks counts (``per_request``, default
+    ``PER_REQUEST[task]``) and outputs; returns the counts."""
     from repro_torch.core import build_runner
     per_req = dict.fromkeys(kernels, 0)
-    expected = {**per_req, **PER_REQUEST[task]}
+    expected = {**per_req, **(per_request or PER_REQUEST[task])}
     for op in plan.ops:
         if op.kernel == "cuda_ddmm":
             per_req["shift_conv2d" if op.kind == "conv" else "ddmm"] += 1
@@ -1148,9 +1176,12 @@ def request_times(task, plan, plan_torch, requests, card) -> None:
     profile_requests(run_cuda, requests, card, task)
 
 
-def graph_phase(task, requests, kernels, card) -> None:
+def graph_phase(task, requests, kernels, card, model=None,
+                per_request=None) -> None:
     """The task through the public entry point, ``gcv.compile(graph,
-    kernels="cuda")``: ``warmup()`` captures batch 1 and batch
+    kernels="cuda")`` (or ``model``, compiled by the caller and not warmed
+    up yet, with ``per_request`` its launches per request): ``warmup()``
+    captures batch 1 and batch
     ``GRAPH_BATCH`` (the launches the wrappers record at capture must be
     ``PER_REQUEST``, and at batch ``GRAPH_BATCH`` those of one eager
     batched request), the graph runner must equal the eager runner bit for
@@ -1160,8 +1191,10 @@ def graph_phase(task, requests, kernels, card) -> None:
     from repro_torch import gcv
     from repro_torch.core.executor import stack_inputs
     from repro_torch.core.runtime.cache import cache_stats
-    model = gcv.compile(task_graph(task), kernels="cuda")
-    want = {**dict.fromkeys(kernels, 0), **PER_REQUEST[task]}
+    if model is None:
+        model = gcv.compile(task_graph(task), kernels="cuda")
+    per_request = per_request or PER_REQUEST[task]
+    want = {**dict.fromkeys(kernels, 0), **per_request}
 
     def captured(batch) -> dict[str, int]:
         """The launches each wrapper records into the graph that
@@ -1202,18 +1235,19 @@ def graph_phase(task, requests, kernels, card) -> None:
         f"batch {GRAPH_BATCH} (eager and graph) == batch 1 bit for bit on "
         f"{len(batches) * GRAPH_BATCH} samples")
     graph_times(task, (eager1, graph1), (eager_b, graph_b), requests,
-                batches, card)
+                batches, card, per_request)
     assert cache_stats()["runner_misses"] == misses, \
         f"{task}: the runner cache missed after warmup"
     assert graph1.trace_count() == graph_b.trace_count() == 1, \
         f"{task}: a graph was captured again under traffic"
 
 
-def graph_times(task, ones, batched, requests, batches, card) -> None:
+def graph_times(task, ones, batched, requests, batches, card,
+                per_request) -> None:
     """Request latency of the eager and the graph runner in turns (host
     clock), samples/s of the two batched runners in turns, and the graph
     replays under the profiler (the main kernels per replay must be
-    ``PER_REQUEST``)."""
+    ``per_request``)."""
     def request_ms(run):
         t_req = []
         for req in requests:
@@ -1265,19 +1299,24 @@ def graph_times(task, ones, batched, requests, batches, card) -> None:
             f"batches; p25 {q1:.1f}, p75 {q3:.1f})  [{card}]")
     it = itertools.cycle(requests)
     events = profile_window(lambda: ones[1](**next(it)), len(requests),
-                            f"{task} graph replays", "request", card)
+                            f"{task} graph replays", "request", card,
+                            warm=lambda: ones[1](**next(it)))
     it_b = itertools.cycle(batches)
     profile_window(lambda: batched[1](**next(it_b)), len(batches),
                    f"{task} batch-{GRAPH_BATCH} graph replays", "batch",
-                   card)
-    # A profile now and then records only some of a graph's device events,
-    # or none: a count that falls short of the want (and never over it) is
-    # profiled again, up to two more times, and every count is printed.
-    want = {name: PER_REQUEST[task][name] for name in MAIN_KERNELS}
+                   card, warm=lambda: batched[1](**next(it_b)))
+    # The windows above are opened by a warm-up replay and bracketed by two
+    # marker kernels on the card (``device_events``): one that opens on a
+    # replay loses its first kernels.  A profile still now and then records
+    # only some of a graph's device events, or none: a count that falls
+    # short of the want (and never over it) is profiled again, up to two
+    # more times, and every count is printed.
+    want = {name: per_request[name] for name in MAIN_KERNELS}
     for attempt in range(3):
         if attempt:
             events = device_events(lambda: ones[1](**next(it)),
-                                   len(requests))
+                                   len(requests),
+                                   warm=lambda: ones[1](**next(it)))
         per_replay = {name: sum(kernel_base(e.name) in bases
                                 for e in events) / len(requests)
                       for name, bases in MAIN_KERNELS.items()}
@@ -1288,6 +1327,185 @@ def graph_times(task, ones, batched, requests, batches, card) -> None:
         assert all(per_replay[k] <= want[k] for k in want), \
             (task, per_replay, want)
     raise AssertionError((task, per_replay, want))
+
+
+def frontend_phase(kernels, plans, requests, card) -> dict:
+    """The tracing frontend on the card: every traced task
+    (``torch_tasks.TRACED_TASKS`` at its published defaults) through
+    ``gcv.compile(fn, example_inputs)`` with its defaults (the card,
+    ``kernels="cuda"``).  b1-b6, b3-r101 and b6-dyn: the traced plan must
+    equal the builder plan up to names (``differences_up_to_names``), and
+    after ``warmup()`` its graph replays the builder plan's eager outputs
+    bit for bit on the main path's requests (b3's scaled).  b7 and b7-dyn,
+    which exist only traced: ``traced_path``.  Then ``traced_serving``.
+    Returns ``{task: (launches, cases, max_err)}`` of b7 and b7-dyn."""
+    from repro_torch import gcv
+    from repro_torch.core import build_runner
+    from repro_torch.core.plan import differences_up_to_names
+    from repro_torch.gnncv.torch_tasks import TRACED_TASKS
+    pairs = {}
+    for task, make in TRACED_TASKS.items():
+        fn, example = make()
+        pairs[task] = (fn, example)
+        t_a = time.perf_counter()
+        model = gcv.compile(fn, example, name=f"{task}_traced")
+        took = time.perf_counter() - t_a
+        assert model.device.type == "cuda" and \
+            model.plan.meta["frontend"] == "tracer" and \
+            model.plan.meta["kernels_mode"] == "cuda", task
+        log(f"{task} traced: trace + compile {took:.2f} s on the host, "
+            f"{len(model.plan.ops)} ops, {model.plan.kernel_counts()}")
+        if task in TRACED_PER_REQUEST:
+            pairs[task] += (model,)
+            continue
+        builder = plans[task][0]
+        diffs = differences_up_to_names(model.plan, builder, portions=False)
+        assert not diffs, (task, diffs[:5])
+        model.warmup()
+        eager = build_runner(builder, jit=False)
+        for s, req in enumerate(requests[task]):
+            for got, want in zip(model.run(**req), eager(**req)):
+                assert torch.equal(got, want), \
+                    f"{task} request {s}: traced != builder"
+        torch.cuda.synchronize()
+        log(f"{task}: traced plan == builder plan up to names; its graph "
+            f"== the builder plan's eager run bit for bit on "
+            f"{len(requests[task])} requests")
+    out = {task: traced_path(task, pairs[task][2], kernels, card)
+           for task in TRACED_PER_REQUEST}
+    traced_serving(pairs, kernels, card)
+    return out
+
+
+def traced_path(task, model, kernels, card):
+    """One traced-only path at full width: the KNN checks (b7-dyn), the
+    eager requests through the kernels with every launch count set to 0
+    just before and read just after, held to the plain plan on the card
+    within ``E2E_RTOL`` (``serve``), ``graph_phase`` (graph == eager, batch
+    ``GRAPH_BATCH`` == batch 1, bit for bit, request p50s, device time per
+    request), eager request times and every kernel call against its plain
+    version.  -> (launches, cases, max_err)."""
+    from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.core.executor import random_inputs
+    plan = model.plan
+    plan_torch = compile_graph(model.graph, CompileOptions(kernels="torch"))
+    reqs = [random_inputs(plan, seed=s) for s in range(REQUESTS)]
+    if task == "b7-dyn":
+        knn_paths(plan, plan_torch, reqs)
+    per_request = TRACED_PER_REQUEST[task]
+    launches = serve(task, plan, plan_torch, reqs, kernels, per_request)
+    graph_phase(task, reqs, kernels, card, model=model,
+                per_request=per_request)
+    request_times(task, plan, plan_torch, reqs, card)
+    cases = task_cases(task, plan, np.random.default_rng(7),
+                       torch.device("cuda"))
+    max_err = dict.fromkeys(kernels, 0.0)
+    for case in cases:
+        max_err[case.kernel] = max(max_err[case.kernel], check_case(case))
+    return launches, cases, max_err
+
+
+def knn_paths(plan, plan_torch, reqs) -> None:
+    """b7-dyn's graph: the KNN kernel's indices must equal ``knn_ref`` on
+    the same patch embeddings exactly; where the kernel plan and the plain
+    plan (whose embeddings differ by the convs' rounding) pick different
+    neighbours, the rows and the distance gap at the k-th place are
+    printed; the traced model must equal its ``precomputed_graph`` twin,
+    fed the kernel's own indices, bit for bit (``TWIN_REQUESTS``)."""
+    from repro_torch import gcv
+    from repro_torch.core import build_runner
+    from repro_torch.gnncv.torch_tasks import TRACED_TASKS
+    from repro_torch.kernels.ref import knn_ref
+    op = next(o for o in plan.ops if o.kind == "knn_graph")
+    k = op.attrs["k"]
+
+    def probe(p):
+        return build_runner(dataclasses.replace(
+            p, outputs=[op.inputs[0], op.name]), free_dead=False, jit=False)
+    run_k, run_p = probe(plan), probe(plan_torch)
+    parted = 0
+    for s, req in enumerate(reqs):
+        h, idx = run_k(**req)
+        want = knn_ref(h, k)
+        bad = (idx != want).any(1).nonzero().flatten().tolist()
+        assert not bad, f"b7-dyn request {s}: KNN rows {bad[:8]} != knn_ref"
+        hp, idxp = run_p(**req)
+        rows = (idx != idxp).any(1).nonzero().flatten().tolist()
+        parted += len(rows)
+        for r in rows[:4]:
+            d = ((hp[r] - hp) ** 2).sum(1)
+            kth = d[idxp[r].long()].max().item()
+            gap = min(abs(d[int(j)].item() - kth) for j in
+                      set(idx[r].tolist()) ^ set(idxp[r].tolist()))
+            log(f"b7-dyn request {s} row {r}: kernel plan {idx[r].tolist()}"
+                f", plain plan {idxp[r].tolist()}, distance gap at the "
+                f"k-th place {gap:.3e} of {kth:.3e}")
+    log(f"b7-dyn: KNN kernel indices == knn_ref on the same embeddings in "
+        f"every row of {len(reqs)} requests; kernel and plain plans pick "
+        f"different neighbours in {parted} rows")
+    eager = build_runner(plan, jit=False)
+    for s, req in enumerate(reqs[:TWIN_REQUESTS]):
+        _, idx = run_k(**req)
+        fn, example = TRACED_TASKS["b7-dyn"](
+            precomputed_graph=idx.cpu().numpy())
+        twin = gcv.compile(fn, example, name="b7-dyn_precomputed")
+        assert "knn_graph" not in [o.kind for o in twin.plan.ops]
+        assert torch.equal(eager(**req)[0], build_runner(
+            twin.plan, jit=False)(**req)[0]), \
+            f"b7-dyn request {s} != its precomputed twin"
+    log(f"b7-dyn == its precomputed-graph twin (the kernel's indices "
+        f"baked in as a COO) bit for bit on {TWIN_REQUESTS} requests")
+
+
+def traced_serving(pairs, kernels, card) -> None:
+    """b7 and b7-dyn as ``(fn, example)`` pairs and b6-dyn's graph
+    buckets from a traced factory, through one ``gcv.serve`` engine
+    (``max_batch=SERVE_MAX_BATCH``): each (task, bucket) capture must
+    record its bucket's eager batched launches (``warm_each``), a batch
+    must launch nothing from the host, and every served request must equal
+    its batch-1 run bit for bit."""
+    from repro_torch import gcv
+    from repro_torch.core.executor import random_inputs
+    from repro_torch.gnncv.torch_tasks import TRACED_TASKS
+    eng = gcv.serve(
+        {"b7": pairs["b7"][:2], "b7-dyn": pairs["b7-dyn"][:2],
+         "b6-dyn": lambda n: TRACED_TASKS["b6-dyn"](n_points=n)},
+        graph_buckets={"b6-dyn": list(DYN_BUCKETS)},
+        max_batch=SERVE_MAX_BATCH)
+    rng = np.random.default_rng(2)
+
+    def cloud(n: int) -> dict:
+        return dict(points=rng.standard_normal((n, 3)).astype(np.float32),
+                    mask=np.ones(n, np.float32))
+    reqs = {t: [random_inputs(eng.models[t].plan, seed=100 + s)
+                for s in range(REQUESTS)] for t in ("b7", "b7-dyn")}
+    want = {(t, b): eager_bucket_launches(kernels, eng.models[t],
+                                          reqs[t][:b])
+            for t in eng.models if not t.startswith("b6-dyn")
+            for b in eng.buckets()}
+    want.update({(f"b6-dyn@g{g}", b): eager_bucket_launches(
+        kernels, eng.models[f"b6-dyn@g{g}"], [cloud(g)] * b)
+        for g in DYN_BUCKETS for b in eng.buckets()})
+    warm_each(eng, want, kernels, "traced serving")
+    for name in GNNCV_KERNELS:
+        kernels[name].launches = 0
+    sizes = rng.integers(DYN_POINTS[0], DYN_POINTS[1] + 1, DYN_REQUESTS)
+    served = [eng.submit(t, **r) for t in ("b7", "b7-dyn") for r in reqs[t]]
+    served += [eng.submit("b6-dyn", **cloud(int(n))) for n in sizes]
+    assert eng.run() == len(served)
+    torch.cuda.synchronize()
+    host = {name: kernels[name].launches for name in GNNCV_KERNELS}
+    assert not any(host.values()), f"traced serving launched {host}"
+    for r in served:
+        assert r.done and r.result is not None, r.task
+        for got, w in zip(r.result, eng.models[r.task].run(**r.inputs)):
+            assert np.isfinite(got).all() and np.array_equal(
+                got, w.cpu().numpy()), f"served {r.task} != its batch-1 run"
+    log(f"traced serving: {len(served)} requests (b7 and b7-dyn x "
+        f"{REQUESTS}, b6-dyn x {DYN_REQUESTS} over graph buckets "
+        f"{list(DYN_BUCKETS)}) served in buckets {eng.buckets()}, each == "
+        f"its batch-1 run bit for bit; no launch from the host; "
+        f"{eng.stats()['graph_buckets']}  [{card}]")
 
 
 def lattice_phase(task, graph, requests, cache_path, card) -> dict:
@@ -2432,6 +2650,16 @@ def main() -> int:
         if "--serve" in sys.argv[1:]:
             serving_phase(kernels, reqs, card)
         return finish()
+    if "--frontend" in sys.argv[1:]:
+        reqs = {task: task_requests(task, *plans[task]) for task in tasks}
+        rows = []
+        for task, (t_launches, t_cases, t_err) in frontend_phase(
+                kernels, plans, reqs, card).items():
+            rows += kernel_rows(task, t_cases, t_launches,
+                                TRACED_PER_REQUEST[task], t_err, card)
+        log(f"card: {card}")
+        log(json.dumps({"kernels": rows}))
+        return finish()
 
     # ---- phase 2: every kernel against its plain version ----------------
     rng = np.random.default_rng(0)
@@ -2456,6 +2684,7 @@ def main() -> int:
                 for task in tasks}
     for task in tasks:
         graph_phase(task, requests[task], kernels, card)
+    traced = frontend_phase(kernels, plans, requests, card)
     for task in tasks:
         lattice_phase(task, task_graph(task), requests[task], autotune_cache,
                       card)
@@ -2477,6 +2706,9 @@ def main() -> int:
     for task in tasks:
         rows += kernel_rows(task, cases[task], launches[task],
                             PER_REQUEST[task], max_err[task], card)
+    for task, (t_launches, t_cases, t_err) in traced.items():
+        rows += kernel_rows(task, t_cases, t_launches,
+                            TRACED_PER_REQUEST[task], t_err, card)
     per_prefill = {"flash_attention": lm_cfg.n_layers}
     rows += kernel_rows(
         "lm-serve", lm_paths["lm-serve"], launches["lm-serve"], per_prefill,

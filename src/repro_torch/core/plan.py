@@ -129,3 +129,80 @@ class ExecutionPlan:
                 for name in op.frees:
                     live.pop(name, None)
         return peak
+
+
+def _same_array(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def differences_up_to_names(plan: ExecutionPlan, other: ExecutionPlan, *,
+                            portions: bool = True,
+                            kernel=lambda k: k) -> list[str]:
+    """Where ``plan`` and ``other`` differ once each op's name is read as
+    its counterpart's (ops paired by position; inputs keep their
+    user-given names): kinds, primitives, kernels (``kernel`` maps
+    ``other``'s names, e.g. from another lattice), wiring, portions (when
+    ``portions``), attrs (a fused residual names its op's counterpart; a
+    softmax axis is read modulo the rank, ``-1`` and ``1`` being one axis
+    of a matrix), shapes, liveness, tiles, costs, weights and ELL arrays
+    bit for bit, outputs and the plan-level totals.  Empty when equal.
+    How a traced plan is held to the builder's: the tracer numbers its
+    layers by aten node, the builder by hand."""
+    out = []
+    if plan.input_names != other.input_names:
+        out.append(f"inputs {plan.input_names} != {other.input_names}")
+    if plan.meta.get("input_shapes") != other.meta.get("input_shapes"):
+        out.append("input shapes differ")
+    if len(plan.ops) != len(other.ops):
+        return out + [f"{len(plan.ops)} ops != {len(other.ops)}"]
+    names = {n: n for n in plan.input_names}
+    names.update((p.name, o.name) for p, o in zip(plan.ops, other.ops))
+
+    def rename(v):
+        return names.get(v, v) if isinstance(v, str) else v
+
+    for p, o in zip(plan.ops, other.ops):
+        where = f"{p.name} ~ {o.name}"
+        if (p.kind, p.primitive, p.kernel) != \
+                (o.kind, o.primitive, kernel(o.kernel)):
+            out.append(f"{where}: {(p.kind, p.primitive, p.kernel)} != "
+                       f"{(o.kind, o.primitive, o.kernel)}")
+        if tuple(map(rename, p.inputs)) != tuple(o.inputs):
+            out.append(f"{where}: inputs {p.inputs} != {o.inputs}")
+        if portions and p.portion != o.portion:
+            out.append(f"{where}: portion {p.portion} != {o.portion}")
+        mine = {k: rename(v) for k, v in p.attrs.items()}
+        theirs = dict(o.attrs)
+        if mine.get("fn") == "softmax" and "axis" in mine \
+                and "axis" in theirs:
+            rank = len(p.out_shape)
+            mine["axis"] %= rank
+            theirs["axis"] %= rank
+        if mine != theirs:
+            out.append(f"{where}: attrs {p.attrs} != {o.attrs}")
+        if tuple(p.out_shape) != tuple(o.out_shape):
+            out.append(f"{where}: shape {p.out_shape} != {o.out_shape}")
+        if sorted(map(rename, p.frees)) != sorted(o.frees):
+            out.append(f"{where}: frees {p.frees} != {o.frees}")
+        if (p.tiles, p.cycles, p.flops, p.bytes_moved) != \
+                (o.tiles, o.cycles, o.flops, o.bytes_moved):
+            out.append(f"{where}: tiles or costs differ")
+        if p.weights.keys() != o.weights.keys() or not all(
+                _same_array(p.weights[k], o.weights[k]) for k in p.weights):
+            out.append(f"{where}: weights differ")
+        if (p.ell is None) != (o.ell is None) or (
+                p.ell is not None and not all(
+                    _same_array(a, b) for a, b in zip(p.ell, o.ell))):
+            out.append(f"{where}: ELL arrays differ")
+    if [rename(n) for n in plan.outputs] != list(other.outputs):
+        out.append(f"outputs {plan.outputs} != {other.outputs}")
+    for key in ("fpga_latency_s", "total_cycles_one_pe", "weight_bytes",
+                "sparse_ops", "fused_layers"):
+        if plan.meta.get(key) != other.meta.get(key):
+            out.append(f"meta {key}: {plan.meta.get(key)} != "
+                       f"{other.meta.get(key)}")
+    if plan.peak_live_bytes() != other.peak_live_bytes():
+        out.append("peak live bytes differ")
+    return out

@@ -1,9 +1,10 @@
 """One-call public API: ``gcv.compile`` / ``gcv.serve`` (paper §V-A).
 
-Port of ``src/repro/gcv.py`` for a layer ``Graph`` or an ``ExecutionPlan``:
+Port of ``src/repro/gcv.py``:
 
     from repro_torch import gcv
 
+    model = gcv.compile(fn, {"x": example})     # a torch callable / Module
     model = gcv.compile(graph)                  # GraphBuilder graph
     model = gcv.compile(plan)                   # pre-compiled ExecutionPlan
 
@@ -15,9 +16,10 @@ Port of ``src/repro/gcv.py`` for a layer ``Graph`` or an ``ExecutionPlan``:
 
     eng = gcv.serve({"b6": model, "b4": graph}, max_batch=8, warmup=True)
 
-``compile`` routes everything through the same internals (six passes ->
-plan/runner cache -> device-resident weights -> a CUDA graph per request
-signature); callers never stitch those stages together by hand.
+``compile`` routes everything through the same internals (tracing
+frontend -> six passes -> plan/runner cache -> device-resident weights -> a
+CUDA graph per request signature); callers never stitch those stages
+together by hand.
 
 Where the port differs from the reference:
 
@@ -31,8 +33,10 @@ Where the port differs from the reference:
     bind a plain twin (cuBLAS on a large dense product, where it beats the
     DDMM kernel), ``plan.meta["kernel_choices"]`` records it with its
     predicted or measured cost, so nothing is hidden;
-  * a callable model (the tracing frontend, item 8) and more than one
-    device (item 6) raise ``NotImplementedError``.
+  * a callable is a torch function or an ``nn.Module`` in eval mode,
+    traced by ``repro_torch.frontend`` (``make_fx`` on fake tensors);
+  * more than one device raises ``NotImplementedError`` (ROADMAP queue 1
+    item 6).
 """
 from __future__ import annotations
 
@@ -53,6 +57,16 @@ from repro_torch.core.runtime.residency import (collect_params,
                                                 plan_param_bytes, plan_slots)
 
 __all__ = ["CompiledModel", "compile", "serve", "stack_inputs", "trace_to"]
+
+
+def _example_shapes(example_inputs: Mapping[str, Any]) -> dict[str, tuple]:
+    return {k: tuple(v.shape) for k, v in example_inputs.items()}
+
+
+def _strip_leading_axis(example_inputs: Mapping[str, Any]) -> dict:
+    """Per-sample examples from batched ones (each input's first sample;
+    only shapes and dtypes are read)."""
+    return {k: v[0] for k, v in example_inputs.items()}
 
 
 def _resolve_options(options, overrides) -> CompileOptions:
@@ -224,14 +238,14 @@ class CompiledModel:
                 for n in self.plan.input_names}
 
     def lint(self) -> str:
-        """The layer-graph lint (not ported: it reads traced models, which
-        wait for ROADMAP queue 1 item 8), then the Step-4b kernel report."""
+        """Trace-provenance report (which aten nodes produced each layer)
+        for traced models, followed by the Step-4b kernel-choice report
+        (per-op realization, decision source, predicted/measured cost)."""
         from repro_torch.core.passes import kernel_report
+        from repro_torch.frontend.lint import lint
         head = (f"plan {self.plan.name!r}: compiled from an "
                 f"ExecutionPlan — no layer graph to lint"
-                if self.graph is None else
-                f"graph {self.graph.name!r}: layer-graph lint waits for "
-                f"item 8 (ROADMAP queue 1)")
+                if self.graph is None else lint(self.graph))
         return head + "\n\n" + kernel_report(self.plan)
 
     # ----------------------------------------------------------- profiling
@@ -298,14 +312,29 @@ class CompiledModel:
 
 def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
             batch: int | None = None, options: CompileOptions | None = None,
-            residency: bool = True, device=None, devices=None, mesh=None,
+            residency: bool = True, example_batched: bool | None = None,
+            name: str | None = None, device=None, devices=None, mesh=None,
             **option_overrides) -> CompiledModel:
-    """Compile a layer ``Graph`` (from ``GraphBuilder``) or an
-    already-compiled ``ExecutionPlan`` into a ``CompiledModel`` on
+    """Compile anything the pipeline can ingest into a ``CompiledModel`` on
     ``device`` (``None``: the card, raising without one).
 
+    ``model`` is one of:
+
+      * a torch callable or an ``nn.Module`` in eval mode —
+        ``example_inputs`` (a tensor or array per input; only shapes and
+        dtypes are read) names the model inputs; the tracing frontend
+        recovers the layer graph (``frontend.to_graph``) on the host, and
+        the plan runs on ``device`` like any other;
+      * a layer ``Graph`` (from ``GraphBuilder`` or a prior trace);
+      * an already-compiled ``ExecutionPlan``.
+
     ``batch=N`` makes ``run()`` expect and return a leading batch axis of
-    N (per-batch runners for other sizes via ``.batched(n)``).  Compile
+    N (per-batch runners for other sizes via ``.batched(n)``).  When
+    tracing a callable with ``batch=N`` and every example input carrying
+    that leading axis, the axis is stripped before tracing (with a
+    ``UserWarning`` saying so); ``example_batched`` forces (``True``) or
+    forbids (``False``) the stripping.  ``name`` names a traced graph
+    (default: the callable's ``__name__``).  Compile
     options come either as ``options=CompileOptions(...)`` or as keyword
     overrides (``gcv.compile(g, kernels="torch")``); ``kernels`` is
     ``"cuda"`` (the default), ``"torch"``, ``"auto"`` (the H100 cost
@@ -313,14 +342,13 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
     cache at ``autotune_cache=``).  ``telemetry=True`` records one span per
     compiler pass and is a distinct plan-cache key.
     """
-    if not isinstance(model, (ExecutionPlan, Graph)):
-        if callable(model):
-            raise NotImplementedError(
-                "compiling a callable needs the torch tracing frontend "
-                "(ROADMAP queue 1 item 8); build a Graph with GraphBuilder")
-        raise AssertionError(
-            f"cannot compile {type(model).__name__}: expected a Graph or "
-            f"an ExecutionPlan")
+    assert isinstance(model, (ExecutionPlan, Graph)) or callable(model), \
+        f"cannot compile {type(model).__name__}: expected a torch " \
+        f"callable, a Graph, or an ExecutionPlan"
+    assert isinstance(model, (ExecutionPlan, Graph)) \
+        or example_inputs is not None, \
+        "compiling a callable requires example_inputs (a tensor or array " \
+        "per named input)"
     opts = _resolve_options(options, option_overrides)
     _one_device(devices, mesh)
     dev = resolve_device(device)
@@ -339,11 +367,49 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
                            backend=dev.type)
         return CompiledModel(model, graph=None, options=opts, device=dev,
                              residency=residency, batch=batch)
-    assert example_inputs is None, \
-        "a layer Graph declares its own inputs; example_inputs are only " \
-        "for tracing a callable"
-    return CompiledModel(cached_plan(model, opts, backend=dev.type),
-                         graph=model, options=opts, device=dev,
+    if isinstance(model, Graph):
+        assert example_inputs is None, \
+            "a layer Graph declares its own inputs; example_inputs are " \
+            "only for tracing a callable"
+        return CompiledModel(cached_plan(model, opts, backend=dev.type),
+                             graph=model, options=opts, device=dev,
+                             residency=residency, batch=batch)
+    shapes = _example_shapes(example_inputs)
+    strip = example_batched
+    if strip is None:
+        strip = batch is not None and all(
+            len(s) >= 1 and s[0] == batch for s in shapes.values())
+        if strip:
+            # auto-detect is a guess: a genuine per-sample leading dim
+            # that happens to equal `batch` would be mis-stripped, so say
+            # what was decided and how to override it
+            import warnings
+            warnings.warn(
+                f"gcv.compile: every example input leads with axis "
+                f"{batch} == batch, so it is being interpreted as the "
+                f"batch axis and stripped before tracing; pass "
+                f"example_batched=True to silence this, or "
+                f"example_batched=False if {batch} is a genuine model "
+                f"dimension", UserWarning, stacklevel=2)
+    if strip:
+        leads = {s[0] for s in shapes.values() if len(s) >= 1}
+        assert len(leads) == 1 and all(len(s) >= 1
+                                       for s in shapes.values()), \
+            f"example_batched expects one shared leading batch axis, " \
+            f"got shapes {shapes}"
+        (lead,) = leads
+        assert batch is None or batch == lead, \
+            f"batch={batch} does not match the examples' leading " \
+            f"axis {lead}"
+        batch = lead if batch is None else batch
+        example_inputs = _strip_leading_axis(example_inputs)
+    from repro_torch import frontend
+    graph = frontend.to_graph(
+        model, example_inputs,
+        name=name or getattr(model, "__name__", None)
+        or type(model).__name__)
+    return CompiledModel(cached_plan(graph, opts, backend=dev.type),
+                         graph=graph, options=opts, device=dev,
                          residency=residency, batch=batch)
 
 
@@ -358,7 +424,8 @@ def serve(models: Mapping[str, Any], *,
     """Build the micro-batching serving engine from models, not plumbing.
 
     ``models`` maps task name -> anything ``gcv.compile`` accepts (a
-    ``CompiledModel``, a layer ``Graph`` or an ``ExecutionPlan``).
+    ``CompiledModel``, a layer ``Graph``, an ``ExecutionPlan``, or a
+    ``(fn, example_inputs)`` pair for a torch callable or module).
     Pre-compiled models keep their own kernel/residency settings;
     everything else is compiled with this call's options (``kernels=``
     picks the realization mode, ``"cuda"`` by default) on ``device``
@@ -378,10 +445,12 @@ def serve(models: Mapping[str, Any], *,
     ``graph_buckets=`` serves variable-topology tasks: map a task name to
     the node counts it serves at and make its ``models`` entry a factory
     ``n_nodes -> model spec`` (b6-dyn: ``lambda n:
-    build_dynamic_task("b6-dyn", n_points=n)``).  ``submit`` routes each
-    request to the smallest bucket that fits (zero-padding the
-    node-indexed inputs; the model's validity mask keeps padded nodes
-    inert) and raises ``ValueError`` for requests over the largest bucket.
+    TRACED_TASKS["b6-dyn"](n_points=n)``, a traced ``(fn, example)``
+    pair, or ``lambda n: build_dynamic_task("b6-dyn", n_points=n)``).
+    ``submit`` routes each request to the smallest bucket that fits
+    (zero-padding the node-indexed inputs; the model's validity mask keeps
+    padded nodes inert) and raises ``ValueError`` for requests over the
+    largest bucket.
 
     ``devices=``/``mesh=`` of one device are this single-card engine;
     more raise ``NotImplementedError`` (ROADMAP queue 1 item 6).

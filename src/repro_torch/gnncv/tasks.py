@@ -244,12 +244,15 @@ def b6_pointcloud_dynamic(*, n_points: int = 1024, knn: int = 20,
     graph-size bucketing: padded nodes are never selected as neighbors and
     their features are zeroed before the global max pool.
 
-    The port has no tracing frontend yet, so this builder stands in for the
-    reference's traced ``jax_tasks.b6_pointcloud_dynamic_jax``: it replays
-    that function's weight draws and names its graph, layers and portions
-    as the tracer does, so the compiled plan equals the reference's
+    This builder stands in for the reference's traced
+    ``jax_tasks.b6_pointcloud_dynamic_jax``: it replays that function's
+    weight draws and names its graph, layers and portions as the
+    reference's tracer does, so the compiled plan equals the reference's
     ``build_traced_task("b6-dyn")`` plan op for op (``knn.1`` … the
-    classifier ``dot.*``)."""
+    classifier ``dot.*``; ``tests/test_torch_dynamic.py``).  The port's own
+    tracer builds the same plan up to names from
+    ``torch_tasks.b6_pointcloud_dynamic_torch``
+    (``tests/test_torch_frontend_parity.py``)."""
     rng = np.random.default_rng(seed)
     ws, fin = [], 3
     for d in dims:

@@ -943,6 +943,53 @@ def test_cuda_batch_equals_per_sample_runs_bit_for_bit(cuda, task):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("task", ["b7", "b7-dyn"])
+def test_cuda_traced_vig_runs_through_the_kernels(cuda, task):
+    """b7 and b7-dyn at their small configs, traced by ``gcv.compile(fn,
+    example)`` on the card: their launches per request, the plain plan
+    within 1e-4, graph == eager and batch 4 == batch 1 bit for bit, and
+    b7-dyn's KNN indices equal to ``knn_ref`` on the same embeddings."""
+    import dataclasses
+
+    from repro_torch import gcv
+    from repro_torch.core import CompileOptions, build_runner, compile_graph
+    from repro_torch.core.executor import random_inputs, stack_inputs
+    from repro_torch.gnncv.torch_tasks import (TRACED_SMALL_CONFIGS,
+                                               TRACED_TASKS)
+    cfg = TRACED_SMALL_CONFIGS[task]
+    model = gcv.compile(*TRACED_TASKS[task](**cfg))
+    assert model.device.type == "cuda"
+    assert model.plan.meta["frontend"] == "tracer"
+    plain = compile_graph(model.graph, CompileOptions(kernels="torch"))
+    reqs = [random_inputs(model.plan, seed=s) for s in range(4)]
+    fns = (shift_conv2d, spdmm_rows, ddmm, knn, sddmm)
+    eager = build_runner(model.plan, jit=False)
+    before = [fn.launches for fn in fns]
+    singles = [eager(**r) for r in reqs]
+    torch.cuda.synchronize()
+    per_request = (1, 0, 4 * cfg["blocks"] + 1, int(task == "b7-dyn"), 0)
+    assert tuple(fn.launches - b for fn, b in zip(fns, before)) == \
+        tuple(4 * n for n in per_request)
+    run_plain = build_runner(plain, jit=False)
+    for r, out in zip(reqs, singles):
+        close(out[0].cpu(), run_plain(**r)[0].cpu(), rtol=1e-4)
+        assert_equal_outputs(model.run(**r), out)
+    for jit in (False, True):
+        batched = model.batched(4, jit=jit)(**stack_inputs(reqs))
+        for j, out in enumerate(batched):
+            for i in range(4):
+                assert torch.equal(out[i], singles[i][j]), (jit, i, j)
+    if task == "b7-dyn":
+        op = next(o for o in model.plan.ops if o.kind == "knn_graph")
+        probe = build_runner(dataclasses.replace(
+            model.plan, outputs=[op.inputs[0], op.name]), free_dead=False,
+            jit=False)
+        for r in reqs:
+            h, idx = probe(**r)
+            assert torch.equal(idx, ref.knn_ref(h, cfg["knn"]))
+
+
+@pytest.mark.cuda
 def test_cuda_graph_outputs_are_copies(cuda):
     from repro_torch.core import build_runner
     plan = small_plan("b6")

@@ -1,8 +1,9 @@
 """The port's ``gcv`` façade, runner cache and per-op profile, on the CPU.
 
 Counterparts of ``tests/test_gcv_api.py`` for a ``Graph`` or an
-``ExecutionPlan`` (its callable, tracing and shim cases wait for ROADMAP
-queue 1 items 8 and 6; serving is ``tests/test_torch_serve.py``): the
+``ExecutionPlan`` (its callable and tracing cases are in
+``tests/test_torch_frontend.py``, its sharding cases wait for ROADMAP
+queue 1 item 6; serving is ``tests/test_torch_serve.py``): the
 façade equals ``build_runner`` on the same plan bit for bit, per sample
 and batched, and the port's façade
 matches the reference's on the same task within the port's per-task
@@ -126,7 +127,7 @@ def test_compile_rejects_examples_callables_and_others():
     with pytest.raises(AssertionError, match="already compiled"):
         gcv.compile(_plain_plan("b6"), {"points": np.zeros((64, 3))},
                     device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(AssertionError, match="requires example_inputs"):
         gcv.compile(lambda x: x)
     with pytest.raises(AssertionError, match="cannot compile"):
         gcv.compile(42)
@@ -271,7 +272,7 @@ def test_input_specs_and_stats_and_lint():
     assert s["peak_live_bytes"] == model.plan.peak_live_bytes()
     assert s["device"] == "cpu" and s["cache"]["plans"] >= 1
     text = model.lint()
-    assert "item 8" in text and "kernel choices for" in text
+    assert "GraphBuilder" in text and "kernel choices for" in text
     assert all(op.name in text for op in model.plan.ops)
 
 

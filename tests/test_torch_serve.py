@@ -469,8 +469,9 @@ def test_serve_takes_compiled_models_graphs_and_plans():
     assert eng.models["b1"] is model                 # keeps its own options
     assert eng.models["b6"].plan.meta["kernels_mode"] == "torch"
     assert eng.models["b4"].plan.meta["kernels_mode"] == "torch"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        gcv.serve({"f": (lambda x: x, {"x": np.zeros(3)})}, device=CPU)
+    pair = gcv.serve({"f": (torch.relu, {"x": np.zeros(3, np.float32)})},
+                     device=CPU)
+    assert pair.models["f"].plan.meta["frontend"] == "tracer"
     with pytest.raises(AssertionError, match="power of two"):
         gcv.serve({"b6": graph}, max_batch=6, device=CPU)
     with pytest.raises(AssertionError, match="unknown task"):
