@@ -6,6 +6,7 @@
     python3 chip_smoke.py --lattice       # Step 4b on the card alone
     python3 chip_smoke.py --serve         # the serving phase alone
     python3 chip_smoke.py --frontend      # the tracing frontend alone
+    python3 chip_smoke.py --gnn           # the GNN phase alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -67,8 +68,20 @@ recorded; open-loop Poisson streams under the SLO scheduler below and
 past the knee (req/s, goodput, deadline misses, sojourn p50/p99 over the
 served and over every arrival, the adaptive depth, the device's idle
 share); and b6-dyn over graph buckets, held as the paths are.  A served
-batch must launch nothing from the host.  Every number printed is
-measured in this run.
+batch must launch nothing from the host.  Then the GNN phase
+(``gnn_phase``, alone under ``--gnn``): g1 GCN, g2 GraphSAGE and g3 GAT of
+``gnncv/gnn_zoo.py`` on cora, citeseer, pubmed and flickr at their
+published sizes (the reference's ``GraphSpec``s, seed 0), each compiled
+with ``kernels="cuda"`` and ``"torch"`` and served 8 feature requests
+(launch counts, the plain plan within 1e-4, graph == eager bit for bit,
+batch 4 == batch 1 on cora, input staging, request p50s, replay alone,
+device busy and idle share, every DDMM call against its plain version
+and ``torch.mm``); KNN's sort route (k above 64) against ``knn_ref``
+exactly; dense max-aggregation equal to the plain plan and the CPU run
+exactly, NaN and an empty row included; and Step 4 under
+``target="fpga"`` and ``"h100"`` on b1-b7 and g1-g3 on cora (the ops
+that flip, outputs within 1e-4, each plan's device time).  Every number
+printed is measured in this run.
 The last line is the JSON result; any failure exits nonzero before it.
 Imports the port only (``repro_torch``), never JAX.
 
@@ -166,6 +179,24 @@ DYN_BUCKETS = (512, 1024)
 DYN_POINTS = (400, 1024)
 DYN_REQUESTS = 16
 GNNCV_KERNELS = ("shift_conv2d", "spdmm", "ddmm", "knn", "sddmm")
+# The GNN phase: g1-g3 of ``gnncv/gnn_zoo.py`` on the Table IX graphs at
+# their published sizes (cora 2708 nodes / 10556 edges / 1433 features /
+# 7 classes, citeseer 3327 / 9104 / 3703 / 6, pubmed 19717 / 88648 / 500 /
+# 3, flickr 89250 / 899756 / 500 / 7), each model's DDMM launches per
+# request (every linear; the COO aggregations, the GAT scores and the
+# segment softmax are plain PyTorch), GNN_TURNS turns of request times.
+GNN_MODELS = ("g1_gcn", "g2_sage", "g3_gat")
+GNN_DATASETS = ("cora", "citeseer", "pubmed", "flickr")
+GNN_DDMM = {"g1_gcn": 2, "g2_sage": 4, "g3_gat": 2}
+GNN_TURNS = 2
+# The KNN sort route (k above the warp route's 64) at N = 1024, and at
+# b6-dyn's own points; dense max-aggregation over b6-dyn's points' 20-NN
+# adjacency; Step 4 compares plans on STEP4_REQUESTS requests.
+KNN_SORT_K = (65, 128, 512, 1024)
+KNN_SORT_ORDERS = ("padded", "masked", "rising", "falling", "equal")
+DYN_SORT_K = 100
+MAXAGG_K = 20
+STEP4_REQUESTS = 2
 # The graph phase: batch-1 request times over GRAPH_TURNS turns of the
 # REQUESTS requests for each runner (eager, graph), and BATCH_TURNS turns
 # of the two batches of GRAPH_BATCH for each batched runner.
@@ -260,7 +291,8 @@ DEVICE_PREFIX = {"shift_conv2d": "shift_conv", "spdmm": "ell_spdmm",
 MAIN_KERNELS = {"shift_conv2d": ("shift_conv_tf32x3_kernel",),
                 "spdmm": ("ell_spdmm_rows_kernel",),
                 "ddmm": ("ddmm_tf32x3_kernel", "ddmm_narrow_kernel"),
-                "knn": ("knn_kernel",), "sddmm": ("sddmm_tf32x3_kernel",)}
+                "knn": ("knn_kernel", "knn_sort_kernel"),
+                "sddmm": ("sddmm_tf32x3_kernel",)}
 # the kernels whose rows print their achieved share of the bound (the two
 # redesigned last, from under 1% of it)
 BOUND_SHARE = ("knn", "sddmm")
@@ -467,10 +499,10 @@ def task_cases(task, plan, rng, dev) -> list[Case]:
                           self_loops=False, per_request=0)]
         # the warp list's worst orders and ties, and k at both ends (their
         # own generator: the other paths' inputs stay as they were)
-        from repro_torch.kernels.knn import MAX_K
+        from repro_torch.kernels.knn import WARP_MAX_K
         own = np.random.default_rng(17)
         for name, k in (("rising", 20), ("falling", 20), ("equal", 20),
-                        ("masked", 20), ("normal", 1), ("rising", MAX_K)):
+                        ("masked", 20), ("normal", 1), ("rising", WARP_MAX_K)):
             x, mask = knn_adversarial(name, 1024, 3, own)
             extra.append(knn_case(t(x), k, mask=None if mask is None
                                   else t(mask), self_loops=False,
@@ -980,20 +1012,15 @@ def profile_window(fn, n: int, what: str, per: str, card: str,
         log(f"profile of {what}: no device events recorded (device "
             "breakdown not measured)")
         return []
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = device_busy(kernels)
+    compute = [e for e in kernels if not is_copy(e)]
     log(f"profile over {n} {what} (under the profiler): "
         f"{len(kernels) / n:.1f} device kernels/{per}, device busy "
-        f"{busy / n / 1e3:.4f} ms/{per}, idle share of the device window "
-        f"{1 - busy / window:.3f}  [{card}]")
+        f"{busy / n / 1e3:.4f} ms/{per}"
+        + (f" ({device_busy(compute)[0] / n / 1e3:.4f} ms without its "
+           f"copies)" if compute and len(compute) < len(kernels) else "")
+        + f", idle share of the device window {1 - busy / window:.3f}  "
+        f"[{card}]")
     by_name: dict[str, list] = {}
     for e in kernels:
         tot = by_name.setdefault(e.name, [0.0, 0])
@@ -1004,6 +1031,27 @@ def profile_window(fn, n: int, what: str, per: str, card: str,
         log(f"  {us / n / 1e3:.4f} ms/{per}  {count // n:3d}x  "
             f"{name[:90]}")
     return kernels
+
+
+def is_copy(event) -> bool:
+    """A profiled copy or fill (``Memcpy HtoD ...``, ``Memset ...``): the
+    card's copy engines, not a kernel."""
+    return event.name.startswith(("Memcpy", "Memset"))
+
+
+def device_busy(kernels) -> tuple[float, float]:
+    """-> (the time some kernel of ``kernels`` ran, the window from the
+    first kernel's start to the last one's end), in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, spans[-1][1] - spans[0][0]
 
 
 def window_mask(side: int, win: int) -> np.ndarray:
@@ -1177,17 +1225,19 @@ def request_times(task, plan, plan_torch, requests, card) -> None:
 
 
 def graph_phase(task, requests, kernels, card, model=None,
-                per_request=None) -> None:
+                per_request=None, batch: int | None = GRAPH_BATCH,
+                turns: int = GRAPH_TURNS) -> None:
     """The task through the public entry point, ``gcv.compile(graph,
     kernels="cuda")`` (or ``model``, compiled by the caller and not warmed
     up yet, with ``per_request`` its launches per request): ``warmup()``
-    captures batch 1 and batch
-    ``GRAPH_BATCH`` (the launches the wrappers record at capture must be
-    ``PER_REQUEST``, and at batch ``GRAPH_BATCH`` those of one eager
+    captures batch 1 and ``batch`` (the launches the wrappers record at
+    capture must be ``PER_REQUEST``, and at ``batch`` those of one eager
     batched request), the graph runner must equal the eager runner bit for
     bit on every request, both batched runners each sample's batch-1
     output, and the runner cache may not miss after the runners are
-    built.  Every launch count set to 0 just before, read just after."""
+    built.  ``batch=None``: batch 1 alone.  ``turns``: the turns of the
+    request times (``graph_times``).  Every launch count set to 0 just
+    before, read just after."""
     from repro_torch import gcv
     from repro_torch.core.executor import stack_inputs
     from repro_torch.core.runtime.cache import cache_stats
@@ -1204,50 +1254,56 @@ def graph_phase(task, requests, kernels, card, model=None,
         assert model.warmup(None if batch is None else [batch]) == {batch}
         return {name: fn.captured for name, fn in kernels.items()}
 
-    one, many = captured(None), captured(GRAPH_BATCH)
-    log(f"{task} graphs: launches recorded at capture, batch 1: {one}; "
-        f"batch {GRAPH_BATCH}: {many}")
+    one = captured(None)
+    many = captured(batch) if batch else None
+    log(f"{task} graphs: launches recorded at capture, batch 1: {one}"
+        + (f"; batch {batch}: {many}" if batch else ""))
     assert one == want, (task, one)
-    graph1, graph_b = model.runner(), model.batched(GRAPH_BATCH, jit=True)
-    eager1, eager_b = model.runner(jit=False), model.batched(GRAPH_BATCH)
-    assert graph1.jit and graph_b.jit and not (eager1.jit or eager_b.jit)
+    graph1, eager1 = model.runner(), model.runner(jit=False)
+    pair_b, batches = None, []
+    if batch:
+        pair_b = (model.batched(batch), model.batched(batch, jit=True))
+        assert pair_b[1].jit and not pair_b[0].jit
+    assert graph1.jit and not eager1.jit
     misses = cache_stats()["runner_misses"]
-    batches = [stack_inputs(requests[i:i + GRAPH_BATCH])
-               for i in range(0, len(requests), GRAPH_BATCH)]
-    for fn in kernels.values():
-        fn.launches = 0
-    eager_b(**batches[0])
-    walked = {name: fn.launches for name, fn in kernels.items()}
-    assert many == walked, (task, many, walked)
+    if batch:
+        batches = [stack_inputs(requests[i:i + batch])
+                   for i in range(0, len(requests), batch)]
+        for fn in kernels.values():
+            fn.launches = 0
+        pair_b[0](**batches[0])
+        walked = {name: fn.launches for name, fn in kernels.items()}
+        assert many == walked, (task, many, walked)
     singles = [eager1(**req) for req in requests]
     for s, req in enumerate(requests):
         for g, e in zip(graph1(**req), singles[s]):
             assert torch.equal(g, e), f"{task} request {s}: graph != eager"
-    for name, run in (("eager", eager_b), ("graph", graph_b)):
+    for name, run in zip(("eager", "graph"), pair_b or ()):
         for b, stacked in enumerate(batches):
             for j, out in enumerate(run(**stacked)):
-                for i in range(GRAPH_BATCH):
+                for i in range(batch):
                     assert torch.equal(
-                        out[i], singles[b * GRAPH_BATCH + i][j]), \
+                        out[i], singles[b * batch + i][j]), \
                         f"{task} {name} batch {b} sample {i} != batch 1"
     torch.cuda.synchronize()
-    log(f"{task}: graph == eager bit for bit on {len(requests)} requests; "
-        f"batch {GRAPH_BATCH} (eager and graph) == batch 1 bit for bit on "
-        f"{len(batches) * GRAPH_BATCH} samples")
-    graph_times(task, (eager1, graph1), (eager_b, graph_b), requests,
-                batches, card, per_request)
+    log(f"{task}: graph == eager bit for bit on {len(requests)} requests"
+        + (f"; batch {batch} (eager and graph) == batch 1 bit for bit on "
+           f"{len(batches) * batch} samples" if batch else ""))
+    graph_times(task, (eager1, graph1), pair_b, requests, batches, card,
+                per_request, turns)
     assert cache_stats()["runner_misses"] == misses, \
         f"{task}: the runner cache missed after warmup"
-    assert graph1.trace_count() == graph_b.trace_count() == 1, \
+    assert graph1.trace_count() == 1 and (
+        not batch or pair_b[1].trace_count() == 1), \
         f"{task}: a graph was captured again under traffic"
 
 
 def graph_times(task, ones, batched, requests, batches, card,
-                per_request) -> None:
-    """Request latency of the eager and the graph runner in turns (host
-    clock), samples/s of the two batched runners in turns, and the graph
-    replays under the profiler (the main kernels per replay must be
-    ``per_request``)."""
+                per_request, turns: int = GRAPH_TURNS) -> None:
+    """Request latency of the eager and the graph runner in ``turns`` turns
+    (host clock), samples/s of the two batched runners in turns (where
+    ``batched`` is given), and the graph replays under the profiler (the
+    main kernels per replay must be ``per_request``)."""
     def request_ms(run):
         t_req = []
         for req in requests:
@@ -1274,14 +1330,14 @@ def graph_times(task, ones, batched, requests, batches, card,
         return out
 
     for name, samples in zip(("eager", "graph"),
-                             in_turns(request_ms, ones, GRAPH_TURNS)):
+                             in_turns(request_ms, ones, turns)):
         q1, med, q3 = statistics.quantiles(samples, n=4)
         log(f"{task} request, {name} runner, batch 1 (host clock, "
             f"synchronized, {len(samples)} requests): p50 {med:.4f} ms, "
             f"p25 {q1:.4f} ms, p75 {q3:.4f} ms  [{card}]")
     replay = ones[1].aot_compile()          # the request's graph itself
     t_rep = []
-    for _ in range(GRAPH_TURNS * len(requests)):
+    for _ in range(turns * len(requests)):
         torch.cuda.synchronize()
         t_a = time.perf_counter()
         replay.replay()
@@ -1292,7 +1348,8 @@ def graph_times(task, ones, batched, requests, batches, card,
         f"host clock, synchronized, {len(t_rep)} replays): p50 {med:.4f} "
         f"ms, p25 {q1:.4f} ms, p75 {q3:.4f} ms  [{card}]")
     for name, samples in zip(("eager", "graph"),
-                             in_turns(samples_per_s, batched, BATCH_TURNS)):
+                             in_turns(samples_per_s, batched, BATCH_TURNS)
+                             if batched else ()):
         q1, med, q3 = statistics.quantiles(samples, n=4)
         log(f"{task} batch {GRAPH_BATCH}, {name} runner: {med:.1f} "
             f"samples/s (median of {len(samples)} runs of {len(batches)} "
@@ -1301,10 +1358,11 @@ def graph_times(task, ones, batched, requests, batches, card,
     events = profile_window(lambda: ones[1](**next(it)), len(requests),
                             f"{task} graph replays", "request", card,
                             warm=lambda: ones[1](**next(it)))
-    it_b = itertools.cycle(batches)
-    profile_window(lambda: batched[1](**next(it_b)), len(batches),
-                   f"{task} batch-{GRAPH_BATCH} graph replays", "batch",
-                   card, warm=lambda: batched[1](**next(it_b)))
+    if batched:
+        it_b = itertools.cycle(batches)
+        profile_window(lambda: batched[1](**next(it_b)), len(batches),
+                       f"{task} batch-{GRAPH_BATCH} graph replays", "batch",
+                       card, warm=lambda: batched[1](**next(it_b)))
     # The windows above are opened by a warm-up replay and bracketed by two
     # marker kernels on the card (``device_events``): one that opens on a
     # replay loses its first kernels.  A profile still now and then records
@@ -1514,8 +1572,8 @@ def lattice_phase(task, graph, requests, cache_path, card) -> dict:
     requests against the ``cuda`` plan's (``E2E_RTOL``), the
     predicted-vs-measured report (``profile_report``, its agreement rate
     printed; every op whose rivals differ by more than ``AGREE_GAP``, by
-    the median of ``AGREE_MEASUREMENTS`` measurements, must be ranked
-    right by the model), then ``kernels="measured"`` compiled twice into
+    the median within-measurement ratio over ``AGREE_MEASUREMENTS``
+    measurements (``rank_ops``), must be ranked right by the model), then ``kernels="measured"`` compiled twice into
     ``cache_path``: the second compile, from the warm cache, measures
     nothing.  Returns the report's agreement block."""
     from repro_torch import gcv
@@ -1545,7 +1603,8 @@ def lattice_phase(task, graph, requests, cache_path, card) -> dict:
     assert ag["considered"], f"{task}: no op with two measured candidates"
     log(f"{task} lattice: agreement.rate {ag['rate']:.3f} "
         f"({ag['agree']}/{ag['considered']}); over rivals more than "
-        f"{AGREE_GAP:.0%} apart (median of {AGREE_MEASUREMENTS}): "
+        f"{AGREE_GAP:.0%} apart (median ratio within a measurement, of "
+        f"{AGREE_MEASUREMENTS}): "
         f"{verdicts['agree']} ranked right, {verdicts['tie']} ties  [{card}]")
     cuda_prof = cuda.profile(inputs=requests[0])
     for name, rows in (("auto", report["rows"]),
@@ -1582,12 +1641,13 @@ def lattice_phase(task, graph, requests, cache_path, card) -> dict:
 def rank_ops(what: str, plan, report, *,
              strict: bool = True) -> dict[str, int]:
     """The H100 model's ranking of every op of ``report`` (a
-    ``profile_report``) with two measured candidates: each candidate's
-    median over ``AGREE_MEASUREMENTS`` measurements (the report's and
-    fresh ones); rivals within ``AGREE_GAP`` of each other are a tie (the
-    measurement cannot rank them), an op whose rivals are further apart
-    must be ranked right (``strict``; otherwise it is counted as
-    ``WRONG``).  Returns the count of each verdict."""
+    ``profile_report``) with two measured candidates, over
+    ``AGREE_MEASUREMENTS`` measurements (the report's and fresh ones), each
+    timing the rivals in turns: each candidate's median ratio, within a
+    measurement, to the model's pick.  Rivals within ``AGREE_GAP`` of each
+    other are a tie (the measurement cannot rank them), an op whose rivals
+    are further apart must be ranked right (``strict``; otherwise it is
+    counted as ``WRONG``).  Returns the count of each verdict."""
     from repro_torch.core.autotune import AutotuneCache, measure_op
     ops = {op.name: op for op in plan.ops}
     again = [AutotuneCache(path=ROOT / "build" / "never_written.json")
@@ -1601,10 +1661,21 @@ def rank_ops(what: str, plan, report, *,
         runs = [meas] + [measure_op(op, list(meas), cache, backend="cuda")
                          for cache in again]
         med = {k: statistics.median(r[k] for r in runs) for k in meas}
-        gap = max(med.values()) / min(med.values()) - 1
-        agree = min(med, key=med.get) == min(meas, key=pred.get)
+        # Each run times the rivals in turns, so within a run they share
+        # the host's state; the host's launch rate moves between runs
+        # (one call's time can sit near either of two levels), which a
+        # ratio of per-rival medians mixes in.  Compare within runs: each
+        # rival's median ratio to the model's pick.
+        pick = min(meas, key=pred.get)
+        ratio = {k: statistics.median(r[k] / r[pick] for r in runs)
+                 for k in meas}
+        gap = max(ratio.values()) / min(ratio.values()) - 1
+        agree = min(ratio, key=ratio.get) == pick
         verdict = "tie" if gap <= AGREE_GAP else \
             "agree" if agree else "WRONG"
+        spread = ", ".join(
+            f"{k} {min(r[k] for r in runs) * 1e6:.2f}-"
+            f"{max(r[k] for r in runs) * 1e6:.2f}" for k in meas)
         dims = ("x".join(str(op.attrs[k]) for k in ("s1", "s2", "s3"))
                 if op.kind != "conv" else "x".join(
                     str(d) for d in (*op.weights["w"].shape[:2],
@@ -1613,7 +1684,9 @@ def rank_ops(what: str, plan, report, *,
             + ", ".join(f"{k} {pred[k] * 1e6:.2f}" for k in meas)
             + " us; measured (median of " + str(len(runs)) + ") "
             + ", ".join(f"{k} {v * 1e6:.2f}" for k, v in med.items())
-            + f" us; gap {gap:.2f}; {verdict} (first measurement ranked "
+            + f" us (range {spread} us); over {pick} within a run "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items())
+            + f"; gap {gap:.2f}; {verdict} (first measurement ranked "
             + f"{'right' if row['agree'] else 'wrong'})")
         assert verdict != "WRONG" or not strict, \
             f"{what} {row['op']}: the H100 model ranks a {gap:.0%} gap wrong"
@@ -2005,6 +2078,240 @@ def serving_phase(kernels, requests, card) -> None:
         f"{len(reqs)} clouds of {sizes.min()}-{sizes.max()} points, per "
         f"bucket over {len(runs)} run(s) {st}; each output == its "
         f"padded request's batch-1 run")
+
+
+def gnn_phase(kernels, requests, card) -> list[dict]:
+    """The standalone GNNs and what this slice repaired, on the card:
+    ``gnn_path`` for g1-g3 on each Table IX graph (``GNN_DATASETS``), the
+    KNN sort route (``knn_sort_checks``), dense max-aggregation
+    (``maxagg_checks``) and Step 4 on the H100 (``step4_phase``, b1-b7's
+    ``requests`` given).  -> the kernels line's rows of the GNN paths'
+    DDMM calls and of the KNN sort route."""
+    rows = []
+    for model_name in GNN_MODELS:
+        for dataset in GNN_DATASETS:
+            rows += gnn_path(model_name, dataset, kernels, card)
+    rows += knn_sort_checks(kernels, card)
+    maxagg_checks(card)
+    step4_phase(requests, card)
+    return rows
+
+
+def gnn_requests(plan, seeds=range(REQUESTS)) -> list[dict]:
+    """Standard-normal node features, one request per seed."""
+    n, f = plan.meta["input_shapes"]["features"]
+    return [{"features": np.random.default_rng(s).standard_normal(
+        (n, f), dtype=np.float32)} for s in seeds]
+
+
+def gnn_path(model_name, dataset, kernels, card) -> list[dict]:
+    """One GNN of ``GNN_ZOO`` on one dataset at its published size (the
+    reference's ``GraphSpec`` and builder defaults, seed 0):
+    ``gcv.compile(graph, kernels="cuda")`` and the plain plan, ``REQUESTS``
+    feature requests eager through the kernels (``serve``: counts,
+    ``E2E_RTOL`` against the plain plan on the card, request 0 against the
+    CPU), the input staging, ``graph_phase`` (graph == eager bit for bit;
+    batch ``GRAPH_BATCH`` == batch 1 on cora alone; request p50s, replay
+    alone, device busy and idle share, kernels per replay) and every DDMM
+    call against its plain version.  -> its kernels-line rows."""
+    from repro_torch import gcv
+    from repro_torch.core import CompileOptions, compile_graph
+    from repro_torch.gnncv import GNN_ZOO
+    task = f"{model_name}-{dataset}"
+    graph = GNN_ZOO[model_name](dataset)
+    t_a = time.perf_counter()
+    model = gcv.compile(graph, kernels="cuda")
+    plan_torch = compile_graph(graph, CompileOptions(kernels="torch"))
+    log(f"{task}: compile {time.perf_counter() - t_a:.2f} s on the host, "
+        f"{len(model.plan.ops)} ops, {model.plan.kernel_counts()}, inputs "
+        f"{model.plan.meta['input_shapes']}")
+    per_request = {**dict.fromkeys(GNNCV_KERNELS, 0),
+                   "ddmm": GNN_DDMM[model_name]}
+    reqs = gnn_requests(model.plan)
+    staging_times(task, reqs, card)
+    launches = serve(task, model.plan, plan_torch, reqs, kernels,
+                     per_request)
+    graph_phase(task, reqs, kernels, card, model=model,
+                per_request=per_request,
+                batch=GRAPH_BATCH if dataset == "cora" else None,
+                turns=GNN_TURNS)
+    cases = task_cases(task, model.plan, np.random.default_rng(7),
+                       torch.device("cuda"))
+    max_err = dict.fromkeys(kernels, 0.0)
+    for case in cases:
+        max_err[case.kernel] = max(max_err[case.kernel], check_case(case))
+    return kernel_rows(task, cases, launches, per_request, max_err, card)
+
+
+def staging_times(task, reqs, card) -> None:
+    """Host-to-card copy of each request's inputs from pageable numpy
+    memory, as a request stages them (host clock, synchronized)."""
+    t_req = []
+    for req in reqs:
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        for v in req.values():
+            torch.from_numpy(v).to("cuda")
+        torch.cuda.synchronize()
+        t_req.append((time.perf_counter() - t_a) * 1e3)
+    mb = sum(v.nbytes for v in reqs[0].values()) / 1e6
+    log(f"{task} staging: {mb:.1f} MB a request, host to card p50 "
+        f"{statistics.median(t_req):.4f} ms over {len(t_req)} requests "
+        f"(pageable copy, host clock)  [{card}]")
+
+
+def knn_sort_checks(kernels, card) -> list[dict]:
+    """KNN above the warp route (``k > WARP_MAX_K``, the sort route) at
+    ``N = 1024``: every k of ``KNN_SORT_K`` over a padding mask and
+    ``knn_adversarial``'s orders, self loops off and on, then b6-dyn's own
+    points (request 0: standard normal, the padding mask) at
+    ``DYN_SORT_K``; indices equal to ``knn_ref`` exactly.  The launch count
+    is set to 0 just before and read just after.  -> the route's
+    kernels-line row (b6-dyn's points)."""
+    from repro_torch.kernels import knn, ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    knn.launches = 0
+    checked = 0
+    for k in KNN_SORT_K:
+        for name in KNN_SORT_ORDERS:
+            x, mask = (knn_adversarial(name, 1024, 3, rng)
+                       if name != "padded" else
+                       (rng.standard_normal((1024, 3)).astype(np.float32),
+                        pad_mask(1024)))
+            x = torch.from_numpy(x).to(dev)
+            mask = None if mask is None else torch.from_numpy(mask).to(dev)
+            for self_loops in (False, True):
+                got = knn(x, k, mask=mask, self_loops=self_loops)
+                want = ref.knn_ref(x, k, mask=mask, self_loops=self_loops)
+                bad = (got != want).any(1).nonzero().flatten().tolist()
+                assert not bad, (f"knn sort route k={k} {name} self_loops="
+                                 f"{self_loops}: rows {bad[:8]} differ")
+                checked += 1
+    points = np.random.default_rng(0).standard_normal(
+        (1024, 3)).astype(np.float32)
+    x, mask = (torch.from_numpy(a).to(dev) for a in (points, pad_mask(1024)))
+    got = knn(x, DYN_SORT_K, mask=mask)
+    assert torch.equal(got, ref.knn_ref(x, DYN_SORT_K, mask=mask)), \
+        "knn sort route at b6-dyn's points differs from knn_ref"
+    torch.cuda.synchronize()
+    launches = knn.launches
+    assert launches == checked + 1, (launches, checked)
+    log(f"knn sort route: indices == knn_ref exactly in {checked} cases at "
+        f"N = 1024 (k in {KNN_SORT_K}, {KNN_SORT_ORDERS}, self loops off "
+        f"and on) and at b6-dyn's points, k = {DYN_SORT_K}; {launches} "
+        f"launches")
+    case = knn_case(x, DYN_SORT_K, mask=mask, self_loops=False,
+                    per_request=1, note="b6-dyn's points, sort route")
+    check_case(case)
+    return kernel_rows(
+        "knn-sort", [case], {"knn": launches}, {"knn": 1}, {"knn": 0.0},
+        card, unit=f"ms per call of the KNN sort route at b6-dyn's points "
+                   f"(1024, 3), k = {DYN_SORT_K}")
+
+
+def maxagg_checks(card) -> None:
+    """Dense max-aggregation (``maxagg``, plain PyTorch: no kernel) on the
+    card: b6-dyn's 1024 points (request 0) with their 20-NN adjacency made
+    dense 0/1 and row 0 emptied, ``mp(adj=, reduce="max")`` over 64
+    features, through ``gcv.compile(kernels="cuda")``: equal to the plain
+    plan on the card and to the CPU run exactly, graph replay included,
+    NaN included where one is planted."""
+    from repro_torch import gcv
+    from repro_torch.core.ir import GraphBuilder
+    from repro_torch.gnncv.graphs import knn_indices
+    points = np.random.default_rng(0).standard_normal(
+        (1024, 3)).astype(np.float32)
+    adj = np.zeros((1024, 1024), np.float32)
+    adj[np.repeat(np.arange(1024), MAXAGG_K),
+        knn_indices(points, MAXAGG_K).reshape(-1)] = 1.0
+    adj[0] = 0.0
+    b = GraphBuilder("maxagg_b6dyn")
+    x = b.input((1024, 64), name="nodes")
+    graph = b.output(b.mp(x, adj=adj, reduce="max", name="agg"))
+    model = gcv.compile(graph, kernels="cuda")
+    plain = gcv.compile(graph, kernels="torch")
+    cpu = gcv.compile(graph, kernels="cuda", device="cpu")
+    assert [(o.kind, o.kernel) for o in model.plan.ops] == \
+        [("maxagg", "torch_ell_spdmm")]
+    model.warmup()
+    reqs = []
+    for s in range(3):
+        feats = np.random.default_rng(s).standard_normal(
+            (1024, 64)).astype(np.float32)
+        if s == 2:
+            feats[int(np.nonzero(adj[5])[0][0]), 3] = np.nan
+            feats[0, 7] = np.nan                  # the empty row's own
+        reqs.append({"nodes": feats})
+    for s, req in enumerate(reqs):
+        got = model.run(**req)[0].cpu().numpy()
+        eager = model.runner(jit=False)(**req)[0].cpu().numpy()
+        for what, want in (("eager", eager),
+                           ("plain plan", plain.run(**req)[0].cpu().numpy()),
+                           ("CPU", cpu.run(**req)[0].numpy())):
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"maxagg request {s}: graph != {what}")
+        np.testing.assert_array_equal(got[0], req["nodes"][0])
+    assert np.isnan(got[5, 3]) and np.isnan(got[0, 7])
+    log(f"maxagg (1024 nodes, {MAXAGG_K}-NN adjacency made dense, row 0 "
+        f"empty): graph == eager == plain plan == CPU exactly on "
+        f"{len(reqs)} requests, NaN and the empty row included  [{card}]")
+
+
+def step4_phase(requests, card) -> None:
+    """Step 4 on the H100: b1-b6, b3-r101, b6-dyn (``requests``), the
+    traced b7 and b7-dyn and g1-g3 on cora, each compiled with
+    ``target="fpga"`` and ``target="h100"`` under ``kernels="cuda"``: the
+    ops whose primitive or kernel flips, the h100 plan's outputs within
+    ``E2E_RTOL`` of the fpga plan's, and each plan's kernels' device busy
+    time per graph request (profiler, marker-bracketed window; the input
+    and output copies left out)."""
+    from repro_torch import gcv
+    from repro_torch.core.executor import random_inputs
+    from repro_torch.gnncv import GNN_ZOO
+    from repro_torch.gnncv.torch_tasks import TRACED_TASKS
+    paths = [(t, task_graph(t), None, requests[t][:STEP4_REQUESTS])
+             for t in PER_REQUEST if t != "vip-masked"]
+    paths += [(t, *TRACED_TASKS[t](), None) for t in TRACED_PER_REQUEST]
+    paths += [(f"{m}-cora", GNN_ZOO[m]("cora"), None, None)
+              for m in GNN_MODELS]
+    flipped = 0
+    for task, graph, example, reqs in paths:
+        models = {t: gcv.compile(graph, example, kernels="cuda", target=t,
+                                 name=f"{task}_{t}")
+                  for t in ("fpga", "h100")}
+        fpga, h100 = (models[t].plan for t in ("fpga", "h100"))
+        assert h100.meta["select_target"] == "h100"
+        flips = [(a.name, f"{a.primitive}/{a.kernel}",
+                  f"{b.primitive}/{b.kernel}")
+                 for a, b in zip(fpga.ops, h100.ops)
+                 if (a.primitive, a.kernel) != (b.primitive, b.kernel)]
+        flipped += len(flips)
+        if reqs is None:
+            reqs = ([random_inputs(fpga, seed=s)
+                     for s in range(STEP4_REQUESTS)]
+                    if "features" not in fpga.meta["input_shapes"] else
+                    gnn_requests(fpga, range(STEP4_REQUESTS)))
+        for s, req in enumerate(reqs):
+            want = models["fpga"].run(**req)
+            for got, ref_out in zip(models["h100"].run(**req), want):
+                err, rel = rel_err(got.float(), ref_out.float())
+                assert rel <= E2E_RTOL, \
+                    f"{task} request {s}: h100 plan differs by {rel:.3e}"
+        busy = {}
+        for t, model in models.items():
+            model.warmup()
+            it = itertools.cycle(reqs)
+            events = [e for e in device_events(
+                lambda: model.run(**next(it)), REQUESTS,
+                warm=lambda: model.run(**next(it))) if not is_copy(e)]
+            busy[t] = (f"{device_busy(events)[0] / REQUESTS / 1e3:.4f} ms"
+                       if events else "not measured")
+        log(f"step 4 {task}: {len(flips)} ops flip under target='h100' "
+            f"{flips}; kernels' device busy per graph request (copies "
+            f"left out): fpga plan {busy['fpga']}, h100 plan "
+            f"{busy['h100']}; outputs within {E2E_RTOL:g}  [{card}]")
+    log(f"step 4: {flipped} ops flip over {len(paths)} paths")
 
 
 def kernel_rows(task, cases, launches, per_request, max_err, card,
@@ -2598,7 +2905,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, ddmm, flash_attention, knn,
                                      sddmm, shift_conv2d, spdmm_rows)
     from repro_torch.kernels.flash_attention import MAX_D
-    from repro_torch.kernels.knn import MAX_K
+    from repro_torch.kernels.knn import WARP_MAX_K
     from repro_torch.kernels.sddmm import BLOCK
     from repro_torch.models.transformer import init_lm
     # "spdmm" counts the entry the path calls, spdmm_rows
@@ -2624,7 +2931,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    assert lib.repro_knn_max_k() == MAX_K, "csrc/knn.cu and knn.py disagree"
+    assert lib.repro_knn_warp_k() == WARP_MAX_K, \
+        "csrc/knn.cu and knn.py disagree"
     assert lib.repro_sddmm_block() == BLOCK, \
         "csrc/sddmm.cu and sddmm.py disagree"
     assert lib.repro_flash_max_d() == MAX_D, \
@@ -2649,6 +2957,12 @@ def main() -> int:
             heldout_phase(card)
         if "--serve" in sys.argv[1:]:
             serving_phase(kernels, reqs, card)
+        return finish()
+    if "--gnn" in sys.argv[1:]:
+        reqs = {task: task_requests(task, *plans[task]) for task in tasks}
+        rows = gnn_phase(kernels, reqs, card)
+        log(f"card: {card}")
+        log(json.dumps({"kernels": rows}))
         return finish()
     if "--frontend" in sys.argv[1:]:
         reqs = {task: task_requests(task, *plans[task]) for task in tasks}
@@ -2697,6 +3011,7 @@ def main() -> int:
     lm_fp32_parity(lm_cfg, lm_params, lm_reqs)
     launches["lm-prefill-2048"] = lm_long_prefill(lm_cfg, lm_params,
                                                   kernels, card)
+    gnn_rows = gnn_phase(kernels, requests, card)
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []
@@ -2721,6 +3036,7 @@ def main() -> int:
         launches["lm-prefill-2048"], per_prefill, max_err["lm-prefill-2048"],
         card, unit=f"ms per {LONG_PROMPT}-token {LM_ARCH} prefill: sum "
                    f"over its {lm_cfg.n_layers} launches")
+    rows += gnn_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     return finish()

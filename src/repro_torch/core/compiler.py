@@ -7,7 +7,7 @@ liveness (Step 6 — last-use info the runtime uses to free dead values), and
 returns an ``ExecutionPlan`` — the analogue of the instruction-sequence
 binary the APU executes. ``CompileOptions`` exposes exactly the knobs the
 paper ablates (§VII-C): layer fusion, DM fusion, sparsity-aware mapping,
-plus the cost target ('fpga', the paper's accelerator).
+plus the cost target ('fpga', the paper's accelerator, or 'h100').
 
 Every pass entry point opens an ``obs`` span (layer/op counts as
 attributes), so a compile inside a tracing block — or with
@@ -33,8 +33,9 @@ class CompileOptions:
     fuse: bool = True                 # Step 1 (ablation: §VII-C layer fusion)
     dm_fusion: bool = True            # §V-C2
     sparsity_aware: bool = True       # Step 4 (ablation: §VII-C)
-    target: str = "fpga"              # cost target; only 'fpga' is modelled
-    vmem_budget_bytes: int = 8 * 2**20
+    # Steps 3-4 cost target: 'fpga' (the paper's accelerator) | 'h100'
+    # (the card's tile quantum and shared memory; Step 4 by device time)
+    target: str = "fpga"
     # Step 4b — per-op kernel realization: 'cuda' (hand-written kernel
     # wherever the family has one, with recorded fallbacks) | 'torch'
     # (plain-torch twins everywhere) | 'auto' (the H100 cost model) |
@@ -62,8 +63,7 @@ def compile_graph(g: Graph,
         fused = fuse_layers(g, enable=options.fuse,
                             dm_fusion=options.fuse and options.dm_fusion)
         plan = lower_to_matops(fused)                       # Step 2
-        plan = assign_tiles(plan, target=options.target,    # Step 3
-                            vmem_budget_bytes=options.vmem_budget_bytes)
+        plan = assign_tiles(plan, target=options.target)    # Step 3
         plan = select_primitives(plan, target=options.target,   # Step 4
                                  enable=options.sparsity_aware)
         plan = select_kernels(plan, kernels=options.kernels,    # Step 4b

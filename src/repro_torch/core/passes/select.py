@@ -7,6 +7,10 @@ adjacency) the pass inspects the operand's nnz and picks DDMM vs SpDMM from
 the FPGA latency model (``core/perf_model.select_primitive``). Chosen SpDMM
 operands are converted to ELL (idx, val) *at compile time* — the paper's
 offline three-tuple preparation — so execution latency stays deterministic.
+``target="h100"`` prices the same decision by the H100 model's device time
+(the ELL SpDMM kernel against the DDMM kernel, the ELL matrix on the left
+of the executed product, its stored slots as nnz); the default stays the
+paper's ``"fpga"``.
 
 Runtime-valued matmuls (b1's learned affinity) always map to DDMM: their
 sparsity is unknown at compile time, and the paper explicitly rejects
@@ -127,13 +131,13 @@ def _select_primitives(plan: ExecutionPlan, *, target: str,
             if (enable and static is not None and side != "left_runtime"
                     and op.attrs.get("density", 1.0) < 0.9):
                 nnz = int((static != 0).sum())
+                # ELL must hold the matrix that ends up on the LEFT of
+                # the executed product: A for 'left' (A@X), A for
+                # 'right_t' ((A@X2ᵀ)ᵀ), wᵀ for 'right' ((wᵀ@Xᵀ)ᵀ).
+                mat = np.asarray(static).T if side == "right" else static
                 # the matmul's sparse operand is the static one
-                choice = select_primitive(s1, s2, s3, nnz, target=target)
+                choice = _choose(mat, side, s1, s2, s3, nnz, target)
                 if choice == "SpDMM":
-                    # ELL must hold the matrix that ends up on the LEFT of
-                    # the executed product: A for 'left' (A@X), A for
-                    # 'right_t' ((A@X2ᵀ)ᵀ), wᵀ for 'right' ((wᵀ@Xᵀ)ᵀ).
-                    mat = np.asarray(static).T if side == "right" else static
                     op.ell = dense_to_ell(np.asarray(mat))
                     op.primitive = "SpDMM"
                     op.attrs["nnz"] = nnz
@@ -159,6 +163,22 @@ def _select_primitives(plan: ExecutionPlan, *, target: str,
     plan.meta["sparsity_aware"] = enable
     plan.meta["select_target"] = target
     return plan
+
+
+def _choose(mat, side: str, s1: int, s2: int, s3: int, nnz: int,
+            target: str) -> str:
+    """Step 4 for one static operand ``mat`` (as the ELL would hold it).
+    The FPGA formula takes the op's dims and nonzeros, as the reference
+    does; the H100 the executed product, ELL on the left (``right`` and
+    ``right_t`` run ``(A @ x2ᵀ)ᵀ``), and the ELL's stored slots."""
+    if target != "h100":
+        return select_primitive(s1, s2, s3, nnz, target=target)
+    mat = np.asarray(mat)
+    slots = mat.shape[0] * max(1, int((mat != 0).sum(1).max()))
+    if side in ("right", "right_t"):
+        s1, s3 = s3, s1
+    return select_primitive(s1, s2, s3, slots, target=target,
+                            columns=side == "left")
 
 
 # ------------------------------------------------------- Step 4b: kernels --

@@ -5,15 +5,17 @@ Port of ``src/repro/core/passes/tiling.py``
 
 Chooses per-MatOp block sizes so the working set (one X block + one Y block +
 one accumulator block) fits the target's fast memory:
-  TPU:  VMEM budget (default 8 MiB of the ~16 MiB, fp32 accumulation) with
-        MXU-aligned (multiples-of-128) edges — these become the BlockSpec
-        parameters of the Pallas kernels.
   FPGA: p_ca-multiple tiles bounded by the per-PE buffer share (paper: 45 MB
         across 8 PEs → ~5.6 MB of SB/VB/WB/RB per PE).
+  H100: multiples of the tensor-core tile the port's kernels use (16),
+        bounded by one block's shared memory (227 KiB) at fp32.
+The reference's TPU branch (VMEM budget, 128-multiples) has no target in
+the port.  Tiles are annotations: no runtime path reads ``op.tiles``.
 """
 from __future__ import annotations
 
 from repro_torch import obs
+from repro_torch.core.perf_model import check_target
 from repro_torch.core.plan import ExecutionPlan
 
 
@@ -38,21 +40,23 @@ def _fit_tiles(s1: int, s2: int, s3: int, *, quantum: int, budget_elems: int,
     return bm, bk, bn
 
 
-def assign_tiles(plan: ExecutionPlan, *, target: str = "tpu",
-                 vmem_budget_bytes: int = 8 * 2**20) -> ExecutionPlan:
+# target -> (tile quantum, starting edge, budget in elements)
+TILE_TARGETS = {
+    "fpga": (16, 256, (45 * 2**20 // 8) // 2),   # per-PE fp16 buffer share
+    "h100": (16, 256, 232448 // 4),              # a block's shared memory
+}
+
+
+def assign_tiles(plan: ExecutionPlan, *, target: str = "fpga"
+                 ) -> ExecutionPlan:
     with obs.span("pass.tiling", cat="compile", plan=plan.name,
                   ops=len(plan.ops), target=target):
-        return _assign_tiles(plan, target=target,
-                             vmem_budget_bytes=vmem_budget_bytes)
+        return _assign_tiles(plan, target=target)
 
 
-def _assign_tiles(plan: ExecutionPlan, *, target: str,
-                  vmem_budget_bytes: int) -> ExecutionPlan:
-    quantum = 128 if target == "tpu" else 16
-    start = 512 if target == "tpu" else 256
-    budget = vmem_budget_bytes // 4          # fp32 accumulation elements
-    if target == "fpga":
-        budget = (45 * 2**20 // 8) // 2      # per-PE fp16 buffer share
+def _assign_tiles(plan: ExecutionPlan, *, target: str) -> ExecutionPlan:
+    check_target(target)
+    quantum, start, budget = TILE_TARGETS[target]
     for op in plan.ops:
         if op.kind in {"mm", "sddmm", "knn_graph"}:
             op.tiles = _fit_tiles(op.attrs["s1"], op.attrs["s2"],

@@ -6,8 +6,8 @@ Two models, used at different layers of the compiler:
    §IV-A), parameterized by the paper's implementation constants (p_ca =
    16, 8 PEs, f_cu = 600 MHz, f_buffer = 300 MHz, 77 GB/s DDR, 45 MB
    on-chip).  Drives (a) the Step-4 sparsity-aware primitive selection
-   (``select_primitive``; ``target="fpga"`` is the only modelled target)
-   and (b) the Step-5 cycle annotations on every op.
+   under ``target="fpga"`` (``select_primitive``) and (b) the Step-5 cycle
+   annotations on every op.
 
 2. **H100 model** — the Step-4b cost of each concrete realization of an
    op on one NVIDIA H100 SXM (``predict_kernel_seconds``): the plain-torch
@@ -18,7 +18,8 @@ Two models, used at different layers of the compiler:
    and its device time (the roofline of the call's bytes and operations
    over an efficiency factor per realization).  The card's rates are
    NVIDIA's data-sheet peaks; the floors and efficiencies are fitted to
-   this card's measurements (PERF.md §5-§6).
+   this card's measurements (PERF.md §5-§6).  Under ``target="h100"`` it
+   also prices Step 4's sparse-vs-dense decision, by device time alone.
 """
 from __future__ import annotations
 
@@ -73,20 +74,38 @@ class FPGAModel:
 
 FPGA = FPGAModel()
 
+# The Step-4 cost targets: the paper's FPGA (the default) and one H100.
+TARGETS = ("fpga", "h100")
+
+
+def check_target(target: str) -> None:
+    if target not in TARGETS:
+        raise ValueError(f"target={target!r}: Step 4 prices the targets "
+                         f"{TARGETS}")
+
 
 def select_primitive(s1: int, s2: int, s3: int, nnz: int, *,
-                     target: str = "fpga") -> str:
+                     target: str = "fpga", columns: bool = False) -> str:
     """Step-4 decision for X(s1,s2) @ Y(s2,s3), nnz(X) given.
 
     Returns 'SpDMM' when the sparse realization is predicted faster on the
     target, else 'DDMM'. Compile-time only — latency stays deterministic.
+
+    ``"fpga"``: the paper's cycle formulas, nnz the nonzeros of X.
+    ``"h100"``: the ELL SpDMM kernel against the DDMM kernel by the H100
+    model's device time (roofline over efficiency, no host floor: a
+    request is a CUDA-graph replay, whose cost is its device time), nnz the
+    ELL's stored slots; ``columns`` when X is the op's left operand (the
+    ELL columns kernel, one dependent load a slot).
     """
-    if target != "fpga":
-        raise NotImplementedError(
-            f"target={target!r}: Step 4 costs only the paper's FPGA in the "
-            f"port; Step 4 on a GPU target waits in ROADMAP queue 1")
-    return ("SpDMM" if FPGA.spdmm_cycles(nnz, s3)
-            < FPGA.ddmm_cycles(s1, s2, s3) else "DDMM")
+    check_target(target)
+    if target == "fpga":
+        return ("SpDMM" if FPGA.spdmm_cycles(nnz, s3)
+                < FPGA.ddmm_cycles(s1, s2, s3) else "DDMM")
+    dims = dict(s1=s1, s2=s2, s3=s3, nnz=nnz, device_only=True)
+    sparse = predict_kernel_seconds("cuda_ell_spdmm", columns=columns, **dims)
+    dense = predict_kernel_seconds("cuda_ddmm", **dims)
+    return "SpDMM" if sparse < dense else "DDMM"
 
 
 # ---------------------------------------------------------------------------
@@ -107,9 +126,14 @@ class H100Model:
     tf32x3_flops: float = 495e12 / 3
 
     def seconds(self, realization: "Realization", nbytes: float,
-                flops: float, rate: float) -> float:
+                flops: float, rate: float, device_only: bool = False
+                ) -> float:
+        """The call's device time (its roofline over the realization's
+        efficiency) or, unless ``device_only``, the host floor where that
+        is larger."""
         roofline = max(nbytes / self.hbm_bw, flops / rate)
-        return max(realization.host_s, roofline / realization.efficiency)
+        device = roofline / realization.efficiency
+        return device if device_only else max(realization.host_s, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +187,8 @@ def predict_kernel_seconds(kernel: str, *, s1: int = 1, s2: int = 1,
                            out_elems: int | None = None,
                            backend: str = "cuda", taps: int = 1,
                            conv: bool = False, masked: bool = False,
-                           columns: bool = False) -> float:
+                           columns: bool = False,
+                           device_only: bool = False) -> float:
     """Predicted seconds for one op realized by ``kernel`` (H100 model).
 
     ``s1/s2/s3`` are the dims of the op's product ``(s1, s2) @ (s2, s3)``
@@ -175,8 +200,13 @@ def predict_kernel_seconds(kernel: str, *, s1: int = 1, s2: int = 1,
     compile-time mask (the SDDMM kernel; without one both members run a
     dense ``x @ xᵀ``).  ``backend`` is where the plan runs: ``"cuda"``, or
     ``"cpu"``, where every ``cuda_*`` candidate pays ``OFF_CARD_PENALTY``.
+    ``device_only``: the device time alone, without the host floors.
     """
     m = H100
+
+    def cost(real, nbytes, flops, rate):
+        return m.seconds(real, nbytes, flops, rate, device_only)
+
     bpe = 4                                       # runtime arrays are fp32
     gemm_bytes = bpe * (s1 * s2 + s2 * s3 + s1 * s3)
     gemm_flops = 2.0 * s1 * s2 * s3
@@ -186,20 +216,21 @@ def predict_kernel_seconds(kernel: str, *, s1: int = 1, s2: int = 1,
         if kernel == "cuda_ddmm":
             # the shift-conv reads each input pixel, not its taps
             nbytes = bpe * (s1 * s2 / taps + s2 * s3 + s1 * s3)
-            base = m.seconds(real, nbytes, gemm_flops, m.tf32x3_flops)
+            base = cost(real, nbytes, gemm_flops, m.tf32x3_flops)
         else:
             # pad, stack the taps (written, then read by the GEMM)
             nbytes = gemm_bytes + 2.0 * bpe * s1 * s2
-            base = m.seconds(real, nbytes, gemm_flops, m.fp32_flops)
-            base = max(base, real.host_s + TORCH_CONV_TAP_S * taps)
+            base = cost(real, nbytes, gemm_flops, m.fp32_flops)
+            if not device_only:
+                base = max(base, real.host_s + TORCH_CONV_TAP_S * taps)
     elif kernel == "torch_dense" or (kernel == "torch_sddmm"
                                      and not masked):
         real = H100_REALIZATIONS["torch_dense" if kernel == "torch_dense"
                                  else "torch_gram"]
-        base = m.seconds(real, gemm_bytes, gemm_flops, m.fp32_flops)
+        base = cost(real, gemm_bytes, gemm_flops, m.fp32_flops)
     elif kernel == "cuda_ddmm" or (kernel == "cuda_sddmm" and not masked):
-        base = m.seconds(H100_REALIZATIONS["cuda_ddmm"], gemm_bytes,
-                         gemm_flops, m.tf32x3_flops)
+        base = cost(H100_REALIZATIONS["cuda_ddmm"], gemm_bytes,
+                    gemm_flops, m.tf32x3_flops)
     elif kernel in ("torch_ell_spdmm", "cuda_ell_spdmm"):
         n = nnz if nnz is not None else s1 * s2
         nbytes = 8.0 * n + bpe * (s2 * s3 + s1 * s3)
@@ -207,19 +238,19 @@ def predict_kernel_seconds(kernel: str, *, s1: int = 1, s2: int = 1,
             # the gather materializes the (s1, L, s3) block: written, then
             # masked, multiplied and summed
             nbytes += 4.0 * bpe * n * s3
-        base = m.seconds(H100_REALIZATIONS[kernel], nbytes, 2.0 * n * s3,
-                         m.fp32_flops)
+        base = cost(H100_REALIZATIONS[kernel], nbytes, 2.0 * n * s3,
+                    m.fp32_flops)
         if kernel == "cuda_ell_spdmm" and columns:
             base = max(base, n * ELL_COLUMN_SLOT_S)
     elif kernel == "torch_sddmm":
         # the dense product, then the mask multiplied in another pass
-        base = m.seconds(H100_REALIZATIONS[kernel],
-                         gemm_bytes + 3.0 * bpe * s1 * s3, gemm_flops,
-                         m.fp32_flops)
+        base = cost(H100_REALIZATIONS[kernel],
+                    gemm_bytes + 3.0 * bpe * s1 * s3, gemm_flops,
+                    m.fp32_flops)
     elif kernel == "cuda_sddmm":
-        base = m.seconds(H100_REALIZATIONS[kernel],
-                         gemm_bytes + bpe * s1 * s3, gemm_flops,
-                         m.tf32x3_flops)
+        base = cost(H100_REALIZATIONS[kernel],
+                    gemm_bytes + bpe * s1 * s3, gemm_flops,
+                    m.tf32x3_flops)
     elif kernel in ("torch_knn", "cuda_knn"):
         kk = max(1, math.ceil((nnz if nnz else s1) / max(s1, 1)))
         io = bpe * (s1 * s2 + s1 + s1 * kk)
@@ -228,16 +259,16 @@ def predict_kernel_seconds(kernel: str, *, s1: int = 1, s2: int = 1,
             # per-feature (N, N) passes, the distances, the mask and a
             # stable sort of every row's (key, index) pairs
             io += bpe * s1 * s3 * (3.0 * s2 + 8.0) + 64.0 * s1 * s3
-        base = m.seconds(H100_REALIZATIONS[kernel], io, flops, m.fp32_flops)
+        base = cost(H100_REALIZATIONS[kernel], io, flops, m.fp32_flops)
     elif kernel == "coo_scatter":
         n = nnz if nnz is not None else s1 * s2
         nbytes = 12.0 * n + 2.0 * bpe * (n * s3 + (s1 + s2) * s3)
-        base = m.seconds(H100_REALIZATIONS[kernel], nbytes, 2.0 * n * s3,
-                         m.fp32_flops)
+        base = cost(H100_REALIZATIONS[kernel], nbytes, 2.0 * n * s3,
+                    m.fp32_flops)
     else:                                         # torch_ew and friends
         elems = out_elems if out_elems is not None else s1 * s3
-        base = m.seconds(H100_REALIZATIONS["torch_ew"], 2.0 * bpe * elems,
-                         0.0, m.fp32_flops)
+        base = cost(H100_REALIZATIONS["torch_ew"], 2.0 * bpe * elems,
+                    0.0, m.fp32_flops)
     if kernel.startswith("cuda_") and backend != "cuda":
         base *= OFF_CARD_PENALTY
     return base

@@ -5,7 +5,7 @@ registers every handler module; ``validate_registry`` then proves the
 runtime vocabulary and the lowering vocabulary (``plan.MATOP_KINDS``)
 agree, so a kind that lowers but has no handler fails at import time.
 
-    registry.py     @register_op / @register_batched, run_op, not_ported
+    registry.py     @register_op / @register_batched, run_op
     context.py      batched_execution (the batch axis is live)
     residency.py    device-resident weights (collected once per runner,
                     deduplicated, hot-swappable) and COO row orders
@@ -13,7 +13,7 @@ agree, so a kind that lowers but has no handler fails at import time.
     matmul.py       mm (every side) and sddmm
     conv.py         Fig. 7 shift-add convolution
     elementwise.py  ew + the shared fused epilogue + segment reductions
-    pooling.py      pool2d, globalpool
+    pooling.py      pool2d, globalpool, maxagg
     shape.py        DM transpose/identity, reshape, concat
     graph_build.py  knn_graph
 """

@@ -1,20 +1,24 @@
 """Pooling-family handlers.  Port of ``src/repro/core/runtime/pooling.py``:
-windowed ``pool2d`` and ``globalpool``; the ELL ``maxagg`` comes with the
-slice that runs it.
+windowed ``pool2d``, ``globalpool`` and the ELL max-aggregation ``maxagg``
+of dense-adjacency ``mp(reduce="max")``.
 
-Both ported kinds have one plain-torch realization (Step 4b records them as
-``torch_ew``).  Windows and strides may be scalars or ``(kh, kw)`` pairs.
-Batched, ``pool2d`` takes the batch as one more leading axis (each output
-reduces its own window in a fixed order); ``globalpool``, a reduction whose
-order may follow the number of outputs, loops per sample.
+``pool2d`` and ``globalpool`` have one plain-torch realization (Step 4b
+records them as ``torch_ew``); ``maxagg`` runs from its compile-time ELL
+arrays (``torch_ell_spdmm``, the gather family, with no kernel: the
+reference has no Pallas member either).  Windows and strides may be
+scalars or ``(kh, kw)`` pairs.  Batched, ``pool2d`` takes the batch as one
+more leading axis (each output reduces its own window in a fixed order);
+``globalpool``, a reduction whose order may follow the number of outputs,
+and ``maxagg`` loop per sample.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.core.plan import MatOp
-from repro_torch.core.runtime.registry import (not_ported, register_batched,
-                                               register_op)
+from repro_torch.core.runtime.registry import register_batched, register_op
+from repro_torch.core.runtime.residency import ell_pair
 from repro_torch.kernels import ref
 
 
@@ -52,5 +56,14 @@ def run_globalpool(op: MatOp, env, params=None):
     return x.amax(axes) if op.attrs["pool"] == "max" else x.mean(axes)
 
 
-register_op("maxagg")(not_ported("ELL max-aggregation",
-                                 "ROADMAP queue 1 item 2"))
+@register_op("maxagg")
+def run_maxagg(op: MatOp, env, params=None):
+    """``out[i] = max over the valid slots l (val[i, l] != 0) of
+    x[idx[i, l]]``; a row with no valid slot, or whose max is -inf, keeps
+    ``x[i]``.  NaN propagates (``amax``)."""
+    x = env[op.inputs[0]]
+    idx, val = ell_pair(op, params)
+    gathered = x[idx.long()]                          # (N, L, F)
+    valid = (val != 0)[..., None]
+    agg = torch.where(valid, gathered, float("-inf")).amax(1)
+    return torch.where(torch.isneginf(agg), x, agg)

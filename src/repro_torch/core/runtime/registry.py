@@ -7,10 +7,7 @@ handler module under ``repro_torch/core/runtime/`` and announces itself with
     def run_mm(op, env, params=None): ...
 
 ``run_op`` is the only entry point the executor needs.  Every kind in
-``plan.MATOP_KINDS`` must have a handler (``validate_registry``); kinds the
-port does not execute yet are registered with ``not_ported``, which raises
-``NotImplementedError`` naming the ROADMAP item that brings them — a plan
-that reaches one fails loudly instead of being approximated.
+``plan.MATOP_KINDS`` must have a handler (``validate_registry``).
 
 Realization dispatch: handlers branch on ``op_kernel(op)`` — the
 compile-time Step-4b choice recorded on the op.
@@ -97,16 +94,6 @@ def register_batched(*kinds: str, when=None
         return fn
 
     return deco
-
-
-def not_ported(what: str, roadmap: str) -> OpHandler:
-    """A handler for a kind the port does not execute yet."""
-
-    def handler(op: MatOp, env: Mapping, params=None):
-        raise NotImplementedError(
-            f"op {op.name!r}: {what} is not ported yet ({roadmap})")
-
-    return handler
 
 
 def get_handler(kind: str) -> OpHandler:

@@ -9,6 +9,9 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
   sddmm.py       sddmm         <- kernels/sddmm.py (Pallas)
   flash_attention.py  flash_attention  <- kernels/flash_attention.py (Pallas)
   ref.py         plain-PyTorch versions of all six
+  ops.py         the public entry points over the wrappers (``use_kernel=
+                 False``: the plain version) and the Step-4 dispatch
+                 ``matmul_auto`` (port of kernels/ops.py)
   _build.py      nvcc build of csrc/*.cu into one ctypes-loaded library
   csrc/          the CUDA sources
 
@@ -22,3 +25,4 @@ from repro_torch.kernels.knn import knn                    # noqa: F401
 from repro_torch.kernels.sddmm import sddmm                # noqa: F401
 from repro_torch.kernels.shift_conv import shift_conv2d    # noqa: F401
 from repro_torch.kernels.spdmm import spdmm, spdmm_rows    # noqa: F401
+from repro_torch.kernels import ops, ref                   # noqa: F401

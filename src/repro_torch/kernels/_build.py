@@ -39,13 +39,17 @@ SIGNATURES = {
     "repro_ddmm": [_P] * 5 + [ctypes.POINTER(_I), _P],
     "repro_ell_spdmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ell_spdmm_rows": [_P] * 4 + [_I] * 5 + [_P],
-    "repro_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_knn_max_k": [],
+    "repro_knn": [_P] * 4 + [_I] * 4 + [_P],
+    "repro_knn_scratch_bytes": [_I, _I],
+    "repro_knn_warp_k": [],
     "repro_sddmm": [_P] * 4 + [_I] * 7 + [_P],
     "repro_sddmm_block": [],
     "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
     "repro_flash_max_d": [],
 }
+
+# Every launcher returns a C int (an error code or a constant) but these.
+RESTYPES = {"repro_knn_scratch_bytes": _L}
 
 _LIB: ctypes.CDLL | None = None
 
@@ -118,7 +122,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

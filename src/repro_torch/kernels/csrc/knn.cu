@@ -50,10 +50,25 @@
 // Distances are formed as (|x_i|² − 2·x_i·x_j) + |x_j|², every sum over F
 // in index order, with __fmul_rn / __fadd_rn / __fsub_rn so that nvcc never
 // contracts them into FMAs: they equal the plain version's fp32
-// arithmetic bit for bit.
+// arithmetic bit for bit (dist below, shared by both routes).
+//
+// The sort route, for k above WARP_K (the warp list holds at most 64
+// entries; the reference takes any k <= N).  A first kernel sums each
+// point's |x_j|² once; then one block per query row forms the row's N keys
+// (the same entry() and dist()), pads them to a power of two with NONE, and
+// sorts them ascending by a bitonic network, one compare-exchange per
+// thread and pair, a __syncthreads() between passes; the first k keys'
+// indices are the row.  The keys sit in shared memory up to SORT_SMEM_KEYS
+// a row (N <= 16384), else in a global scratch of SORT_SCRATCH bytes at
+// most, which the launcher walks in chunks of rows (never the whole N x N).
+// It is bound by operations as the warp route is (the 2·N²·F of the dot
+// products), plus the sort's N·log²N / 2 compare-exchanges a row; a full
+// sort where only k keys are needed is the simple design, not a fast one.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "tf32x3.cuh"   // cp.async helpers
 
@@ -64,7 +79,7 @@ constexpr int THREADS = ROWS * 32;
 constexpr int FC = 32;                  // features per stage, at most
 constexpr int SMALL_F = 3;              // up to here a candidate is one float4
 constexpr int TJ_MAX = 1024;            // candidates per staged tile, at most
-constexpr int K_MAX = 64;               // the largest k
+constexpr int WARP_K = 64;              // the warp list's largest k
 constexpr int GROUP = 4;                // chunks whose keys form together
 constexpr int ALL_PAIRS = 8;            // survivors from which a merge
                                         // compares all pairs
@@ -81,6 +96,12 @@ __device__ __forceinline__ Key entry(float d, int j) {
   uint32_t u = __float_as_uint(d == 0.f ? 0.f : d);
   u = d != d ? 0xffffffffu : (u & 0x80000000u) ? ~u : u | 0x80000000u;
   return static_cast<Key>(u) << 32 | static_cast<uint32_t>(j);
+}
+
+// The squared distance from |x_i|², x_i·x_j and |x_j|², in the plain
+// version's order: (|x_i|² − 2·x_i·x_j) + |x_j|².
+__device__ __forceinline__ float dist(float sqi, float dot, float sqj) {
+  return __fadd_rn(__fsub_rn(sqi, __fmul_rn(2.f, dot)), sqj);
 }
 
 // One key per lane, sorted ascending across the warp (bitonic network).
@@ -302,8 +323,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ mask,
         const int t = t0 + 32 * g + lane, j = j0 + t;
         c[g] = NONE;
         if (t < nj) {
-          const float d =
-              __fadd_rn(__fsub_rn(sqi, __fmul_rn(2.f, acc[g])), sq[g]);
+          const float d = dist(sqi, acc[g], sq[g]);
           const bool ok =
               (mask == nullptr || mt[t] > 0.f) && (self_loops || j != i);
           c[g] = entry(ok ? d : CUDART_INF_F, j);
@@ -357,15 +377,145 @@ void launch(const float* x, const float* mask, int* out, int N, int F,
       x, mask, out, N, F, k, self_loops, fc, tj);
 }
 
+// ---- the sort route (k > WARP_K) ------------------------------------------
+constexpr int SORT_THREADS = 512;
+constexpr int NORM_THREADS = 256;
+constexpr int SORT_SMEM_KEYS = 16384;           // 128 KiB of keys a block
+constexpr size_t SORT_SCRATCH = size_t{256} << 20;  // global keys, at most
+
+// sq[j] = |x_j|², summed over F in order.
+__global__ void __launch_bounds__(NORM_THREADS)
+knn_norms_kernel(const float* __restrict__ x, float* __restrict__ sq, int N,
+                 int F) {
+  const int j = blockIdx.x * NORM_THREADS + threadIdx.x;
+  if (j >= N) return;
+  const float* p = x + (size_t)j * F;
+  float acc = 0.f;
+  for (int f = 0; f < F; ++f) acc = __fadd_rn(acc, __fmul_rn(p[f], p[f]));
+  sq[j] = acc;
+}
+
+// Row row0 + blockIdx.x: its npad keys (NONE past N) in shared memory
+// (SHARED) or in its slice of the global scratch, sorted ascending, the
+// first k indices written.
+template <bool SHARED>
+__global__ void __launch_bounds__(SORT_THREADS)
+knn_sort_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                const float* __restrict__ sq, int* __restrict__ out,
+                Key* scratch, int N, int F, int k, int self_loops, int row0,
+                int npad) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  const int i = row0 + blockIdx.x;
+  Key* const keys = SHARED ? reinterpret_cast<Key*>(raw)
+                           : scratch + (size_t)blockIdx.x * npad;
+  const float* xi = x + (size_t)i * F;
+  const float sqi = sq[i];
+  for (int j = threadIdx.x; j < npad; j += SORT_THREADS) {
+    Key key = NONE;
+    if (j < N) {
+      const float* xj = x + (size_t)j * F;
+      float acc = 0.f;
+      for (int f = 0; f < F; ++f)
+        acc = __fadd_rn(acc, __fmul_rn(xi[f], xj[f]));
+      const bool ok =
+          (mask == nullptr || mask[j] > 0.f) && (self_loops || j != i);
+      key = entry(ok ? dist(sqi, acc, sq[j]) : CUDART_INF_F, j);
+    }
+    keys[j] = key;
+  }
+  __syncthreads();
+  // bitonic network: pass (size, stride) pairs lo with lo + stride, in
+  // ascending order where lo & size is 0 (the last merge: everywhere)
+  for (int size = 2; size <= npad; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < npad / 2; t += SORT_THREADS) {
+        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
+        const Key a = keys[lo], b = keys[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  for (int p = threadIdx.x; p < k; p += SORT_THREADS)
+    out[(size_t)i * k + p] = static_cast<int>(static_cast<uint32_t>(keys[p]));
+}
+
+// The sort route's padded row and, where its keys leave shared memory,
+// the rows of one chunk; the scratch's bytes (norms, then keys).
+struct SortPlan {
+  int npad, chunk;
+  size_t norm_bytes, bytes;
+};
+
+SortPlan sort_plan(int N) {
+  SortPlan p{1, N, 0, 0};
+  while (p.npad < N) p.npad <<= 1;
+  p.norm_bytes = (static_cast<size_t>(N) * sizeof(float) + 255) / 256 * 256;
+  p.bytes = p.norm_bytes;
+  if (p.npad > SORT_SMEM_KEYS) {
+    const size_t row = static_cast<size_t>(p.npad) * sizeof(Key);
+    const size_t rows = SORT_SCRATCH / row;
+    p.chunk = rows < 1 ? 1 : rows < static_cast<size_t>(N) ? (int)rows : N;
+    p.bytes += row * p.chunk;
+  }
+  return p;
+}
+
+cudaError_t launch_sort(const float* x, const float* mask, int* out,
+                        void* scratch, int N, int F, int k, int self_loops,
+                        cudaStream_t stream) {
+  const SortPlan p = sort_plan(N);
+  float* sq = static_cast<float*>(scratch);
+  knn_norms_kernel<<<(N + NORM_THREADS - 1) / NORM_THREADS, NORM_THREADS, 0,
+                     stream>>>(x, sq, N, F);
+  if (p.npad <= SORT_SMEM_KEYS) {
+    // above 48 KB needs an opt-in, once per device (one bit each)
+    static std::atomic<unsigned long long> opted{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (!(opted.load() & bit)) {
+      err = cudaFuncSetAttribute(knn_sort_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SORT_SMEM_KEYS * (int)sizeof(Key));
+      if (err != cudaSuccess) return err;
+      opted.fetch_or(bit);
+    }
+    knn_sort_kernel<true><<<N, SORT_THREADS, p.npad * sizeof(Key), stream>>>(
+        x, mask, sq, out, nullptr, N, F, k, self_loops, 0, p.npad);
+    return cudaGetLastError();
+  }
+  Key* keys = reinterpret_cast<Key*>(static_cast<char*>(scratch) +
+                                     p.norm_bytes);
+  for (int row0 = 0; row0 < N; row0 += p.chunk) {
+    const int rows = N - row0 < p.chunk ? N - row0 : p.chunk;
+    knn_sort_kernel<false><<<rows, SORT_THREADS, 0, stream>>>(
+        x, mask, sq, out, keys, N, F, k, self_loops, row0, p.npad);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // x: (N, F) float32; mask: (N,) float32 or null (every candidate
-// selectable); out: (N, k) int32.  Returns cudaErrorInvalidValue for a k
-// outside [1, min(N, K_MAX)], else cudaGetLastError() after the launch.
-extern "C" int repro_knn(const float* x, const float* mask, int* out, int N,
-                         int F, int k, int self_loops, void* stream) {
-  if (k < 1 || k > K_MAX || k > N || F < 1)
+// selectable); out: (N, k) int32; scratch: repro_knn_scratch_bytes(N, k)
+// bytes of device memory (none for k <= WARP_K).  Returns
+// cudaErrorInvalidValue for a k outside [1, N], else cudaGetLastError()
+// after the launches.
+extern "C" int repro_knn(const float* x, const float* mask, int* out,
+                         void* scratch, int N, int F, int k, int self_loops,
+                         void* stream) {
+  if (k < 1 || k > N || F < 1 || (k > WARP_K && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k > WARP_K)
+    return static_cast<int>(
+        launch_sort(x, mask, out, scratch, N, F, k, self_loops, s));
   // the widest tile of 32-candidate chunks that fits SMEM: two stages of
   // features and masks, the norms and, with F in chunks, the partial dots
   const bool small = F <= SMALL_F;
@@ -377,7 +527,6 @@ extern "C" int repro_knn(const float* x, const float* mask, int* out, int N,
   tj = tj < TJ_MAX ? tj : TJ_MAX;
   tj = tj < (N + 31) / 32 * 32 ? tj : (N + 31) / 32 * 32;
   const size_t bytes = fixed + static_cast<size_t>(tj) * per;
-  auto s = static_cast<cudaStream_t>(stream);
   if (k <= 32) {
     (small ? launch<false, true> : launch<false, false>)(
         x, mask, out, N, F, k, self_loops, fc, tj, bytes, s);
@@ -388,5 +537,11 @@ extern "C" int repro_knn(const float* x, const float* mask, int* out, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest k the kernel takes.
-extern "C" int repro_knn_max_k() { return K_MAX; }
+// The scratch repro_knn needs for N points and k neighbours, in bytes.
+extern "C" long long repro_knn_scratch_bytes(int N, int k) {
+  if (N < 1 || k <= WARP_K) return 0;
+  return static_cast<long long>(sort_plan(N).bytes);
+}
+
+// The largest k of the warp-list route; the sort route takes every k above.
+extern "C" int repro_knn_warp_k() { return WARP_K; }

@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm, launch_plan as ddmm_plan
 from repro_torch.kernels.flash_attention import MAX_D, flash_attention
-from repro_torch.kernels.knn import MAX_K, knn
+from repro_torch.kernels.knn import WARP_MAX_K, knn
 from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
 from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
 from repro_torch.kernels.spdmm import spdmm, spdmm_rows
@@ -115,7 +115,7 @@ KNN_CASES = [
     (1024, 3, 20, 0, True, False),
     (1000, 3, 20, 64, False, False),
     (196, 192, 9, 0, False, False),
-    (70, 5, MAX_K, 30, False, False),
+    (70, 5, WARP_MAX_K, 30, False, False),
     (33, 40, 7, 5, False, True),
 ]
 
@@ -458,10 +458,18 @@ def test_cuda_knn_matches_plain_exactly(cuda, case):
 
 @pytest.mark.cuda
 def test_cuda_knn_ceiling_matches_the_kernel(cuda):
+    """The warp route's largest k is the wrapper's WARP_MAX_K; the next k
+    takes the sort route instead of a refusal (the reference takes every
+    k <= N) and equals the plain version; k > N and float64 raise."""
     from repro_torch.kernels import _build
-    assert _build.library().repro_knn_max_k() == MAX_K
-    with pytest.raises(ValueError, match="ceiling"):
-        knn(torch.zeros((MAX_K + 1, 3), device=cuda), MAX_K + 1)
+    assert _build.library().repro_knn_warp_k() == WARP_MAX_K
+    x = t(knn_inputs(WARP_MAX_K + 1, 3, 0, False)[0]).to(cuda)
+    got = knn(x, WARP_MAX_K + 1)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.knn_ref(x.cpu(), WARP_MAX_K + 1).numpy())
+    with pytest.raises(ValueError, match="out of range"):
+        knn(x, WARP_MAX_K + 2)
     with pytest.raises(TypeError):
         knn(torch.zeros((10, 3), device=cuda, dtype=torch.float64), 3)
 
@@ -470,9 +478,9 @@ def test_cuda_knn_ceiling_matches_the_kernel(cuda):
 # ends, N below a warp and off the block's rows, b7-dyn's (196, 192)
 KNN_ADVERSARIAL = [
     ("rising", 1024, 3, 20), ("falling", 1024, 3, 20),
-    ("rising", 1024, 3, MAX_K), ("equal", 1024, 3, 20),
-    ("equal", 300, 3, MAX_K), ("masked", 1024, 3, 20),
-    ("normal", 1024, 3, 1), ("normal", 1024, 3, MAX_K),
+    ("rising", 1024, 3, WARP_MAX_K), ("equal", 1024, 3, 20),
+    ("equal", 300, 3, WARP_MAX_K), ("masked", 1024, 3, 20),
+    ("normal", 1024, 3, 1), ("normal", 1024, 3, WARP_MAX_K),
     ("normal", 20, 3, 5), ("normal", 1001, 3, 20),
     ("normal", 196, 192, 9)]                       # b7-dyn's patches
 
@@ -495,6 +503,35 @@ def test_cuda_knn_adversarial_orders_match_plain_exactly(cuda, case,
         got.cpu().numpy(),
         ref.knn_ref(x.cpu(), k, mask=None if mask is None else t(mask),
                     self_loops=self_loops).numpy())
+
+
+# The sort route (k > WARP_MAX_K), (name, N, F, k): k up to N in every
+# order, a mask leaving 5 candidates (k > 5: +inf keys in index order), N
+# off a power of two, wide features, and N past the shared-memory row
+# (16384 keys), whose keys go through the global scratch in row chunks
+KNN_SORT = [
+    ("normal", 1024, 3, 65), ("rising", 1024, 3, 128),
+    ("falling", 1024, 3, 512), ("equal", 1024, 3, 1024),
+    ("masked", 1024, 3, 128), ("normal", 1001, 3, 1001),
+    ("normal", 200, 40, 80), ("normal", 16500, 3, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("case", KNN_SORT, ids=str)
+def test_cuda_knn_sort_route_matches_plain_exactly(cuda, case, self_loops):
+    name, n, f, k = case
+    x, mask = knn_adversarial(name, n, f, np.random.default_rng(1))
+    x = t(x).to(cuda)
+    kw = dict(mask=None if mask is None else t(mask).to(cuda),
+              self_loops=self_loops)
+    before = knn.launches
+    got = knn(x, k, **kw)
+    torch.cuda.synchronize()
+    assert knn.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n, k)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.knn_ref(x, k, **kw).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -735,6 +772,32 @@ def test_cuda_request_runs_through_the_kernels(cuda, task, counts):
             0.1 * np.abs(nodes).max()
     close(got.cpu(), build_runner(plain, jit=False)(**inputs)[0].cpu(),
           rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,ddmm_per_request", [
+    ("g1_gcn", 2), ("g2_sage", 4), ("g3_gat", 2)])
+def test_cuda_gnn_zoo_runs_through_the_kernels(cuda, model,
+                                               ddmm_per_request):
+    """g1-g3 on the reference test's mini graph (128 nodes, 512 edges, 32
+    features, 7 classes): every linear through the DDMM kernel, the output
+    within 1e-4 of the plain plan's, the graph replay equal to the eager
+    run bit for bit."""
+    from repro_torch import gcv
+    from repro_torch.gnncv import GNN_ZOO
+    from repro_torch.gnncv.graphs import GraphSpec
+    graph = GNN_ZOO[model](GraphSpec("mini", 128, 512, 32, 7))
+    m, plain = (gcv.compile(graph, kernels=k) for k in ("cuda", "torch"))
+    feats = {"features": np.random.default_rng(1).standard_normal(
+        (128, 32)).astype(np.float32)}
+    before = ddmm.launches
+    eager = m.runner(jit=False)(**feats)[0]
+    torch.cuda.synchronize()
+    assert ddmm.launches - before == ddmm_per_request
+    assert eager.shape == (128, 7) and torch.isfinite(eager).all()
+    close(eager.cpu(), plain.run(**feats)[0].cpu(), rtol=1e-4)
+    m.warmup()
+    assert torch.equal(m.run(**feats)[0], eager)
 
 
 @pytest.mark.cuda

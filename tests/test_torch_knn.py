@@ -16,7 +16,7 @@ from repro.gnncv.graphs import knn_indices
 from repro.kernels.knn import knn as pallas_knn
 from repro.kernels.knn import knn_ref as jax_knn_ref
 from repro_torch.kernels import ref
-from repro_torch.kernels.knn import MAX_K, knn
+from repro_torch.kernels.knn import WARP_MAX_K, knn
 from test_torch_cuda import knn_adversarial
 
 SHAPES = [(64, 3, 5), (100, 16, 12), (130, 3, 20), (300, 8, 9)]
@@ -66,13 +66,13 @@ def test_knn_at_b6_dyn_shape_with_padding_mask():
 
 @pytest.mark.parametrize("self_loops", [False, True])
 @pytest.mark.parametrize("name,k", [("rising", 20), ("falling", 20),
-                                    ("rising", MAX_K), ("equal", 20),
-                                    ("equal", MAX_K), ("masked", 20),
+                                    ("rising", WARP_MAX_K), ("equal", 20),
+                                    ("equal", WARP_MAX_K), ("masked", 20),
                                     ("normal", 1)])
 def test_knn_adversarial_orders_match_reference(name, k, self_loops):
     """The card's adversarial cases (``chip_smoke.knn_adversarial``):
     collinear points visited farthest-first, all points equal, almost
-    every candidate masked, k = 1 and k = MAX_K."""
+    every candidate masked, k = 1 and k = WARP_MAX_K."""
     x, mask = knn_adversarial(name, 200, 3, np.random.default_rng(0))
     kw = dict(mask=mask, self_loops=self_loops)
     got = port(x, k, **kw)
@@ -157,13 +157,17 @@ def test_bf16_points_are_upcast():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """k outside [1, N], a mask of another size and points not (N, F)
+    raise; k above the warp route's WARP_MAX_K does not (the reference
+    takes every k <= N): it returns the reference's indices."""
     x = torch.zeros((10, 3))
     with pytest.raises(ValueError, match="out of range"):
         knn(x, 0)
     with pytest.raises(ValueError, match="out of range"):
         knn(x, 11)
-    with pytest.raises(ValueError, match="ceiling"):
-        knn(torch.zeros((MAX_K + 1, 3)), MAX_K + 1)
+    wide = points(WARP_MAX_K + 1, 3, seed=17)
+    np.testing.assert_array_equal(port(wide, WARP_MAX_K + 1),
+                                  reference(wide, WARP_MAX_K + 1))
     with pytest.raises(ValueError, match="mask"):
         knn(x, 3, mask=torch.ones(9))
     with pytest.raises(ValueError, match=r"\(N, F\)"):

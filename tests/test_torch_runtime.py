@@ -6,7 +6,7 @@ runs its plain version: the port's output must match the reference's
 (interpret mode) within ``max|Δ| <= 1e-5 · max|ref|`` — reference drift
 on this tree is ~1e-6 relative.  Also: parameters carried across with
 ``load_weights`` (the ELL pair and a masked VIP's mask), the no-CUDA
-guard, the loud failure of the kind not ported yet (``maxagg``), float64
+guard, dense max-aggregation (``maxagg``) against the reference, float64
 inputs cast to float32 as the reference casts them, and b4's ELL products
 running on views of their operands.  b5,
 b6 and b6-dyn are in ``test_torch_dynamic.py``; b1-b3 and the VIP graphs in
@@ -184,15 +184,23 @@ def test_registry_covers_lowering_vocabulary():
 
 
 def test_maxagg_is_not_ported_and_says_so():
-    """Dense-adjacency max aggregation (``maxagg``) is the one kind left."""
-    b = GraphBuilder("maxagg")
-    x = b.input((6, 4), name="nodes")
-    plan = compile_graph(b.output(b.mp(x, adj=np.eye(6, dtype=np.float32),
-                                       reduce="max")))
-    assert [op.kind for op in plan.ops] == ["maxagg"]
-    run = build_runner(plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(**random_inputs(plan, seed=0))
+    """Kept under its earlier name (``maxagg`` once raised, naming
+    ROADMAP).  Dense-adjacency max aggregation now runs, bound to the
+    gather family, and equals the reference exactly (a max)."""
+    def graph(builder):
+        b = builder("maxagg")
+        x = b.input((6, 4), name="nodes")
+        return b.output(b.mp(x, adj=np.eye(6, dtype=np.float32),
+                             reduce="max"))
+    plan = compile_graph(graph(GraphBuilder))
+    assert [(op.kind, op.kernel) for op in plan.ops] == \
+        [("maxagg", "torch_ell_spdmm")]
+    inputs = random_inputs(plan, seed=0)
+    got = build_runner(plan, device="cpu")(**inputs)[0].numpy()
+    ref = ref_compile(graph(RefBuilder), RefOptions(target="fpga"))
+    np.testing.assert_array_equal(got, np.asarray(
+        ref_build_runner(ref)(**inputs)[0]))
+    np.testing.assert_array_equal(got, inputs["nodes"])
 
 
 def test_kernelless_op_is_refused():
