@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve         # the serving phase alone
     python3 chip_smoke.py --frontend      # the tracing frontend alone
     python3 chip_smoke.py --gnn           # the GNN phase alone
+    python3 chip_smoke.py --train         # the training phase alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -80,8 +81,22 @@ and ``torch.mm``); KNN's sort route (k above 64) against ``knn_ref``
 exactly; dense max-aggregation equal to the plain plan and the CPU run
 exactly, NaN and an empty row included; and Step 4 under
 ``target="fpga"`` and ``"h100"`` on b1-b7 and g1-g3 on cora (the ops
-that flip, outputs within 1e-4, each plan's device time).  Every number
-printed is measured in this run.
+that flip, outputs within 1e-4, each plan's device time).  Before the
+GNN phase, the training phase (``train_phase``, alone under ``--train``):
+the flash backward kernel (``csrc/flash_attention_bwd.cu``) against
+``attention_bwd_ref`` at llama3.2-1b's training shape (bf16 and fp32),
+qwen3-0.6b's 2048-token shape and the edge cases (dq, dk, dv each within
+tolerance, a second call bit for bit), the forward's LSE against
+``attention_lse_ref`` and its output bits against the serving forward's;
+one fp32 full-width step of llama3.2-1b, kernel path against plain path
+(loss and every grad leaf); ``launch.train.train("llama3.2-1b",
+smoke=False)`` for 30 steps at the launcher's defaults (launch counts, the
+loss falls, step p50/p25/p75, tokens/s, peak memory); a profile of 3 steps
+(device busy, idle share, top kernels, flash forward and backward device
+time a step); a checkpoint at step 2 of 4 restored bit for bit into fresh
+state and run on (resumed == straight reported bit for bit, with the
+leaves whose backward does not repeat); and one step with int8 moments.
+Every number printed is measured in this run.
 The last line is the JSON result; any failure exits nonzero before it.
 Imports the port only (``repro_torch``), never JAX.
 
@@ -279,12 +294,40 @@ PREFILL_RTOL = 2e-2
 MARGIN_RTOL = 4e-2
 # The same weights cast to fp32: the two paths then differ only by the
 # order of fp32 sums, so their prefill logits must agree within E2E_RTOL.
+# The training path: llama3.2-1b at its published width (16 layers, d 2048,
+# 32/8 heads of 64, d_ff 8192, vocab 128256, tied, bf16), random weights
+# from seed 0, through ``launch.train.train`` at the launcher's defaults
+# (batch 8 x 128 tokens, AdamW, cosine lr from 3e-4) for TRAIN_STEPS steps;
+# step times after TRAIN_WARM steps.  The loss must fall by TRAIN_DROP
+# nats from the first step to the last.  Each step launches the forward
+# kernel (with its LSE) and the backward kernel once a layer.
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM = 30, 8, 128, 3
+TRAIN_DROP = 0.1
+# The flash backward against ``attention_bwd_ref`` on the same q, k, v, out,
+# LSE and dout (B, Hq, Hkv, Sq, Sk, D, causal): llama3.2-1b's training
+# shape (bf16 and fp32), qwen3-0.6b's 2048-token shape (bf16), a
+# non-causal case, a continuation (Sq < Sk) and rows with no live key
+# (Sq > Sk); dq, dk and dv each within KERNEL_RTOL (fp32) or
+# FLASH_BF16_RTOL (bf16: both sum in fp32 and round once) of max|plain|,
+# and a second call bit for bit (no atomics).  The forward's LSE must
+# match ``attention_lse_ref`` within KERNEL_RTOL of max|lse|.
+TRAIN_SHAPE = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True)
+QWEN_BWD_SHAPE = (1, 16, 8, LONG_PROMPT, LONG_PROMPT, 128, True)
+FLASH_BWD_EDGES = [(2, 4, 2, 77, 100, 64, False), (1, 4, 1, 64, 256, 64, True),
+                   (2, 4, 1, 40, 24, 64, True)]
+# One fp32 step at full width, kernel path against plain path: the loss
+# within 1e-6 relative (the same fp32 math summed in another order), every
+# grad leaf within TRAIN_GRAD_RTOL of its max|plain| (the attention's
+# rounding differences carried back through 16 layers).
+TRAIN_GRAD_RTOL = 1e-4
 # The name prefix of each kernel's device kernels in a profile (shift-conv's
 # split-K reduction is ``shift_conv_splitk_reduce``; flash has a bf16 and
-# an fp32 kernel).
+# an fp32 kernel, its backward three kernels a call).
 DEVICE_PREFIX = {"shift_conv2d": "shift_conv", "spdmm": "ell_spdmm",
                  "ddmm": "ddmm", "knn": "knn", "sddmm": "sddmm",
-                 "flash_attention": "flash"}
+                 "flash_attention": ("flash_f32", "flash_bf16"),
+                 "flash_attention_bwd": "flash_bwd"}
 # The device kernels that are each wrapper's launch (shift-conv's split-K
 # reduction is a second kernel of the same launch), counted per graph
 # replay under the profiler.
@@ -309,6 +352,10 @@ SOURCES = {
               "src/repro/kernels/sddmm.py:81"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:108"),
+    # no Pallas call: the XLA backward of flash_attention_xla's custom_vjp
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:279"),
 }
 
 
@@ -977,10 +1024,11 @@ def kernel_base(name: str) -> str:
     return head.split("<", 1)[0].split()[-1].split("::")[-1]
 
 
-def device_ms(fn, prefix: str, n: int = 20,
+def device_ms(fn, prefix: str | tuple[str, ...], n: int = 20,
               tries: int = 3) -> float | None:
     """Mean device time of the kernels whose bare name starts with
-    ``prefix``, per call of ``fn``, over ``n`` profiled calls.  A profile
+    ``prefix`` (or one of them), per call of ``fn``, over ``n`` profiled
+    calls.  A profile
     now and then records no device kernel at all; it is taken again, up to
     ``tries`` times (None if none recorded one)."""
     fn()
@@ -2413,13 +2461,16 @@ def live_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
-def flash_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
+def flash_case(shape, dtype, rng, dev, per_request=0.0,
+               lse=False) -> Case:
     """Flash attention at ``(B, Hq, Hkv, Sq, Sk, D, causal)``.  Bound: q,
-    k, v and o moved once; 4·D operations per live pair at the peak of the
+    k, v and o moved once (and the fp32 LSE written, with ``lse``: the
+    training forward); 4·D operations per live pair at the peak of the
     input's type.  Library: one ``F.scaled_dot_product_attention`` call
     (its causal mask is aligned at the top left, so only at Sq = Sk or
     without a mask is it the same function)."""
     from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     b, hq, hkv, sq, sk, d, causal = shape
     q, k, v = (torch.tensor(rng.standard_normal(sh), dtype=torch.float32,
                             device=dev).to(dtype)
@@ -2430,12 +2481,19 @@ def flash_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
             q, k, v, is_causal=causal, enable_gqa=True)
     bf16 = dtype == torch.bfloat16
     label = (f"flash_attention {str(dtype).split('.')[-1]} q{tuple(q.shape)} "
-             f"kv{tuple(k.shape)} causal={causal}")
+             f"kv{tuple(k.shape)} causal={causal}" + (" +lse" if lse else ""))
+
+    def run():
+        if lse:
+            return flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)[0]
+        return flash_attention(q, k, v, causal=causal)
+
     return Case(
-        "flash_attention", label,
-        lambda: flash_attention(q, k, v, causal=causal),
+        "flash_attention", label, run,
         lambda: ref.attention_ref(q, k, v, causal=causal), library,
-        q.element_size() * (2.0 * q.numel() + 2.0 * k.numel()),
+        q.element_size() * (2.0 * q.numel() + 2.0 * k.numel())
+        + (4.0 * b * hq * sq if lse else 0.0),
         4.0 * d * b * hq * live_pairs(sq, sk, causal), per_request,
         rtol=FLASH_BF16_RTOL if bf16 else KERNEL_RTOL,
         rate=BF16_FLOPS if bf16 else FP32_FLOPS)
@@ -2725,6 +2783,379 @@ def lm_profiles(cfg, params, eng, card) -> None:
                    card)
 
 
+# ---- the training path ----------------------------------------------------
+def flash_bwd_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
+    """The flash backward at ``(B, Hq, Hkv, Sq, Sk, D, causal)`` on random
+    q, k, v and dout, with the forward kernel's out and LSE.  Bound: q, k,
+    v, o, dO, dq, dk and dv moved once and the fp32 LSE read; five products
+    of 2·D operations per live pair (q·kᵀ, dO·vᵀ, dq, dk, dv) at the peak
+    of the input's type.  Library: the backward alone of one
+    ``F.scaled_dot_product_attention`` (``enable_gqa``; same top-left
+    caveat as ``flash_case``), by ``torch.autograd.grad`` on its graph."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    b, hq, hkv, sq, sk, d, causal = shape
+    q, k, v, dout = (torch.tensor(rng.standard_normal(sh),
+                                  dtype=torch.float32, device=dev).to(dtype)
+                     for sh in ((b, hq, sq, d), (b, hkv, sk, d),
+                                (b, hkv, sk, d), (b, hq, sq, d)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    library = None
+    if sq == sk or not causal:
+        leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa, leaves, dout, retain_graph=True)
+    bf16 = dtype == torch.bfloat16
+    label = (f"flash_attention_bwd {str(dtype).split('.')[-1]} "
+             f"q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal}")
+    return Case(
+        "flash_attention_bwd", label,
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal=causal),
+        lambda: ref.attention_bwd_ref(q, k, v, out, lse, dout,
+                                      causal=causal), library,
+        q.element_size() * (4.0 * q.numel() + 4.0 * k.numel())
+        + 4.0 * b * hq * sq,
+        10.0 * d * b * hq * live_pairs(sq, sk, causal), per_request,
+        rtol=FLASH_BF16_RTOL if bf16 else KERNEL_RTOL,
+        rate=BF16_FLOPS if bf16 else FP32_FLOPS)
+
+
+def check_bwd_case(case: Case) -> float:
+    """dq, dk and dv of the kernel against the plain version, each within
+    ``case.rtol`` of its max|plain|, finite, and a second call's bits equal
+    the first's.  Returns the largest max|kernel - plain|."""
+    got, again, want = case.run(), case.run(), case.plain()
+    torch.cuda.synchronize()
+    errs, msgs, ok = [], [], True
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (case.label, name)
+        assert torch.isfinite(g).all(), f"{case.label}: non-finite {name}"
+        assert torch.equal(g, a), f"{case.label}: {name} differs between " \
+            "two calls"
+        err, rel = rel_err(g.float(), w.float())
+        errs.append(err)
+        ok &= rel <= case.rtol
+        msgs.append(f"{name} max|d|={err:.3e} rel={rel:.3e}")
+    msg = f"check {case.label}: " + ", ".join(msgs) + ", bit-equal twice"
+    if case.library is not None:
+        lib = case.library()
+        msg += " (library rel " + ", ".join(
+            f"{rel_err(x.float(), w.float())[1]:.3e}"
+            for x, w in zip(lib, want)) + ")"
+    log(msg + ("" if ok else "  FAIL"))
+    assert ok, f"{case.label}: the backward kernel disagrees with its plain " \
+        "version"
+    return max(errs)
+
+
+def train_cases(rng, dev, n_layers: int) -> list[Case]:
+    """The training path's calls, weighted by their launches per step (the
+    forward with its LSE and the backward at llama3.2-1b's training shape,
+    bf16), and the same calls in fp32, qwen3-0.6b's 2048-token shape and
+    the edge cases, checked and timed but off the path."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [flash_case(TRAIN_SHAPE, bf16, rng, dev, per_request=n_layers,
+                        lse=True),
+             flash_bwd_case(TRAIN_SHAPE, bf16, rng, dev,
+                            per_request=n_layers),
+             flash_case(TRAIN_SHAPE, f32, rng, dev, lse=True),
+             flash_bwd_case(TRAIN_SHAPE, f32, rng, dev),
+             flash_bwd_case(QWEN_BWD_SHAPE, bf16, rng, dev)]
+    for shape in FLASH_BWD_EDGES:
+        cases += [flash_bwd_case(shape, dt, rng, dev) for dt in (f32, bf16)]
+    return cases
+
+
+def flash_lse_checks(rng, dev) -> None:
+    """The training forward (LSE written) gives the serving forward's (no
+    LSE pointer) output bits; its LSE matches ``attention_lse_ref`` within
+    KERNEL_RTOL of max|lse| (fp32 in both types), -inf exactly on the rows
+    with no live key."""
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    worst = 0.0
+    for shape in (TRAIN_SHAPE, QWEN_BWD_SHAPE, *FLASH_BWD_EDGES):
+        b, hq, hkv, sq, sk, d, causal = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.tensor(rng.standard_normal(sh),
+                                    dtype=torch.float32, device=dev)
+                       .to(dtype) for sh in ((b, hq, sq, d), (b, hkv, sk, d),
+                                             (b, hkv, sk, d)))
+            served = flash_attention(q, k, v, causal=causal)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                           return_lse=True)
+            _, want = ref.attention_lse_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert torch.equal(served, out), \
+                f"{shape} {dtype}: the LSE pointer changed the output"
+            dead = torch.isneginf(want)
+            assert torch.equal(torch.isneginf(lse), dead), (shape, dtype)
+            _, rel = rel_err(lse[~dead], want[~dead])
+            worst = max(worst, rel)
+    ok = worst <= KERNEL_RTOL
+    log(f"check flash forward with LSE: output bits equal the serving "
+        f"forward's at {2 + len(FLASH_BWD_EDGES)} shapes x 2 types; LSE rel "
+        f"up to {worst:.3e} (limit {KERNEL_RTOL:g}), -inf exactly on the "
+        f"rows with no live key" + ("" if ok else "  FAIL"))
+    assert ok, "the forward's LSE disagrees with attention_lse_ref"
+
+
+def free_cuda() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_fp32_parity(cfg) -> None:
+    """One full-width ``lm_loss`` and its grads with the weights cast to
+    fp32 on one batch of the launcher's pipeline: the kernel path
+    (``impl="chunked"``: flash forward and backward kernels) against the
+    plain path (``"naive"``: autograd through plain attention)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.train.optim import tree_leaves
+    params = as_fp32(init_lm(0, cfg, device="cuda"))
+    free_cuda()
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    batch = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                          device="cuda").batch(0)
+    res = {}
+    for impl in ("chunked", "naive"):
+        loss, _ = lm_loss(params, cfg, batch, impl=impl)
+        res[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+    (l_k, g_k), (l_p, g_p) = res["chunked"], res["naive"]
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    worst = max(rel_err(a, b)[1] for a, b in zip(g_k, g_p))
+    ok = loss_rel <= 1e-6 and worst <= TRAIN_GRAD_RTOL
+    log(f"{TRAIN_ARCH} in fp32, one train step's loss and grads, kernel vs "
+        f"plain path: loss {l_k:.6f} vs {l_p:.6f} (rel {loss_rel:.3e}, limit "
+        f"1e-06), grads rel up to {worst:.3e} of each leaf's max over "
+        f"{len(leaves)} leaves (limit {TRAIN_GRAD_RTOL:g})"
+        + ("" if ok else "  FAIL"))
+    assert ok, "fp32 train step: kernel path disagrees with the plain path"
+    del params, leaves, res, g_k, g_p
+    free_cuda()
+
+
+def train_launcher(cfg, kernels, card) -> dict[str, int]:
+    """The training path through its entry point,
+    ``launch.train.train(TRAIN_ARCH, smoke=False)`` at the launcher's
+    defaults: counts set to 0 just before, read just after; the loss must
+    fall; step times by the launcher's clock (its ``.item()`` waits for the
+    step), tokens/s, peak device memory."""
+    from repro_torch.launch.train import train
+    free_cuda()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = cfg.n_layers * TRAIN_STEPS
+    launches = lm_counts(kernels, {"flash_attention": per_step,
+                                   "flash_attention_bwd": per_step},
+                         f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps")
+    hist = res["history"]
+    assert len(hist) == TRAIN_STEPS and all(map(math.isfinite, hist)), hist
+    drop = hist[0] - hist[-1]
+    log(f"{TRAIN_ARCH} train (launch.train.train, full config, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}): loss {hist[0]:.4f} -> {hist[-1]:.4f} "
+        f"(fell {drop:.4f}, limit {TRAIN_DROP:g}); every 5th: "
+        f"{[round(x, 4) for x in hist[::5]]}; stragglers "
+        f"{res['stragglers']}" + ("" if drop >= TRAIN_DROP else "  FAIL"))
+    assert drop >= TRAIN_DROP, "the loss did not fall"
+    steps = res["step_ms"][TRAIN_WARM:]
+    q1, _, q3 = statistics.quantiles(steps, n=4)
+    p50 = statistics.median(steps)
+    log(f"{TRAIN_ARCH} train step (host clock, synchronized, "
+        f"{len(steps)} steps after {TRAIN_WARM}): p50 {p50:.4f} ms, p25 "
+        f"{q1:.4f}, p75 {q3:.4f}; {TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.1f} "
+        f"tokens/s; peak device memory {peak / 2**30:.3f} GiB "
+        f"(max_memory_allocated)  [{card}]")
+    free_cuda()
+    return launches
+
+
+def train_setup(cfg, *, quantized=False, steps=TRAIN_STEPS):
+    """What ``launch.train.train`` builds: weights, AdamW with its cosine
+    schedule, the step, the pipeline."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import adamw, build_train_step
+    from repro_torch.train.optim import cosine_schedule
+    opt = adamw(cosine_schedule(3e-4, warmup=min(20, steps // 10 + 1),
+                                total=steps), quantized=quantized)
+    params = init_lm(0, cfg, device="cuda")
+    return (params, opt.init(params), opt, build_train_step(cfg, opt),
+            TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                          device="cuda"))
+
+
+def train_profile(cfg, card) -> None:
+    """Device busy and idle share of 3 profiled steps and their top
+    kernels, and the flash forward's and backward's device time a step."""
+    params, state, _, step_fn, pipe = train_setup(cfg)
+    it = itertools.count()
+
+    def one():
+        nonlocal params, state
+        params, state, m = step_fn(params, state, pipe.batch(next(it)))
+        m["loss"].item()
+
+    for _ in range(TRAIN_WARM):
+        one()
+    events = profile_window(one, 3, f"{TRAIN_ARCH} train steps", "step",
+                            card, warm=one)
+    if events:
+        def ms(prefix):
+            return sum(e.time_range.end - e.time_range.start for e in events
+                       if kernel_base(e.name).startswith(prefix)) / 3 / 1e3
+        log(f"{TRAIN_ARCH} train step, flash device time (profile): forward "
+            f"with LSE {ms(DEVICE_PREFIX['flash_attention']):.4f} ms/step, "
+            f"backward {ms(DEVICE_PREFIX['flash_attention_bwd']):.4f} "
+            f"ms/step  [{card}]")
+    del params, state, step_fn
+    free_cuda()
+
+
+def train_resume(cfg, card) -> None:
+    """Save at step 2 of 4 with ``CheckpointManager`` (the reference's
+    format, under ``build/``), restore into freshly built weights and
+    state: every leaf must equal what was saved bit for bit; then steps 3-4
+    against the straight run's (bit for bit is reported; where it does not
+    hold, two gradients from the same state name the leaves whose backward
+    is not reproducible)."""
+    import shutil
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.optim import tree_leaves
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    params, state, opt, step_fn, pipe = train_setup(cfg, steps=4)
+    straight, saved = [], None
+    for step in range(4):
+        params, state, m = step_fn(params, state, pipe.batch(step))
+        straight.append(m["loss"].item())
+        if step == 1:
+            t0 = time.perf_counter()
+            mgr.save(2, {"params": params, "opt": state},
+                     extra={"loss": straight[-1], "data_cursor": 2})
+            save_s = time.perf_counter() - t0
+            saved = [x.clone() for x in tree_leaves(
+                {"params": params, "opt": state})]
+    del params, state
+    free_cuda()
+    params, state, _, step_fn, _ = train_setup(cfg, steps=4)
+    t0 = time.perf_counter()
+    back = mgr.restore(2, {"params": params, "opt": state})
+    restore_s = time.perf_counter() - t0
+    del params, state
+    restored = tree_leaves(back)
+    differ = sum(not torch.equal(a, b) for a, b in zip(restored, saved))
+    nbytes = sum(x.numel() * x.element_size() for x in saved)
+    del saved
+    params, state = back["params"], back["opt"]
+    log(f"{TRAIN_ARCH} checkpoint at step 2: {nbytes / 2**30:.3f} GiB, save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s (host clock); restored "
+        f"leaves differing from the saved: {differ} of {len(restored)}"
+        + ("" if not differ else "  FAIL"))
+    assert not differ, "a restored leaf differs from the saved one"
+    batch = pipe.batch(2)
+    grads, leaves = [], [p.requires_grad_(True) for p in tree_leaves(params)]
+    for _ in range(2):              # the same state, the same batch, twice
+        loss, _ = lm_loss(params, cfg, batch)
+        grads.append(torch.autograd.grad(loss, leaves))
+    names = list(_leaf_names({"params": params}))
+    unstable = [(n, rel_err(a.float(), b.float())[1]) for n, a, b in zip(
+        names, *grads) if not torch.equal(a, b)]
+    del grads, leaves, restored
+    resumed = []
+    for step in (2, 3):
+        params, state, m = step_fn(params, state, pipe.batch(step))
+        resumed.append(m["loss"].item())
+    same = resumed == straight[2:]
+    gap = max(abs(a - b) for a, b in zip(resumed, straight[2:]))
+    log(f"{TRAIN_ARCH} resumed steps 3-4 {resumed} vs straight "
+        f"{straight[2:]}: " + ("bit for bit" if same else
+                               f"NOT bit for bit, largest loss gap {gap:.3e}")
+        + "; two backwards from the restored state differ in "
+        + (", ".join(f"{n} (rel {r:.3e})" for n, r in unstable) if unstable
+           else "no leaf"))
+    assert gap <= 1e-3 * abs(straight[-1]), "the resumed run diverged"
+    del params, state, back, step_fn
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_cuda()
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaf_names(tree[key], f"{prefix}/{key}")
+    else:
+        yield prefix
+
+
+def train_int8(cfg, card) -> None:
+    """One full-width step with int8 moments (``adamw(quantized=True)``):
+    the state's bytes and a finite loss."""
+    params, state, _, step_fn, pipe = train_setup(cfg, quantized=True)
+    from repro_torch.train.optim import tree_leaves
+    nbytes = sum(x.numel() * x.element_size()
+                 for q in tree_leaves({"m": state["m"], "v": state["v"]})
+                 for x in q)
+    pbytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    params, state, m = step_fn(params, state, pipe.batch(0))
+    loss = m["loss"].item()
+    log(f"{TRAIN_ARCH} one step with int8 moments: loss {loss:.4f}; moments "
+        f"{nbytes / 2**30:.3f} GiB (fp32 would be "
+        f"{2 * pbytes * 2 / 2**30:.3f} GiB), params {pbytes / 2**30:.3f} "
+        f"GiB" + ("" if math.isfinite(loss) else "  FAIL"))
+    assert math.isfinite(loss), "int8 moments: non-finite loss"
+    del params, state, step_fn
+    free_cuda()
+
+
+def train_phase(kernels, card) -> list[dict]:
+    """The training path (``--train`` alone, or after the LM phases): the
+    backward kernel and the forward's LSE against their plain versions,
+    one fp32 full-width step kernel vs plain, the launcher at full width
+    (its counts and times), a profile of 3 steps, checkpoint resume and
+    int8 moments; returns the kernels' JSON rows."""
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+    assert TRAIN_SHAPE == (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                           TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim, True)
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    cases = train_cases(rng, dev, cfg.n_layers)
+    max_err = dict.fromkeys(kernels, 0.0)
+    for case in cases:
+        check = check_bwd_case if case.kernel == "flash_attention_bwd" \
+            else check_case
+        max_err[case.kernel] = max(max_err[case.kernel], check(case))
+    flash_lse_checks(rng, dev)
+    train_fp32_parity(cfg)
+    launches = train_launcher(cfg, kernels, card)
+    train_profile(cfg, card)
+    train_resume(cfg, card)
+    train_int8(cfg, card)
+    per_step = {"flash_attention": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    rows = kernel_rows("lm-train", cases, launches, per_step, max_err, card,
+                       unit=f"ms per {TRAIN_ARCH} train step (batch "
+                            f"{TRAIN_BATCH} x {TRAIN_SEQ}): its "
+                            f"{cfg.n_layers} launches")
+    del cases
+    free_cuda()
+    return rows
+
+
 def device_only_ms(fn, n: int = 40) -> float:
     """Mean device time of ``fn`` by CUDA events, with the host's launches
     queued behind a sleeping kernel, so that the host's launch rate does
@@ -2902,8 +3333,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import (_build, ddmm, flash_attention, knn,
-                                     sddmm, shift_conv2d, spdmm_rows)
+    from repro_torch.kernels import (_build, ddmm, flash_attention,
+                                     flash_attention_bwd, knn, sddmm,
+                                     shift_conv2d, spdmm_rows)
     from repro_torch.kernels.flash_attention import MAX_D
     from repro_torch.kernels.knn import WARP_MAX_K
     from repro_torch.kernels.sddmm import BLOCK
@@ -2911,7 +3343,8 @@ def main() -> int:
     # "spdmm" counts the entry the path calls, spdmm_rows
     kernels = {"shift_conv2d": shift_conv2d, "spdmm": spdmm_rows,
                "ddmm": ddmm, "knn": knn, "sddmm": sddmm,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd}
 
     # ---- phase 1: card, numerics, build ---------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2942,6 +3375,11 @@ def main() -> int:
         return finish()
     if "--ddmm-sweep" in sys.argv[1:]:
         ddmm_sweep(card)
+        return finish()
+    if "--train" in sys.argv[1:]:
+        rows = train_phase(kernels, card)
+        log(f"card: {card}")
+        log(json.dumps({"kernels": rows}))
         return finish()
 
     tasks = list(PER_REQUEST)
@@ -3011,6 +3449,7 @@ def main() -> int:
     lm_fp32_parity(lm_cfg, lm_params, lm_reqs)
     launches["lm-prefill-2048"] = lm_long_prefill(lm_cfg, lm_params,
                                                   kernels, card)
+    train_rows = train_phase(kernels, card)
     gnn_rows = gnn_phase(kernels, requests, card)
 
     # ---- phase 4: timing -----------------------------------------------
@@ -3036,7 +3475,7 @@ def main() -> int:
         launches["lm-prefill-2048"], per_prefill, max_err["lm-prefill-2048"],
         card, unit=f"ms per {LONG_PROMPT}-token {LM_ARCH} prefill: sum "
                    f"over its {lm_cfg.n_layers} launches")
-    rows += gnn_rows
+    rows += train_rows + gnn_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     return finish()

@@ -7,8 +7,10 @@ Port of ``src/repro/kernels``.  One module per TPU kernel of the reference:
   spdmm.py       spdmm, spdmm_rows <- kernels/spdmm.py (Pallas)
   knn.py         knn           <- kernels/knn.py (Pallas)
   sddmm.py       sddmm         <- kernels/sddmm.py (Pallas)
-  flash_attention.py  flash_attention  <- kernels/flash_attention.py (Pallas)
-  ref.py         plain-PyTorch versions of all six
+  flash_attention.py  flash_attention  <- kernels/flash_attention.py (Pallas);
+                 flash_attention_bwd, FlashAttentionFn <- the XLA backward
+                 of models/attention.py:flash_attention_xla (_flash_bwd)
+  ref.py         plain-PyTorch versions of all seven
   ops.py         the public entry points over the wrappers (``use_kernel=
                  False``: the plain version) and the Step-4 dispatch
                  ``matmul_auto`` (port of kernels/ops.py)
@@ -20,7 +22,8 @@ for CUDA tensors (or raises), and counts its launches in ``<fn>.launches``,
 those recorded into a CUDA graph also in ``<fn>.captured``.
 """
 from repro_torch.kernels.ddmm import ddmm                  # noqa: F401
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    FlashAttentionFn, flash_attention, flash_attention_bwd)
 from repro_torch.kernels.knn import knn                    # noqa: F401
 from repro_torch.kernels.sddmm import sddmm                # noqa: F401
 from repro_torch.kernels.shift_conv import shift_conv2d    # noqa: F401

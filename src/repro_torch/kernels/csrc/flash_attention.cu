@@ -48,6 +48,11 @@
 //   (H100; PERF.md).
 // - Only tiles that cross the causal diagonal or the end of the keys are
 //   masked; exp2 of scores pre-scaled by scale·log2(e).
+// Both kernels can also write each row's log-sum-exp of the scaled scores,
+// lse = m + log(l) in natural-log units (-inf for a row with no live key),
+// as fp32 (B, Hq, Sq): the training path saves it for the backward
+// (csrc/flash_attention_bwd.cu).  A null pointer writes nothing: the
+// serving path passes null and its arithmetic is unchanged.
 // fp32 (parity checks only; no served path): SIMT, as first written.
 // Thread (ty, tx) of 256 owns query rows 4·ty..4·ty+3: their scores for
 // keys tx and tx+16 of a 32-key tile, their running m and l, and their
@@ -84,9 +89,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_f32_simt_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      int group, int Sq, int Sk, int D, int causal,
-                      float scale, Strides qs, Strides ks, Strides vs,
-                      Strides os) {
+                      float* __restrict__ lse, int group, int Sq, int Sk,
+                      int D, int causal, float scale, Strides qs,
+                      Strides ks, Strides vs, Strides os) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [BQ][DP + 1]
   float* Ks = Qs + BQ * (DP + 1);         // [BK][DP + 1]
@@ -205,6 +210,9 @@ flash_f32_simt_kernel(const float* __restrict__ q,
   for (int i = 0; i < RM; ++i) {
     const int gq = q0 + ty * RM + i;
     if (gq >= Sq) continue;
+    if (lse != nullptr && tx == 0)      // m = -inf (no live key): -inf
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + gq] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
@@ -276,9 +284,10 @@ __global__ void __launch_bounds__(MTHREADS)
 flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, int group, int Sq,
-                      int Sk, int D, int causal, float scale_log2,
-                      Strides qs, Strides ks, Strides vs, Strides os) {
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int group, int Sq, int Sk,
+                      int D, int causal, float scale_log2, Strides qs,
+                      Strides ks, Strides vs, Strides os) {
   constexpr int LD = DP + 8;          // shared row stride, elements
   constexpr int CH = DP / 8;          // 16-byte chunks per row
   constexpr int KD = DP / 16;         // k16 steps over the head dim
@@ -463,6 +472,9 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     den += __shfl_xor_sync(0xffffffffu, den, 2);
     const int row = q0 + r0 + gq + 8 * half;
     if (row >= Sq) continue;
+    if (lse != nullptr && tq == 0)      // m in log2 units; -inf stays -inf
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + row] =
+          m[half] * 0.6931471805599453f + logf(fmaxf(den, 1e-30f));
     if (den == 0.f) den = 1.f;          // no live key: acc is 0
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -483,26 +495,26 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
 }
 
 template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-               float scale, Strides qs, Strides ks, Strides vs, Strides os,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+               int causal, float scale, Strides qs, Strides ks, Strides vs,
+               Strides os, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DP>() * sizeof(float);
   const cudaError_t err = opt_in_smem(flash_f32_simt_kernel<DP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_f32_simt_kernel<DP><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq / Hkv, Sq,
-      Sk, D, causal, scale, qs, ks, vs, os);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq / Hkv,
+      Sq, Sk, D, causal, scale, qs, ks, vs, os);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                float scale, Strides qs, Strides ks, Strides vs, Strides os,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                int causal, float scale, Strides qs, Strides ks, Strides vs,
+                Strides os, cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<DP>();
   const cudaError_t err = opt_in_smem(flash_bf16_mma_kernel<DP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -511,8 +523,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq / Hkv, Sq, Sk, D, causal, scale * 1.4426950408889634f, qs, ks, vs,
-      os);
+      lse, Hq / Hkv, Sq, Sk, D, causal, scale * 1.4426950408889634f, qs, ks,
+      vs, os);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -522,13 +534,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" int repro_flash_max_d() { return MAX_D; }
 
 // q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o like q; each addressed as
-// base + b*s_b + h*s_h + i*s_s + d (the head dim contiguous).  dtype 0 is
+// base + b*s_b + h*s_h + i*s_s + d (the head dim contiguous).  lse: null,
+// or fp32 (B, Hq, Sq) contiguous for each row's log-sum-exp.  dtype 0 is
 // float32, 1 bfloat16; bf16 needs D % 8 == 0 and 16-byte-aligned bases and
 // strides (the wrapper checks).  Returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Hq, int Hkv, int Sq, int Sk, int D, int causal, float scale,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
+    float scale,
     long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss,
@@ -540,15 +554,15 @@ extern "C" int repro_flash_attention(
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return D <= 64 ? launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+    return D <= 64 ? launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
                                     causal, scale, qs, ks, vs, os, st)
-                   : launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+                   : launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
                                      causal, scale, qs, ks, vs, os, st);
   if (dtype == 1) {
     if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return D <= 64 ? launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+    return D <= 64 ? launch_bf16<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
                                      causal, scale, qs, ks, vs, os, st)
-                   : launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+                   : launch_bf16<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
                                       causal, scale, qs, ks, vs, os, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

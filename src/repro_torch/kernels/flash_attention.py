@@ -15,8 +15,15 @@ the tensor cores (64 queries x 64 keys, bf16 MMAs with fp32 accumulation,
 p in three bf16 parts, fp32-level, k and v staged by 16-byte copies);
 fp32 runs on the SIMT kernel (64 queries x 32 keys).
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+Training (``flash_attention_fwd(return_lse=True)``, ``flash_attention_bwd``,
+``FlashAttentionFn``): the forward also writes each row's log-sum-exp
+(fp32 ``(B, Hq, Sq)``), and the backward kernel ``csrc/flash_attention_bwd.cu``
+recomputes the scores from q, k and it to give dq, dk and dv: the port of
+the reference's ``models/attention.py:_flash_bwd``, the backward of
+``flash_attention_xla``.  Its plain version is ``ref.attention_bwd_ref``.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -43,35 +50,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     multiple of 8), for the kernel's 16-byte copies.  Returns q's dtype,
     laid out like q.  ``scale`` defaults to ``1/sqrt(D)``.
     """
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+
+def _check_heads(name: str, q, k, v) -> tuple[int, int, int, int, int, int]:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"flash_attention: q{tuple(q.shape)} does not fit "
+        raise ValueError(f"{name}: q{tuple(q.shape)} does not fit "
                          f"k/v{tuple(k.shape)}")
+    return B, Hq, Hkv, Sq, Sk, D
+
+
+def _check_card(name: str, q, *others) -> None:
+    """What both kernels take: one CUDA device, one supported dtype, the
+    head dim contiguous, int32-indexable sizes."""
+    D = q.shape[-1]
+    if D > MAX_D:
+        raise ValueError(f"{name}: head dim {D} > {MAX_D}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not in {list(DTYPES)}")
+    for oname, t in others:
+        if t.device != q.device:
+            raise ValueError(f"{name}: every operand must be on one CUDA "
+                             f"device, got {oname} on {t.device} and q on "
+                             f"{q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {oname} is {t.dtype}, q is {q.dtype}")
+    tensors = (q, *(t for _, t in others))
+    if any(t.stride(3) != 1 and t.shape[3] > 1 for t in tensors):
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    if any(t.numel() >= 2**31 for t in tensors):
+        raise ValueError(f"{name}: operand too large for int32 indexing")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None,
+                        return_lse: bool = False):
+    """``flash_attention``; with ``return_lse`` also each row's
+    log-sum-exp of the scaled scores, fp32 ``(B, Hq, Sq)`` contiguous
+    (``-inf`` for a row with no live key): ``(out, lse)``.  One launch,
+    counted in ``flash_attention.launches``."""
+    B, Hq, Hkv, Sq, Sk, D = _check_heads("flash_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
+        if return_lse:
+            return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale)
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
-    if D > MAX_D:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_D}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not in "
-                        f"{list(DTYPES)}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: every operand must be on "
-                             f"one CUDA device, got {name} on {t.device} "
-                             f"and q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
-                            f"{q.dtype}")
-    if any(t.stride(3) != 1 and t.shape[3] > 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dim must be contiguous")
-    if any(t.numel() >= 2**31 for t in (q, k, v)):
-        raise ValueError("flash_attention: operand too large for int32 "
-                         "indexing")
+    _check_card("flash_attention", q, ("k", k), ("v", v))
     out = torch.empty_like(q)               # q's layout: strides preserved
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -84,14 +113,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     f"D % 8 == 0) for the kernel's 16-byte copies, got D={D}, "
                     f"strides {t.stride()}, base {t.data_ptr() % 16} bytes "
                     f"past a 16-byte boundary")
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _build.library().repro_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
+        _build.ptr(lse), DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
         ctypes.c_float(scale), *strides, _build.stream_of(q))
     _build.check(err, "flash_attention")
     _build.counted(flash_attention)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = flash_attention.captured = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None):
+    """dq, dk, dv of ``flash_attention(q, k, v)`` given its ``out``, the
+    ``lse`` of ``flash_attention_fwd(return_lse=True)`` and the incoming
+    gradient ``dout`` (shaped like q).  Each comes out in its input's dtype
+    and layout.  q, k, v, out and dout may have any batch, head and
+    sequence strides (0 included) at any alignment; on the card their head
+    dim must be contiguous.  One call launches three kernels (delta, dk/dv,
+    dq) and counts one launch in ``flash_attention_bwd.launches``."""
+    B, Hq, Hkv, Sq, Sk, D = _check_heads("flash_attention_bwd", q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
+                         f"dout{tuple(dout.shape)} must be shaped like "
+                         f"q{tuple(q.shape)}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be fp32 "
+                         f"{(B, Hq, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                     scale=scale)
+    _check_card("flash_attention_bwd", q, ("k", k), ("v", v), ("out", out),
+                ("dout", dout))
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous, on "
+                         "q's device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv)
+          for s in t.stride()[:3]))
+    err = _build.library().repro_flash_attention_bwd(
+        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, dk, dv,
+                                  delta)),
+        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
+        ctypes.c_float(scale), strides, _build.stream_of(q))
+    _build.check(err, "flash_attention_bwd")
+    _build.counted(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = flash_attention_bwd.captured = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: the port's counterpart of the
+    reference's ``flash_attention_xla`` (``models/attention.py:183``, a
+    ``jax.custom_vjp``).  The forward runs ``flash_attention_fwd`` and
+    saves q, k, v, out and the LSE; the backward runs
+    ``flash_attention_bwd`` (the kernel on CUDA tensors, the plain version
+    on CPU tensors).  q ``(B, Hq, Sq, D)`` and k, v ``(B, Hkv, Sk, D)`` in
+    any strides, as the forward takes them.  A ``dout`` whose head dim is
+    not contiguous (an expanded gradient, e.g. of ``out.sum()``) is made
+    contiguous before the kernel reads it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True,
+                scale: float | None = None):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(3) != 1 and dout.shape[3] > 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None

@@ -1,7 +1,10 @@
 """Plain-PyTorch versions of the port's kernels — port of
 ``src/repro/kernels/ref.py`` (``ddmm_ref``, ``spdmm_ref``, ``sddmm_ref``,
 ``conv2d_ref``, ``attention_ref``), plus ``spdmm_rows_ref``, the ELL
-product in the runtime's ``(R, S2)`` layout.
+product in the runtime's ``(R, S2)`` layout, and the training path's two
+attention twins: ``attention_lse_ref`` (the forward with its log-sum-exp)
+and ``attention_bwd_ref`` (the math of the reference's
+``models/attention.py:_flash_bwd``).
 
 Each ``*_ref`` computes what its hand-written CUDA kernel computes, in the
 reference's layouts, with ordinary torch ops:
@@ -180,3 +183,60 @@ def attention_ref(q, k, v, *, causal=True, scale=None):
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
     return (out / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
+def _live(sq: int, sk: int, causal: bool, device) -> torch.Tensor | None:
+    """``(Sq, Sk)`` mask of the pairs attention computes, None without a
+    mask: query i sees keys ``j <= i + (Sk - Sq)``."""
+    if not causal:
+        return None
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    return torch.arange(sk, device=device)[None, :] <= qpos
+
+
+def attention_lse_ref(q, k, v, *, causal=True, scale=None):
+    """``attention_ref`` and each row's log-sum-exp of the scaled scores,
+    fp32 ``(B, Hq, Sq)``: the reference's ``lse = m + log(max(l, 1e-30))``
+    (``models/attention.py:268``), ``-inf`` for a row with no live key
+    (the reference's ``-1e30`` mask value makes it about ``-1e30``)."""
+    d, group = q.shape[-1], q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(group, 1)) * scale
+    live = _live(q.shape[2], k.shape[2], causal, q.device)
+    if live is not None:
+        s = s.masked_fill(~live, float("-inf"))
+    return (attention_ref(q, k, v, causal=causal, scale=scale),
+            torch.logsumexp(s, -1))
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, scale=None):
+    """dq, dk, dv of ``attention_ref`` from the forward's ``out`` and
+    ``lse`` and the incoming ``dout``, in the layouts of ``attention_ref``:
+    the math of the reference's ``_flash_bwd``, in fp32 over the full
+    ``(Sq, Sk)`` matrices: ``D = rowsum(dO·O)``, ``p = exp(s - lse)`` on the
+    live pairs (0 elsewhere, so a row with no live key adds nothing),
+    ``ds = p·(dp - D)·scale``, ``dq = ds k``, ``dk = dsᵀ q`` and
+    ``dv = pᵀ dO``, dk and dv summed over each kv head's ``Hq / Hkv`` query
+    heads; each cast to its input's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, gf = q.float(), dout.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    live = _live(sq, sk, causal, q.device)
+    if live is not None:
+        p = torch.where(live, p, 0.0)
+    delta = (gf * out.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    fold = (b, hkv, group, sk, d)
+    return (dq.to(q.dtype), dk.reshape(fold).sum(2).to(k.dtype),
+            dv.reshape(fold).sum(2).to(v.dtype))

@@ -1,1 +1,2 @@
-"""Launchers of the port.  Port of ``src/repro/launch`` (``serve.py``)."""
+"""Launchers of the port.  Port of ``src/repro/launch`` (``serve.py``,
+``train.py``)."""

@@ -12,6 +12,10 @@ attention core are ported:
            kernel; here the hand-written CUDA kernel
            (``kernels/flash_attention.py``), which reads q, k and v as
            permuted views.  On CPU tensors it runs its plain version.
+           When grad is enabled and an input needs it, it runs through
+           ``FlashAttentionFn``, the port of the reference's
+           ``flash_attention_xla`` custom_vjp: the forward kernel saves the
+           LSE and the backward kernel recomputes the scores.
 
 ``tri`` and ``chunked_scan`` compute the same function and are not ported
 (ROADMAP queue 1 item 10); nor is MLA.
@@ -22,7 +26,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention)
 from repro_torch.models.layers import (dot, head_rms_norm, init_linear,
                                        rope)
 
@@ -57,13 +62,19 @@ def naive_attention(q, k, v, *, causal: bool, offset: int = 0,
 def flash_chunked_attention(q, k, v, *, causal: bool, offset: int = 0,
                             scale: float | None = None):
     """The flash kernel on ``(B, S, H, hd)`` activations: q, k and v go in
-    as permuted views and the output comes back in q's layout."""
+    as permuted views and the output comes back in q's layout.  Under
+    autograd (grad enabled and an input that needs it) it is
+    ``FlashAttentionFn``, the counterpart of the reference's
+    ``flash_attention_xla``, whose backward is the flash backward kernel."""
     if offset != k.shape[1] - q.shape[1]:
         raise ValueError(f"flash attention aligns query i with key "
                          f"i + Sk - Sq = {k.shape[1] - q.shape[1]}, got "
                          f"offset {offset}")
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, scale=scale)
+    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in views):
+        out = FlashAttentionFn.apply(*views, causal, scale)
+    else:
+        out = flash_attention(*views, causal=causal, scale=scale)
     return out.transpose(1, 2)
 
 

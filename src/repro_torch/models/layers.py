@@ -1,10 +1,11 @@
 """Shared LM building blocks: norms, RoPE, dense MLP, init.
 
 Port of ``src/repro/models/layers.py`` (``dot``, ``rms_norm``,
-``head_rms_norm``, ``rope``, ``mlp_apply``, ``init_linear``, ``init_mlp``,
-``stack_params``).  Parameters are plain nested dicts of tensors, stacked
-per stage on a leading layer axis as in the reference.  Norms and the MLP's
-gate run in fp32 and cast back.
+``head_rms_norm``, ``rope``, ``mlp_apply``, ``causal_mask``,
+``cross_entropy``, ``init_linear``, ``init_mlp``, ``stack_params``).
+Parameters are plain nested dicts of tensors, stacked per stage on a
+leading layer axis as in the reference.  Norms and the MLP's gate run in
+fp32 and cast back.
 
 ``dot`` returns fp32, as the reference's ``preferred_element_type``
 does.  For fp32 operands the result is the same function.  For bf16
@@ -14,7 +15,8 @@ round at different places, so bf16 runs are compared within a tolerance
 and the algorithms in fp32.
 
 The reference's mesh constraints (``shard_axes``, ``wsc``) are a no-op on
-one device and are not ported; ``cross_entropy`` belongs to training.
+one device and are not ported.  ``causal_mask`` and ``cross_entropy`` (the
+training loss) are ported as they are.
 """
 from __future__ import annotations
 
@@ -66,6 +68,25 @@ def mlp_apply(params, x, act: str = "swiglu"):
     return dot(h.to(x.dtype), params["wo"]).to(x.dtype)
 
 
+def causal_mask(sq: int, sk: int, offset: int, device=None):
+    """``(sq, sk)`` bool: key j is visible to query i when ``j <= i +
+    offset``."""
+    q = torch.arange(sq, device=device)[:, None] + offset
+    return torch.arange(sk, device=device)[None, :] <= q
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """Mean next-token loss over the labels ``!= ignore_id``: logits
+    ``(..., V)`` cast to fp32, labels ``(...)`` integers; the gold logit is
+    picked through ``labels.clip(0)`` (an ignored label picks token 0,
+    then weighs 0), as the reference does."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels != ignore_id).float()
+    return ((logz - gold) * valid).sum() / valid.sum().clamp(min=1.0)
+
+
 # ------------------------------------------------------------------- init --
 def normal(gen: torch.Generator, shape, dtype, scale) -> torch.Tensor:
     """Standard normal in fp32 from ``gen`` (on ``gen``'s device), times
@@ -97,8 +118,13 @@ def stack_params(trees):
     return torch.stack(trees, 0)
 
 
-def index_params(tree, i: int):
-    """Layer ``i`` of a stacked nested dict (views, no copies)."""
+def unbind_params(tree) -> list:
+    """The layers of a stacked nested dict, as views (no copies): one
+    ``unbind`` per leaf, whose backward stacks all the layers' grads at
+    once.  (Indexing each layer on its own makes autograd build and add a
+    full-size zero-padded grad of the stacked leaf per layer.)"""
     if isinstance(tree, dict):
-        return {k: index_params(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: unbind_params(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))

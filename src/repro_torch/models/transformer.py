@@ -1,7 +1,8 @@
 """Decoder-only LM assembled from a block pattern: the dense attention stages.
 
 Port of ``src/repro/models/transformer.py`` (``build_stages``, ``init_lm``,
-``_attn_block`` with the ``mlp`` variant, ``lm_forward``, ``init_caches``, ``lm_decode_step``, ``_decode_stage``, ``lm_prefill``).
+``_attn_block`` with the ``mlp`` variant, ``lm_forward``, ``lm_loss``,
+``init_caches``, ``lm_decode_step``, ``_decode_stage``, ``lm_prefill``).
 Parameters and caches keep the reference's tree: each stage's layers are
 stacked on a leading axis; ``lax.scan`` over a stage becomes a Python loop
 over its layers.  Other block kinds (mamba2, mlstm, slstm), the ``moe``
@@ -9,6 +10,11 @@ variant, MLA, ``shared_attn_every``, input embeddings fed from outside
 (``embed_inputs=False``) and sinusoidal positions raise
 ``NotImplementedError`` (ROADMAP queue 1 item 10); ``lm_forward`` and
 ``lm_prefill`` therefore take tokens only, and positions ``0..S-1``.
+
+``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
+reference wraps each scanned block in ``jax.checkpoint``).  A ``mesh``
+(sharded training) raises ``NotImplementedError`` (ROADMAP queue 1 item
+6).
 
 Differences from the reference: ``impl`` is an argument only (no
 ``REPRO_ATTN_IMPL`` override); ``lm_prefill`` projects q, k and v once and
@@ -20,13 +26,15 @@ writes the caches in place and returns the same dict.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (gqa_attend, gqa_decode,
                                           gqa_project, init_gqa, _pos_vec)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dot, dtype_of, index_params,
+from repro_torch.models.layers import (cross_entropy, dot, dtype_of,
                                        init_linear, init_mlp, mlp_apply,
-                                       normal, rms_norm, stack_params)
+                                       normal, rms_norm, stack_params,
+                                       unbind_params)
 
 
 # ==================================================================== plan ==
@@ -119,27 +127,65 @@ def _attn_block(p, x, positions, cfg, *, impl, offset=0):
 def _layers(params, cfg):
     """``(stage key, layer index within the stage, layer params)`` for
     every layer, in order."""
-    for si, (_, _, idxs) in enumerate(build_stages(cfg)):
-        for li in range(len(idxs)):
-            yield f"stage_{si}", li, index_params(params[f"stage_{si}"], li)
+    for si in range(len(build_stages(cfg))):
+        for li, p in enumerate(unbind_params(params[f"stage_{si}"])):
+            yield f"stage_{si}", li, p
 
 
 def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked"):
+def _block_out(p, x, positions, cfg, impl):
+    return _attn_block(p, x, positions, cfg, impl=impl)[0]
+
+
+def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked",
+               remat=False):
     """Full-sequence forward over tokens ``(b, S)``.  Returns ``(logits
     (b, S, V) fp32, aux)``; aux is 0.0 (it is the MoE load-balancing loss
-    in the reference)."""
+    in the reference).  ``remat``: each layer runs under
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward, its input saved)."""
     check_supported(cfg)
     b, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
     x = params["embed"][tokens]
     for _, _, p in _layers(params, cfg):
-        x, _, _ = _attn_block(p, x, positions, cfg, impl=impl)
+        if remat:
+            x = checkpoint(_block_out, p, x, positions, cfg, impl,
+                           use_reentrant=False)
+        else:
+            x = _block_out(p, x, positions, cfg, impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dot(x, _head(params, cfg)), 0.0
+
+
+def check_single_device(mesh) -> None:
+    """Raise for a mesh: the port trains on one device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training (mesh=...) is not ported (ROADMAP queue 1 "
+            "item 6); the port trains on one device")
+
+
+# ==================================================================== loss ==
+def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
+            remat=False, aux_weight=1e-2):
+    """Next-token loss of ``batch = {"tokens", "labels"}`` (labels ``-1``
+    ignored): ``(loss, {"ce", "aux"})`` with ``loss = ce + aux_weight ·
+    aux``.  The reference's mesh axes (``dp_axes``, ``model_axis``) have no
+    counterpart on one device."""
+    check_single_device(mesh)
+    if batch.get("embeds") is not None:
+        raise NotImplementedError("embeddings fed from outside (batch "
+                                  "\"embeds\") are not ported (ROADMAP "
+                                  "queue 1 item 10)")
+    logits, aux = lm_forward(params, cfg, batch["tokens"], impl=impl,
+                             remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ================================================================== caches ==

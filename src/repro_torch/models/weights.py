@@ -1,12 +1,15 @@
-"""Carry an LM's weights across: the reference's ``init_lm`` tree as numpy
-arrays -> the port's parameters.
+"""Carry an LM's weights and optimizer state across: the reference's trees
+as numpy arrays <-> the port's tensors.
 
 It has no counterpart file in the reference; it plays for the LM what
 ``repro_torch/core/weights.py`` plays for a plan.  ``from_reference`` takes
 the nested dict the JAX package's ``init_lm`` returns (stacked per stage,
-converted to numpy) and returns the same tree of tensors on ``device``.
-A missing or unknown key, or a shape that differs from what ``cfg``
-implies (``param_shapes``), raises.
+converted to numpy) and returns the same tree of tensors on ``device``;
+``to_reference`` is its inverse.  ``opt_state_from_reference`` /
+``opt_state_to_reference`` do the same for an AdamW state ``{"step", "m",
+"v"}``, with fp32 moments or int8 ``QTensor``s (any object with ``codes``
+and ``scale`` is taken for one).  A missing or unknown key, or a shape
+that differs from what ``cfg`` implies (``param_shapes``), raises.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import (_dense_ff, build_stages,
                                             check_supported)
+from repro_torch.train.optim import QBLOCK, QTensor
 
 
 def param_shapes(cfg) -> dict:
@@ -66,3 +70,69 @@ def from_reference(cfg, tree: dict, *, device="cuda", dtype=None) -> dict:
     leaves, any float dtype), cast to ``dtype`` (default ``cfg.dtype``)."""
     return _convert(param_shapes(cfg), tree, "", device,
                     dtype or dtype_of(cfg.dtype))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 widened to fp32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(_host(tree.codes), _host(tree.scale))
+    return _host(tree)
+
+
+def to_reference(params: dict) -> dict:
+    """The port's parameters as the reference's tree of numpy arrays
+    (fp32 as fp32, bf16 widened to fp32): the inverse of
+    ``from_reference``."""
+    return _to_numpy(params)
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """An AdamW state as numpy: ``step`` int32, ``m``/``v`` fp32 arrays or
+    ``QTensor(codes int8, scale fp32)`` of numpy arrays."""
+    return _to_numpy(state)
+
+
+def _moment(spec, tree, path, device):
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict):
+            raise ValueError(f"opt_state_from_reference: {path} must be a "
+                             f"dict")
+        missing = sorted(set(spec) - set(tree))
+        unknown = sorted(set(tree) - set(spec))
+        if missing or unknown:
+            raise KeyError(f"opt_state_from_reference: at {path}: missing "
+                           f"{missing}, unknown {unknown}")
+        return {k: _moment(spec[k], tree[k], f"{path}/{k}", device)
+                for k in spec}
+    if hasattr(tree, "codes") and hasattr(tree, "scale"):
+        codes, scale = np.asarray(tree.codes), np.asarray(tree.scale)
+        last = -(-spec[-1] // QBLOCK)
+        want = (spec[:-1] + (last * QBLOCK,), spec[:-1] + (last,))
+        if (codes.shape, scale.shape) != want:
+            raise ValueError(f"opt_state_from_reference: {path} has codes "
+                             f"{codes.shape} and scale {scale.shape}, "
+                             f"expected {want[0]} and {want[1]}")
+        return QTensor(torch.from_numpy(codes.astype(np.int8)).to(device),
+                       torch.from_numpy(scale.astype(np.float32)).to(device))
+    arr = np.asarray(tree)
+    if arr.shape != spec:
+        raise ValueError(f"opt_state_from_reference: {path} has shape "
+                         f"{arr.shape}, expected {spec}")
+    return torch.from_numpy(arr.astype(np.float32)).to(device)
+
+
+def opt_state_from_reference(cfg, state: dict, *, device="cuda") -> dict:
+    """The port's AdamW state from the reference's ``{"step", "m", "v"}``
+    (numpy leaves; int8 moments as objects with ``codes`` and ``scale``)."""
+    spec = param_shapes(cfg)
+    return {"step": torch.tensor(np.asarray(state["step"]),
+                                 dtype=torch.int32, device=device),
+            "m": _moment(spec, state["m"], "m", device),
+            "v": _moment(spec, state["v"], "v", device)}

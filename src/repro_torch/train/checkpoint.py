@@ -1,0 +1,180 @@
+"""Checkpointing in the reference's on-disk format.
+
+Port of ``src/repro/train/checkpoint.py``.  Each checkpoint is a directory
+``step_<N>/`` holding ``arrays.npz`` (one array per leaf) and
+``manifest.json`` (step, ``extra`` such as the data cursor, and each leaf's
+shape and dtype).  Leaf keys join the tree path with ``"\\x1e"`` as the
+reference's do: dict keys in sorted order, a ``QTensor``'s fields as
+``.codes`` and ``.scale``.  bf16 is stored as ``uint16`` with dtype
+``"bfloat16"`` in the manifest, so either package restores what the other
+saved.  Writes are atomic (``step_<N>.tmp``, then a rename), the oldest
+checkpoints beyond ``keep`` are deleted, and ``install_preemption_hook``
+makes SIGTERM set a flag the train loop polls (checkpoint and exit).
+
+Arrays are copied to the host leaf by leaf and restored onto each leaf's
+device and dtype in ``like``.  The reference's ``shardings`` (elastic
+restore onto a mesh) raises ``NotImplementedError`` (ROADMAP queue 1 item
+6).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import signal
+
+import numpy as np
+import torch
+
+_SEP = "\x1e"  # record separator — safe vs '/' in keys
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for key in sorted(tree):
+            out.update(_flatten(tree[key], prefix + (str(key),)))
+        return out
+    if _is_namedtuple(tree):
+        out = {}
+        for name in tree._fields:
+            out.update(_flatten(getattr(tree, name), prefix + ("." + name,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, leaf in enumerate(tree):
+            out.update(_flatten(leaf, prefix + (str(i),)))
+        return out
+    return {_SEP.join(prefix): tree}
+
+
+def tree_paths(tree) -> list[str]:
+    return list(_flatten(tree).keys())
+
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """A leaf as the numpy array the npz stores, and its dtype's name."""
+    if torch.is_tensor(leaf):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:          # npz can't store bfloat16
+            return t.view(torch.int16).cpu().numpy().view(np.uint16), \
+                "bfloat16"
+        arr = t.cpu().numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype: str | None) -> torch.Tensor:
+    arr = np.asarray(arr, order="C")           # keeps a 0-d array 0-d
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._preempted = False
+
+    # ------------------------------------------------------------- save ---
+    def save(self, step: int, state, *, extra: dict | None = None):
+        """state: a nested dict of tensors (params, opt state, ...).
+        Atomic; returns the checkpoint's directory."""
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        os.makedirs(tmp, exist_ok=True)
+        arrays = {}
+        manifest = {"step": step, "extra": extra or {}, "leaves": {}}
+        for key, leaf in _flatten(state).items():
+            arr, dtype = _to_host(leaf)
+            arrays[key] = arr
+            manifest["leaves"][key] = {"shape": list(arr.shape),
+                                       "dtype": dtype}
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self._gc()
+        return final
+
+    def _gc(self):
+        steps = sorted(self.all_steps())
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
+                          ignore_errors=True)
+
+    def all_steps(self):
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # ---------------------------------------------------------- restore ---
+    def restore(self, step: int, like, *, shardings=None):
+        """Restore into the structure of ``like`` (a nested dict of tensors,
+        ``QTensor``s included): each leaf takes its ``like`` leaf's dtype
+        and device."""
+        if shardings is not None:
+            raise NotImplementedError("restoring onto a mesh (shardings=) "
+                                      "is not ported (ROADMAP queue 1 item "
+                                      "6)")
+        man = self.manifest(step)["leaves"]
+        flat_like = _flatten(like)
+        with np.load(os.path.join(self.dir, f"step_{step}",
+                                  "arrays.npz")) as z:
+            missing = set(flat_like) - set(z.files)
+            if missing:
+                raise KeyError(f"checkpoint missing leaves: "
+                               f"{sorted(missing)}")
+            restored = {}
+            for key, leaf in flat_like.items():
+                t = _from_host(z[key], man.get(key, {}).get("dtype"))
+                restored[key] = t.to(device=leaf.device, dtype=leaf.dtype)
+        return _unflatten_like(like, restored)
+
+    def manifest(self, step: int):
+        with open(os.path.join(self.dir, f"step_{step}",
+                               "manifest.json")) as f:
+            return json.load(f)
+
+    # --------------------------------------------------------- preempt ----
+    def install_preemption_hook(self):
+        def handler(signum, frame):
+            self._preempted = True
+
+        signal.signal(signal.SIGTERM, handler)
+
+    @property
+    def preempted(self):
+        return self._preempted
+
+
+def _unflatten_like(like, flat_map, prefix=()):
+    if isinstance(like, dict):
+        return {key: _unflatten_like(like[key], flat_map, prefix + (str(key),))
+                for key in like}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten_like(getattr(like, name), flat_map,
+                                            prefix + ("." + name,))
+                            for name in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten_like(leaf, flat_map, prefix + (str(i),))
+                          for i, leaf in enumerate(like))
+    return flat_map[_SEP.join(prefix)]

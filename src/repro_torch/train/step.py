@@ -1,0 +1,71 @@
+"""Train step builder: loss + grad + optimizer, with optional gradient
+accumulation over microbatches and per-layer rematerialization.
+
+Port of ``src/repro/train/step.py``.  ``lax.scan`` over the microbatches
+becomes a Python loop, ``jax.value_and_grad`` is ``torch.autograd.grad``
+over the parameter leaves, and ``remat`` runs each layer under
+``torch.utils.checkpoint`` (``models/transformer.lm_forward``).
+
+Difference from the reference: the step updates the parameters in place,
+under ``torch.no_grad()`` (``p.add_(u)``, in the parameter's dtype, as the
+reference's ``(p + u).astype(p.dtype)``), and returns the same tree; it
+marks every parameter ``requires_grad``.  The reference is functional.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.transformer import check_single_device, lm_loss
+from repro_torch.train.optim import tree_leaves, tree_unflatten
+
+
+def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
+                     microbatches: int = 1, impl="chunked", aux_weight=1e-2):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``batch`` = ``{"tokens", "labels"}`` with a leading
+    global-batch dim; with ``microbatches > 1`` it is split on dim 0 and the
+    grads are accumulated in fp32, then divided by the count.  ``metrics``:
+    ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d tensors on the
+    parameters' device; ``lr`` as the optimizer gives it).  A ``mesh``
+    raises ``NotImplementedError``; the reference's mesh axes have no
+    counterpart on one device."""
+    check_single_device(mesh)
+
+    def loss_and_grads(params, leaves, batch):
+        loss, parts = lm_loss(params, cfg, batch, impl=impl, remat=remat,
+                              aux_weight=aux_weight)
+        grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+                grads)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if microbatches == 1:
+            loss, parts, grads = loss_and_grads(params, leaves, batch)
+        else:
+            n = microbatches
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in leaves]
+            lsum, parts_all = 0.0, []
+            for i in range(n):
+                mb = {key: a.reshape(n, a.shape[0] // n, *a.shape[1:])[i]
+                      for key, a in batch.items()}
+                loss_i, parts_i, grads_i = loss_and_grads(params, leaves, mb)
+                for a, g in zip(acc, grads_i):
+                    a.add_(g.float())
+                lsum = lsum + loss_i
+                parts_all.append(parts_i)
+            grads = [a / n for a in acc]
+            loss = lsum / n
+            parts = {key: torch.stack([p[key] for p in parts_all]).mean()
+                     for key in parts_all[0]}
+        with torch.no_grad():
+            updates, opt_state, om = optimizer.update(
+                tree_unflatten(params, grads), opt_state, params)
+            for p, u in zip(leaves, tree_leaves(updates)):
+                p.add_(u)
+        return params, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step

@@ -180,7 +180,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.core.autotune, repro_torch.core.perf_model, "
             "repro_torch.serve.gnncv, repro_torch.serve.scheduler, "
             "repro_torch.frontend, repro_torch.gnncv.torch_tasks, "
-            "repro_torch.gnncv.gnn_zoo, repro_torch.kernels.ops\n"
+            "repro_torch.gnncv.gnn_zoo, repro_torch.kernels.ops, "
+            "repro_torch.train, repro_torch.data, "
+            "repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

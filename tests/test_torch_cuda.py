@@ -153,6 +153,15 @@ FLASH_BF16 = ([(1, 16, 8, 2048, 2048, d, c) for d in (64, 128)
                  (1, 16, 8, 100, 300, 128, True)])
 
 
+# The flash backward (dq, dk, dv) on the card: llama3.2-1b's training shape,
+# qwen3-0.6b's 2048-token shape (D 128), non-causal, continuations (Sq <
+# Sk), rows with no live key (Sq > Sk), a ragged D and a decode row
+FLASH_BWD = [(8, 32, 8, 128, 128, 64, True), (1, 16, 8, 2048, 2048, 128, True),
+             (2, 4, 2, 77, 100, 64, False), (1, 4, 1, 64, 256, 64, True),
+             (2, 4, 1, 40, 24, 64, True), (2, 2, 1, 77, 154, 48, False),
+             (1, 4, 4, 100, 100, 32, True), (2, 4, 4, 1, 300, 64, True)]
+
+
 def flash_inputs(b, hq, hkv, sq, sk, d, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
@@ -1219,3 +1228,139 @@ def test_cuda_two_inflight_batches_of_one_bucket_stay_distinct(cuda, task):
     for r in reqs:
         for got, want in zip(r.result, single.run(**r.inputs)):
             assert np.array_equal(got, want.cpu().numpy())
+
+
+def bwd_operands(case, dtype, dev, seed=0):
+    """q, k, v, the forward's out and lse (by the kernel) and a random
+    dout for one backward case."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    q, k, v = (t(a).to(dev, dtype) for a in flash_inputs(*case[:6], seed))
+    dout = t(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(dev, dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=case[6], return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD, ids=str)
+def test_cuda_flash_bwd_matches_plain(cuda, case, dtype):
+    """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on
+    the same q, k, v, out, lse and dout: within RTOL of each max|plain| in
+    fp32, BF16_RTOL in bf16 (both sum in fp32 and round once); a second
+    call gives the same bits (no atomics); the forward's LSE matches
+    ``attention_lse_ref`` within 1e-5 of max|lse| (-inf on rows with no
+    live key)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    causal = case[6]
+    q, k, v, out, lse, dout = bwd_operands(case, dtype, cuda)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    rtol = RTOL if dtype == torch.float32 else BF16_RTOL
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        close(g.float().cpu(), w.float().cpu(), rtol=rtol)
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal=causal)
+    dead = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    close(lse[~dead].cpu(), want_lse[~dead].cpu(), rtol=1e-5)
+    if causal and case[3] > case[4]:
+        assert (got[0][:, :, :case[3] - case[4]] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_forward_is_unchanged_by_the_lse(cuda, dtype):
+    """The serving forward (no LSE pointer) and the training forward (LSE
+    written) give the same output bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    for case in (FLASH_BWD[0], FLASH_BWD[1], FLASH_BWD[4]):
+        q, k, v = (t(a).to(cuda, dtype) for a in flash_inputs(*case[:6]))
+        plain = flash_attention(q, k, v, causal=case[6])
+        with_lse, _ = flash_attention_fwd(q, k, v, causal=case[6],
+                                          return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(plain, with_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_fn_reads_permuted_views_and_strided_dout(cuda, dtype):
+    """``FlashAttentionFn`` on (B, S, H, D) activations as permuted views,
+    with a permuted dout and an expanded one (the gradient of a sum): the
+    same bits as contiguous copies, grads laid out like their inputs, and
+    equal to the plain twin within tolerance."""
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_bwd)
+    rng = np.random.default_rng(7)
+    shapes = ((2, 128, 32, 64), (2, 128, 8, 64), (2, 128, 8, 64))
+    base = [t(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+            for s in shapes]
+    dout = t(rng.standard_normal(shapes[0]).astype(np.float32)).to(
+        cuda, dtype).transpose(1, 2)
+
+    def grads(make, g):
+        leaves = [a.clone().requires_grad_(True) for a in base]
+        out = FlashAttentionFn.apply(*make(leaves), True, None)
+        out.backward(g(out))
+        return [a.grad for a in leaves]
+
+    before = flash_attention_bwd.launches
+    views = grads(lambda ls: [a.transpose(1, 2) for a in ls],
+                  lambda out: dout)
+    copies = grads(lambda ls: [a.transpose(1, 2).contiguous() for a in ls],
+                   lambda out: dout.contiguous())
+    summed = grads(lambda ls: [a.transpose(1, 2) for a in ls],
+                   lambda out: torch.ones((), device=cuda,
+                                          dtype=dtype).expand(out.shape))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 3
+    for a, b in zip(views, copies):
+        assert torch.equal(a, b) and a.is_contiguous()
+    assert all(torch.isfinite(g).all() for g in summed)
+    q, k, v = (a.transpose(1, 2) for a in base)
+    out, lse = ref.attention_lse_ref(q, k, v)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+    for got, w in zip(views, want):
+        close(got.transpose(1, 2).float().cpu(), w.float().cpu(),
+              rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-0.6b"])
+def test_cuda_train_step_kernel_path_matches_plain(cuda, arch):
+    """One fp32 ``lm_loss`` + grads of the smoke config on the card: the
+    kernel path (``impl="chunked"``, forward and backward kernels) against
+    the plain path (``"naive"``, autograd through plain attention): loss
+    within 1e-6 relative, every grad leaf within 1e-4 of its max|plain|;
+    the backward kernel launches once a layer."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.train.optim import tree_leaves
+    cfg = configs.get_smoke(arch)
+    params = init_lm(0, cfg, device=cuda)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 64)), device=cuda)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    results = {}
+    for impl in ("chunked", "naive"):
+        before = flash_attention_bwd.launches
+        loss, _ = lm_loss(params, cfg, batch, impl=impl)
+        results[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches - before == (
+            cfg.n_layers if impl == "chunked" else 0)
+    (l_k, g_k), (l_p, g_p) = results["chunked"], results["naive"]
+    assert abs(l_k - l_p) <= 1e-6 * abs(l_p)
+    for a, b in zip(g_k, g_p):
+        close(a.cpu(), b.cpu(), rtol=1e-4)

@@ -25,13 +25,16 @@ from repro.models.attention import gqa_forward as ref_gqa_forward
 from repro.models.transformer import init_lm as ref_init
 from repro.models.transformer import lm_decode_step as ref_decode
 from repro.models.transformer import lm_forward as ref_forward
+from repro.models.layers import cross_entropy as ref_cross_entropy
+from repro.models.transformer import lm_loss as ref_lm_loss
 from repro.models.transformer import lm_prefill as ref_prefill
 from repro.serve import ServeEngine as RefEngine
 from repro_torch import configs
 from repro_torch.launch.serve import serve
 from repro_torch.models.attention import gqa_decode, gqa_forward
+from repro_torch.models.layers import causal_mask, cross_entropy
 from repro_torch.models.transformer import (init_lm, lm_decode_step,
-                                            lm_forward, lm_prefill)
+                                            lm_forward, lm_loss, lm_prefill)
 from repro_torch.models.weights import from_reference, param_shapes
 from repro_torch.serve import ServeEngine
 
@@ -300,3 +303,88 @@ def test_serve_main_prints_its_result(tmp_path):
         capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr
     assert '"tokens_generated": 6' in proc.stdout
+
+
+# ------------------------------------------------------------- training --
+# lm_loss and its grads against jax.value_and_grad of the reference's, on
+# the fp32 smoke configs: the loss within LOSS_RTOL relative (the same
+# fp32 math in another order), each grad leaf within GRAD_RTOL of that
+# leaf's max|ref| (the backward sums in other orders again).
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 1e-4
+
+
+def train_batch(vocab, shape, seed=0):
+    """Tokens and next-token labels (-1 last), as numpy int32."""
+    toks = tokens(vocab, shape, seed).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((shape[0], 1), -1,
+                                                  np.int32)], 1)
+    return {"tokens": toks, "labels": labels}
+
+
+def port_loss_and_grads(params, cfg, batch, **kw):
+    leaves = [leaf.requires_grad_(True)
+              for _, leaf in jax.tree_util.tree_flatten_with_path(params)[0]]
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    loss, parts = lm_loss(params, cfg, tb, **kw)
+    return loss, parts, torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "naive"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_and_grads_match_the_reference(arch, impl):
+    cfg, rp, pcfg, pp = both(arch)
+    batch = train_batch(cfg.vocab, (2, 32), seed=3)
+    (want, parts), grads = jax.value_and_grad(
+        lambda p: ref_lm_loss(p, cfg, {k: jnp.asarray(v)
+                                       for k, v in batch.items()},
+                              impl=impl), has_aux=True)(rp)
+    loss, ours, got = port_loss_and_grads(pp, pcfg, batch, impl=impl)
+    assert abs(loss.item() - float(want)) <= LOSS_RTOL * abs(float(want))
+    assert abs(ours["ce"].item() - float(parts["ce"])) \
+        <= LOSS_RTOL * abs(float(parts["ce"]))
+    assert ours["aux"].item() == float(parts["aux"]) == 0.0
+    flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+    assert len(flat) == len(got)
+    for (path, ref_g), g in zip(flat, got):
+        close(g, np.asarray(ref_g), rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_same_loss_and_grads(arch):
+    """``remat=True`` recomputes each layer in the backward: the same loss
+    and grads, bit for bit on the CPU (the same ops in the same order)."""
+    _, _, pcfg, pp = both(arch)
+    batch = train_batch(pcfg.vocab, (2, 24), seed=4)
+    l0, _, g0 = port_loss_and_grads(pp, pcfg, batch)
+    l1, _, g1 = port_loss_and_grads(pp, pcfg, batch, remat=True)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_cross_entropy_and_causal_mask_match_the_reference():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((3, 7, 50)).astype(np.float32) * 4
+    labels = rng.integers(0, 50, (3, 7)).astype(np.int32)
+    labels[:, -1] = -1
+    labels[1, 2] = -1
+    want = float(ref_cross_entropy(jnp.asarray(logits), jnp.asarray(labels)))
+    got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert abs(got.item() - want) <= 1e-6 * abs(want)
+    none = cross_entropy(torch.from_numpy(logits),
+                         torch.full((3, 7), -1))
+    assert none.item() == 0.0
+    from repro.models.layers import causal_mask as ref_causal_mask
+    for sq, sk, off in ((5, 5, 0), (3, 8, 5), (6, 4, -2)):
+        assert np.array_equal(causal_mask(sq, sk, off).numpy(),
+                              np.asarray(ref_causal_mask(sq, sk, off)))
+
+
+def test_lm_loss_refuses_a_mesh_and_outside_embeddings():
+    _, _, pcfg, pp = both("llama3.2-1b")
+    batch = {k: torch.as_tensor(v)
+             for k, v in train_batch(pcfg.vocab, (1, 8)).items()}
+    with pytest.raises(NotImplementedError, match="item 6"):
+        lm_loss(pp, pcfg, batch, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        lm_loss(pp, pcfg, {**batch, "embeds": torch.zeros(1, 8, 64)})
