@@ -86,7 +86,9 @@ GNN phase, the training phase (``train_phase``, alone under ``--train``):
 the flash backward kernel (``csrc/flash_attention_bwd.cu``) against
 ``attention_bwd_ref`` at llama3.2-1b's training shape (bf16 and fp32),
 qwen3-0.6b's 2048-token shape and the edge cases (dq, dk, dv each within
-tolerance, a second call bit for bit), the forward's LSE against
+tolerance, a second call bit for bit; its device time, TFLOP/s and share
+of the bound beside SDPA's backward by events and by device time), the
+forward's LSE against
 ``attention_lse_ref`` and its output bits against the serving forward's;
 one fp32 full-width step of llama3.2-1b, kernel path against plain path
 (loss and every grad leaf); ``launch.train.train("llama3.2-1b",
@@ -106,7 +108,9 @@ b2 and b3, checks each against the plain version, and prints the plan's
 choice (``shift_conv.launch_plan``) beside the best: the data behind the
 plan's rule.  ``--ddmm-sweep`` does the same for DDMM's tensor-core route
 (column tile and split-K at every tensor-core call of the paths, beside
-``ddmm.launch_plan``'s choice).
+``ddmm.launch_plan``'s choice).  ``--bwd`` runs only the flash backward's
+and the LSE's checks and times of the training phase (no training path,
+no JSON row).
 """
 from __future__ import annotations
 
@@ -307,15 +311,21 @@ TRAIN_DROP = 0.1
 # The flash backward against ``attention_bwd_ref`` on the same q, k, v, out,
 # LSE and dout (B, Hq, Hkv, Sq, Sk, D, causal): llama3.2-1b's training
 # shape (bf16 and fp32), qwen3-0.6b's 2048-token shape (bf16), a
-# non-causal case, a continuation (Sq < Sk) and rows with no live key
-# (Sq > Sk); dq, dk and dv each within KERNEL_RTOL (fp32) or
-# FLASH_BF16_RTOL (bf16: both sum in fp32 and round once) of max|plain|,
-# and a second call bit for bit (no atomics).  The forward's LSE must
-# match ``attention_lse_ref`` within KERNEL_RTOL of max|lse|.
+# non-causal case, a continuation (Sq < Sk), rows with no live key
+# (Sq > Sk) and a D = 128 continuation whose lengths are off the bf16
+# kernel's 64-row tiles; dq, dk and dv each within KERNEL_RTOL (fp32) or
+# FLASH_BF16_RTOL (bf16: both sum in fp32 and round once; the kernel feeds
+# p and ds to the tensor cores in two bf16 parts) of max|plain|, and a
+# second call bit for bit (no atomics).  The forward's LSE must match
+# ``attention_lse_ref`` within KERNEL_RTOL of max|lse|.
 TRAIN_SHAPE = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True)
 QWEN_BWD_SHAPE = (1, 16, 8, LONG_PROMPT, LONG_PROMPT, 128, True)
 FLASH_BWD_EDGES = [(2, 4, 2, 77, 100, 64, False), (1, 4, 1, 64, 256, 64, True),
-                   (2, 4, 1, 40, 24, 64, True)]
+                   (2, 4, 1, 40, 24, 64, True), (2, 8, 2, 100, 163, 128, True)]
+# bf16 parts of p and ds the backward kernel feeds its second-stage
+# products (``PARTS`` in csrc/flash_attention_bwd.cu): its MMAs issue
+# 4 + 3 · BWD_PARTS products of 2·D operations per live pair
+BWD_PARTS = 2
 # One fp32 step at full width, kernel path against plain path: the loss
 # within 1e-6 relative (the same fp32 math summed in another order), every
 # grad leaf within TRAIN_GRAD_RTOL of its max|plain| (the attention's
@@ -336,9 +346,9 @@ MAIN_KERNELS = {"shift_conv2d": ("shift_conv_tf32x3_kernel",),
                 "ddmm": ("ddmm_tf32x3_kernel", "ddmm_narrow_kernel"),
                 "knn": ("knn_kernel", "knn_sort_kernel"),
                 "sddmm": ("sddmm_tf32x3_kernel",)}
-# the kernels whose rows print their achieved share of the bound (the two
-# redesigned last, from under 1% of it)
-BOUND_SHARE = ("knn", "sddmm")
+# the kernels whose rows print their achieved share of the bound (the
+# three redesigned last, from under 2% of it)
+BOUND_SHARE = ("knn", "sddmm", "flash_attention_bwd")
 SOURCES = {
     "shift_conv2d": ("src/repro_torch/kernels/csrc/shift_conv.cu",
                      "src/repro/kernels/shift_conv.py:78"),
@@ -419,6 +429,13 @@ class Case:
     mm: Callable | None = None
     # DDMM: the call's (x, y, bias, residual, act), for ``--ddmm-sweep``
     args: tuple = ()
+    # the operations the kernel issues, where it runs more than the
+    # function needs (the flash backward recomputes two products)
+    run_flops: float | None = None
+    # device time of the call by kernel and of the library call, each in a
+    # window bracketed on the card (``device_breakdown``), in place of
+    # ``device_ms`` (a library backward's events time is the host's rate)
+    bracketed: bool = False
 
 
 def mm_operands(op, xin, shapes, rng):
@@ -1039,6 +1056,24 @@ def device_ms(fn, prefix: str | tuple[str, ...], n: int = 20,
             return sum(e.time_range.end - e.time_range.start
                        for e in events) / n / 1e3
     return None
+
+
+def device_breakdown(fn, n: int = 10, tries: int = 3) -> dict[str, float]:
+    """Mean device time of one call of ``fn`` by kernel (bare name), in
+    ms, over ``n`` calls profiled in a window bracketed on the card
+    (``device_events`` with ``warm=fn``), taken again up to ``tries``
+    times where a marker was lost; empty if none kept both."""
+    fn()
+    for _ in range(tries):
+        events = device_events(fn, n, warm=fn)
+        if events:
+            break
+    out: dict[str, float] = {}
+    for e in events:
+        name = kernel_base(e.name)
+        out[name] = out.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / n / 1e3
+    return out
 
 
 def profile_requests(run, requests, card, task) -> None:
@@ -2369,14 +2404,19 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
     totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                          library_ms=0.0, device_ms=0.0, nbytes=0.0,
                          flops=0.0, library=True, device=True,
-                         before_ms=None, before_device_ms=None, mm_ms=None)
+                         before_ms=None, before_device_ms=None, mm_ms=None,
+                         library_device_ms=None)
               for name in SOURCES}
     for case in cases:
         ms = time_ms(case.run)
         plain = time_ms(case.plain)
         lib = time_ms(case.library) if case.library is not None else None
         bnd, by = bound_ms(case.nbytes, case.flops, case.rate)
-        dev = device_ms(case.run, DEVICE_PREFIX[case.kernel])
+        if case.bracketed:
+            parts = device_breakdown(case.run)
+            dev = sum(parts.values()) if parts else None
+        else:
+            dev = device_ms(case.run, DEVICE_PREFIX[case.kernel])
         # the rate of the products the function needs, by device time
         rate = case.flops / ((dev or ms) * 1e-3) / 1e12
         plan = case.plan
@@ -2387,11 +2427,18 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
             extra["before_device_ms"] = device_ms(case.before, "")
         if case.mm is not None:
             extra["mm_ms"] = time_ms(case.mm)
+        if case.bracketed and lib is not None:
+            # every device kernel of the library call
+            extra["library_device_ms"] = sum(
+                device_breakdown(case.library).values()) or None
         log(f"time {task} {case.label}: kernel {ms:.5f} ms"
             + ("" if dev is None else f" (device {dev:.5f} ms)")
             + f", plain {plain:.5f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound "
             f"{bnd:.5f} ms ({by}), {rate:.2f} TFLOP/s"
+            + ("" if case.run_flops is None else
+               f" ({case.run_flops / ((dev or ms) * 1e9):.2f} TFLOP/s "
+               f"issued)")
             + "".join(f", {k} {v:.5f}" for k, v in extra.items()
                       if v is not None)
             + ("" if plan is None else
@@ -2401,6 +2448,10 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
             + (f", {bnd / (dev or ms):.4f} of the bound"
                if case.kernel in BOUND_SHARE else "")
             + f", x{case.per_request:g}/request  [{card}]")
+        if case.bracketed:
+            log("  by kernel (device ms a call, bracketed window): " + (
+                ", ".join(f"{name} {t:.5f}" for name, t in parts.items())
+                or "not measured (a marker was lost)"))
         if case.per_request:
             tot = totals[case.kernel]
             for key, value in extra.items():
@@ -2446,7 +2497,8 @@ def kernel_rows(task, cases, launches, per_request, max_err, card,
                 f"({'device' if tot['device'] else 'events'}) against a "
                 f"bound of {tot['bound_ms']:.5f} ms: "
                 f"{row['bound_share']:.4f} of the bound  [{card}]")
-        for key in ("before_ms", "before_device_ms", "mm_ms"):
+        for key in ("before_ms", "before_device_ms", "mm_ms",
+                    "library_device_ms"):
             if tot[key] is not None:
                 row[key] = tot[key]
         rows.append(row)
@@ -2789,9 +2841,12 @@ def flash_bwd_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
     q, k, v and dout, with the forward kernel's out and LSE.  Bound: q, k,
     v, o, dO, dq, dk and dv moved once and the fp32 LSE read; five products
     of 2·D operations per live pair (q·kᵀ, dO·vᵀ, dq, dk, dv) at the peak
-    of the input's type.  Library: the backward alone of one
+    of the input's type (the kernel issues seven, or 4 + 3·BWD_PARTS in
+    bf16).  Library: the backward alone of one
     ``F.scaled_dot_product_attention`` (``enable_gqa``; same top-left
-    caveat as ``flash_case``), by ``torch.autograd.grad`` on its graph."""
+    caveat as ``flash_case``), by ``torch.autograd.grad`` on its graph,
+    timed by events and by device time; both device times in bracketed
+    windows (``device_breakdown``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
@@ -2811,6 +2866,7 @@ def flash_bwd_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
     bf16 = dtype == torch.bfloat16
     label = (f"flash_attention_bwd {str(dtype).split('.')[-1]} "
              f"q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal}")
+    pair_ops = 2.0 * d * b * hq * live_pairs(sq, sk, causal)
     return Case(
         "flash_attention_bwd", label,
         lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal=causal),
@@ -2818,9 +2874,11 @@ def flash_bwd_case(shape, dtype, rng, dev, per_request=0.0) -> Case:
                                       causal=causal), library,
         q.element_size() * (4.0 * q.numel() + 4.0 * k.numel())
         + 4.0 * b * hq * sq,
-        10.0 * d * b * hq * live_pairs(sq, sk, causal), per_request,
+        5 * pair_ops, per_request,
         rtol=FLASH_BF16_RTOL if bf16 else KERNEL_RTOL,
-        rate=BF16_FLOPS if bf16 else FP32_FLOPS)
+        rate=BF16_FLOPS if bf16 else FP32_FLOPS,
+        run_flops=(4 + 3 * BWD_PARTS if bf16 else 7) * pair_ops,
+        bracketed=True)
 
 
 def check_bwd_case(case: Case) -> float:
@@ -3121,12 +3179,14 @@ def train_int8(cfg, card) -> None:
     free_cuda()
 
 
-def train_phase(kernels, card) -> list[dict]:
+def train_phase(kernels, card, path: bool = True) -> list[dict]:
     """The training path (``--train`` alone, or after the LM phases): the
     backward kernel and the forward's LSE against their plain versions,
     one fp32 full-width step kernel vs plain, the launcher at full width
     (its counts and times), a profile of 3 steps, checkpoint resume and
-    int8 moments; returns the kernels' JSON rows."""
+    int8 moments; returns the kernels' JSON rows.  ``path=False``
+    (``--bwd``): the kernels' checks and times alone, no path and no
+    rows."""
     from repro_torch import configs
     cfg = configs.get(TRAIN_ARCH)
     assert TRAIN_SHAPE == (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
@@ -3140,13 +3200,17 @@ def train_phase(kernels, card) -> list[dict]:
             else check_case
         max_err[case.kernel] = max(max_err[case.kernel], check(case))
     flash_lse_checks(rng, dev)
+    per_step = {"flash_attention": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    if not path:
+        kernel_rows("lm-train", cases, dict.fromkeys(kernels, 0), per_step,
+                    max_err, card)
+        return []
     train_fp32_parity(cfg)
     launches = train_launcher(cfg, kernels, card)
     train_profile(cfg, card)
     train_resume(cfg, card)
     train_int8(cfg, card)
-    per_step = {"flash_attention": cfg.n_layers,
-                "flash_attention_bwd": cfg.n_layers}
     rows = kernel_rows("lm-train", cases, launches, per_step, max_err, card,
                        unit=f"ms per {TRAIN_ARCH} train step (batch "
                             f"{TRAIN_BATCH} x {TRAIN_SEQ}): its "
@@ -3375,6 +3439,9 @@ def main() -> int:
         return finish()
     if "--ddmm-sweep" in sys.argv[1:]:
         ddmm_sweep(card)
+        return finish()
+    if "--bwd" in sys.argv[1:]:
+        train_phase(kernels, card, path=False)
         return finish()
     if "--train" in sys.argv[1:]:
         rows = train_phase(kernels, card)

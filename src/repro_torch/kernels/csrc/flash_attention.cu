@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int MAX_D = 128;
@@ -230,55 +232,6 @@ constexpr int mma_smem_bytes() {
   return (MQ + 4 * MK) * (DP + 8) * 2;    // q, then 2 stages of k and v
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16-byte cp.async; ``ok == false`` copies nothing and writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// two floats -> bf16x2 (round to nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// subtract a bf16x2 from two floats (exact: they are its rounding's source)
-__device__ __forceinline__ void take_bf16(float (&r)[2], uint32_t part) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&part);
-  r[0] -= __low2float(v);
-  r[1] -= __high2float(v);
-}
-
 template <int DP>
 __global__ void __launch_bounds__(MTHREADS)
 flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -436,18 +389,8 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < MK / 16; ++c) {
       // A fragment i of p holds rows g / g+8 at keys 16c + 2t(+1) (i = 0,
       // 1) and 16c + 8 + 2t(+1) (i = 2, 3): parts[k] is the k-th bf16 part
-      float rest[4][2] = {{s[2 * c][0], s[2 * c][1]},
-                          {s[2 * c][2], s[2 * c][3]},
-                          {s[2 * c + 1][0], s[2 * c + 1][1]},
-                          {s[2 * c + 1][2], s[2 * c + 1][3]}};
       uint32_t parts[3][4];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          parts[k][i] = pack_bf16(rest[i][0], rest[i][1]);
-          take_bf16(rest[i], parts[k][i]);
-        }
+      a_parts(parts, *reinterpret_cast<const float(*)[2][4]>(s[2 * c]));
 #pragma unroll
       for (int dn = 0; dn < ND; dn += 2) {
         uint32_t bv[4];

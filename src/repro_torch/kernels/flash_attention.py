@@ -21,6 +21,11 @@ Training (``flash_attention_fwd(return_lse=True)``, ``flash_attention_bwd``,
 recomputes the scores from q, k and it to give dq, dk and dv: the port of
 the reference's ``models/attention.py:_flash_bwd``, the backward of
 ``flash_attention_xla``.  Its plain version is ``ref.attention_bwd_ref``.
+bf16 runs FlashAttention-2's deterministic backward on the tensor cores
+(one kernel per 32-key tile for dk and dv, one per 64-query tile for dq,
+p and ds in two bf16 parts, tiles staged by 16-byte copies, no atomics);
+fp32 runs the SIMT kernels.  In bf16 both directions need every operand
+16-byte aligned and raise otherwise.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -87,6 +92,28 @@ def _check_card(name: str, q, *others) -> None:
         raise ValueError(f"{name}: operand too large for int32 indexing")
 
 
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether a bf16 operand fails the kernels' 16-byte copies: its head
+    dim off a multiple of 8, its base or a batch, head or sequence stride
+    (of an axis longer than 1) off a 16-byte boundary."""
+    return t.dtype == torch.bfloat16 and bool(
+        t.shape[3] % 8 or t.data_ptr() % 16 or any(
+            st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
+def _check_aligned(name: str, *operands) -> None:
+    """Raise on the first bf16 operand ``_misaligned`` finds: the kernels
+    take no other, and nothing routes it elsewhere."""
+    for oname, t in operands:
+        if _misaligned(t):
+            raise ValueError(
+                f"{name}: bf16 {oname} must be 16-byte aligned (base, and "
+                f"the strides of batch, head and sequence; D % 8 == 0) for "
+                f"the kernel's 16-byte copies, got D={t.shape[3]}, strides "
+                f"{t.stride()}, base {t.data_ptr() % 16} bytes past a "
+                f"16-byte boundary")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, scale: float | None = None,
                         return_lse: bool = False):
@@ -102,17 +129,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     _check_card("flash_attention", q, ("k", k), ("v", v))
     out = torch.empty_like(q)               # q's layout: strides preserved
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-            if D % 8 or t.data_ptr() % 16 or any(
-                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
-                    if n > 1):
-                raise ValueError(
-                    f"flash_attention: bf16 {name} must be 16-byte aligned "
-                    f"(base, and the strides of batch, head and sequence; "
-                    f"D % 8 == 0) for the kernel's 16-byte copies, got D={D}, "
-                    f"strides {t.stride()}, base {t.data_ptr() % 16} bytes "
-                    f"past a 16-byte boundary")
+    _check_aligned("flash_attention", ("q", q), ("k", k), ("v", v),
+                   ("out", out))
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
@@ -136,9 +154,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` of ``flash_attention_fwd(return_lse=True)`` and the incoming
     gradient ``dout`` (shaped like q).  Each comes out in its input's dtype
     and layout.  q, k, v, out and dout may have any batch, head and
-    sequence strides (0 included) at any alignment; on the card their head
-    dim must be contiguous.  One call launches three kernels (delta, dk/dv,
-    dq) and counts one launch in ``flash_attention_bwd.launches``."""
+    sequence strides; on the card their head dim must be contiguous, and
+    in bf16 every base and stride must be 16-byte aligned (D a multiple of
+    8), as in the forward (fp32 takes any alignment, stride 0 included).
+    One call launches three kernels (delta, dk/dv, dq) and counts one
+    launch in ``flash_attention_bwd.launches``."""
     B, Hq, Hkv, Sq, Sk, D = _check_heads("flash_attention_bwd", q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
@@ -158,6 +178,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: lse must be contiguous, on "
                          "q's device")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _check_aligned("flash_attention_bwd", ("q", q), ("k", k), ("v", v),
+                   ("out", out), ("dout", dout), ("dq", dq), ("dk", dk),
+                   ("dv", dv))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv)
@@ -183,8 +206,9 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_bwd`` (the kernel on CUDA tensors, the plain version
     on CPU tensors).  q ``(B, Hq, Sq, D)`` and k, v ``(B, Hkv, Sk, D)`` in
     any strides, as the forward takes them.  A ``dout`` whose head dim is
-    not contiguous (an expanded gradient, e.g. of ``out.sum()``) is made
-    contiguous before the kernel reads it."""
+    not contiguous (an expanded gradient, e.g. of ``out.sum()``), or, in
+    bf16 on the card, is not 16-byte aligned, is copied to a fresh
+    contiguous tensor before the kernel reads it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True,
@@ -198,8 +222,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(3) != 1 and dout.shape[3] > 1:
-            dout = dout.contiguous()
+        if (dout.stride(3) != 1 and dout.shape[3] > 1) or (
+                dout.device.type != "cpu" and _misaligned(dout)):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
                                          causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None

@@ -155,11 +155,15 @@ FLASH_BF16 = ([(1, 16, 8, 2048, 2048, d, c) for d in (64, 128)
 
 # The flash backward (dq, dk, dv) on the card: llama3.2-1b's training shape,
 # qwen3-0.6b's 2048-token shape (D 128), non-causal, continuations (Sq <
-# Sk), rows with no live key (Sq > Sk), a ragged D and a decode row
+# Sk), rows with no live key (Sq > Sk), a ragged D and a decode row; then
+# D = 128 at lengths off the bf16 kernel's 64-row tiles: a continuation,
+# non-causal, dead rows and a decode row
 FLASH_BWD = [(8, 32, 8, 128, 128, 64, True), (1, 16, 8, 2048, 2048, 128, True),
              (2, 4, 2, 77, 100, 64, False), (1, 4, 1, 64, 256, 64, True),
              (2, 4, 1, 40, 24, 64, True), (2, 2, 1, 77, 154, 48, False),
-             (1, 4, 4, 100, 100, 32, True), (2, 4, 4, 1, 300, 64, True)]
+             (1, 4, 4, 100, 100, 32, True), (2, 4, 4, 1, 300, 64, True),
+             (2, 8, 2, 100, 163, 128, True), (1, 4, 2, 130, 130, 128, False),
+             (2, 4, 1, 150, 90, 128, True), (1, 8, 8, 1, 200, 128, True)]
 
 
 def flash_inputs(b, hq, hkv, sq, sk, d, seed=0):
@@ -1297,7 +1301,9 @@ def test_cuda_flash_fn_reads_permuted_views_and_strided_dout(cuda, dtype):
     """``FlashAttentionFn`` on (B, S, H, D) activations as permuted views,
     with a permuted dout and an expanded one (the gradient of a sum): the
     same bits as contiguous copies, grads laid out like their inputs, and
-    equal to the plain twin within tolerance."""
+    equal to the plain twin within tolerance.  The permuted views are
+    16-byte aligned, as the bf16 kernels need; the expanded dout (head-dim
+    stride 0) is copied before the kernel reads it."""
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                      flash_attention_bwd)
     rng = np.random.default_rng(7)
@@ -1332,6 +1338,55 @@ def test_cuda_flash_fn_reads_permuted_views_and_strided_dout(cuda, dtype):
     for got, w in zip(views, want):
         close(got.transpose(1, 2).float().cpu(), w.float().cpu(),
               rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_refuses_misaligned_bf16_operands(cuda):
+    """The bf16 backward stages its tiles by 16-byte copies: a q, k, v,
+    out or dout whose base or a stride is off a 16-byte boundary raises,
+    launching nothing; nothing falls back to another kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v, out, lse, dout = bwd_operands((1, 2, 2, 8, 8, 32, True),
+                                           torch.bfloat16, cuda)
+    wide = torch.zeros((1, 2, 8, 40), device=cuda, dtype=torch.bfloat16)
+    bad = wide[..., 1:33]
+    before = flash_attention_bwd.launches
+    args = [q, k, v, out, lse, dout]
+    for i in (0, 1, 2, 3, 5):
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention_bwd(*args[:i], bad, *args[i + 1:])
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fn_copies_a_misaligned_bf16_dout(cuda):
+    """``FlashAttentionFn.backward`` copies a bf16 dout that is not 16-byte
+    aligned (here a view one element past an aligned base) instead of
+    refusing it: the grads equal those of the same dout, aligned, bit for
+    bit, and the kernel launched once for each."""
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_bwd)
+    case = (2, 8, 2, 100, 100, 64, True)
+    base = [t(a).to(cuda, torch.bfloat16)
+            for a in flash_inputs(*case[:6], seed=3)]
+    g = t(np.random.default_rng(4).standard_normal(
+        (2, 8, 100, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+    flat = torch.empty(g.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.data_ptr() % 16
+
+    def grads(dout):
+        leaves = [a.clone().requires_grad_(True) for a in base]
+        FlashAttentionFn.apply(*leaves, True, None).backward(dout)
+        return [a.grad for a in leaves]
+
+    before = flash_attention_bwd.launches
+    got, want = grads(shifted), grads(g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
