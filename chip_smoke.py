@@ -8,6 +8,7 @@
     python3 chip_smoke.py --frontend      # the tracing frontend alone
     python3 chip_smoke.py --gnn           # the GNN phase alone
     python3 chip_smoke.py --train         # the training phase alone
+    python3 chip_smoke.py --rec           # the recurrent LM family alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -98,6 +99,23 @@ loss falls, step p50/p25/p75, tokens/s, peak memory); a profile of 3 steps
 time a step); a checkpoint at step 2 of 4 restored bit for bit into fresh
 state and run on (resumed == straight reported bit for bit, with the
 leaves whose backward does not repeat); and one step with int8 moments.
+After the GNN phase, the recurrent family (``rec_phase``, alone
+under ``--rec``): zamba2-2.7b (54 Mamba2 blocks and two shared GQA + MLP
+blocks applied after every sixth, 32 heads of 80) and xlstm-350m (21
+mLSTM and 3 sLSTM blocks) at their published configs in bf16, each
+served through ``launch.serve.serve`` at the launcher's defaults (every
+prompt prefilled at its exact length; zamba2's 9 shared-attention calls a
+prefill through the flash kernel, at D = 80 under its DP = 128
+instantiation, checked against ``attention_ref`` at every served length
+and at 2048 tokens in bf16 and fp32), then stepped through a
+``ServeEngine`` (tok/s, time to first token, step p50); zamba2's bf16
+path against the plain path (every shared-attention call on the plain
+path's own inputs, the margin-aware tokens, and the end-to-end logits
+beside the library attention and a one-ulp input change); fp32 (kernel
+path == plain path tokens, or two runs equal; prefill logits) and
+float64 (prefill then decode == one ``lm_forward``); a 2048-token
+prefill each (p50, device breakdown) and the device time of the SSD,
+mLSTM and sLSTM plain paths in a decode step and that prefill.
 Every number printed is measured in this run.
 The last line is the JSON result; any failure exits nonzero before it.
 Imports the port only (``repro_torch``), never JAX.
@@ -132,6 +150,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM rate and
 # the fp32 rate outside the tensor cores, which is what the fp32 SIMT
@@ -298,6 +317,10 @@ PREFILL_RTOL = 2e-2
 MARGIN_RTOL = 4e-2
 # The same weights cast to fp32: the two paths then differ only by the
 # order of fp32 sums, so their prefill logits must agree within E2E_RTOL.
+# The recurrent family (``rec_phase``): zamba2-2.7b and xlstm-350m at their
+# published configs, random weights from seed 0, served with the launcher's
+# defaults above, every prompt prefilled at its exact length.
+REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")
 # The training path: llama3.2-1b at its published width (16 layers, d 2048,
 # 32/8 heads of 64, d_ff 8192, vocab 128256, tied, bf16), random weights
 # from seed 0, through ``launch.train.train`` at the launcher's defaults
@@ -2639,10 +2662,11 @@ def lm_serve(cfg, kernels) -> dict[str, int]:
     return launches
 
 
-def lm_engine_run(cfg, params, kernels, card):
+def lm_engine_run(cfg, params, kernels, card, want=None):
     """The same requests through a ``ServeEngine`` stepped here, timed on
-    the host clock per step, per request and per token.  Returns the
-    engine and its requests."""
+    the host clock per step, per request and per token; ``want``: the
+    launches the run must count (default: qwen3's, one flash launch a
+    layer per prefill).  Returns the engine and its requests."""
     from repro_torch.launch.serve import prompts
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
@@ -2665,8 +2689,8 @@ def lm_engine_run(cfg, params, kernels, card):
                 done.setdefault(r.rid, t_b)
         assert len(steps) <= LM_REQUESTS * LM_MAX_NEW, "did not converge"
     wall = time.perf_counter() - t0
-    lm_counts(kernels, {"flash_attention": LM_REQUESTS * cfg.n_layers},
-              f"{LM_ARCH} engine run")
+    lm_counts(kernels, {"flash_attention": LM_REQUESTS * cfg.n_layers}
+              if want is None else want, f"{cfg.name} engine run")
     lat = [(done[r.rid] - t0) * 1e3 for r in reqs]
     ttft = [(first[r.rid] - t0) * 1e3 for r in reqs]
     per_tok = [(done[r.rid] - first[r.rid]) * 1e3 / (len(r.out) - 1)
@@ -2678,7 +2702,7 @@ def lm_engine_run(cfg, params, kernels, card):
                 f"p90 {qs[-1]:.4f}, max {max(xs):.4f}")
 
     n_tok = sum(len(r.out) for r in reqs)
-    log(f"{LM_ARCH} engine run (host clock): {len(reqs)} requests, "
+    log(f"{cfg.name} engine run (host clock): {len(reqs)} requests, "
         f"{len(steps)} steps, {n_tok} tokens in {wall:.4f} s "
         f"({n_tok / wall:.2f} tok/s)  [{card}]")
     log(f"  request latency (all submitted at t0): {q(lat)}")
@@ -2688,36 +2712,38 @@ def lm_engine_run(cfg, params, kernels, card):
     return eng, reqs
 
 
-def lm_parity(cfg, params, reqs) -> None:
-    """Margin-aware parity of the served tokens against the plain path
-    (``impl="naive"``, same weights): each request's prefill logits, and
-    each engine token's plain logit against that position's maximum."""
-    from repro_torch.models.transformer import lm_forward, lm_prefill
-    from repro_torch.serve import ServeEngine
+def token_margins(cfg, params, reqs) -> tuple[float, int, int]:
+    """Each engine token's logit on the plain path (``impl="naive"``,
+    teacher-forced over the prompt and the engine's own tokens) against
+    that position's maximum: ``(the largest gap over max|logits|, tokens
+    equal to the plain argmax, tokens)``."""
+    from repro_torch.models.transformer import lm_forward
     dev = params["embed"].device
-    worst_prefill = worst_gap = 0.0
-    agree = total = 0
+    worst_gap, agree, total = 0.0, 0, 0
     for r in reqs:
-        n = len(r.prompt)
-        padded = np.zeros(ServeEngine._bucket(n), np.int64)
-        padded[:n] = r.prompt
-        tok = torch.as_tensor(padded, device=dev)[None]
-        got, want = (lm_prefill(params, cfg, tokens=tok, max_len=LM_MAX_LEN,
-                                impl=impl, last_index=n - 1)[0]
-                     for impl in ("chunked", "naive"))
-        worst_prefill = max(worst_prefill, rel_err(got, want)[1])
         seq = np.concatenate([r.prompt, r.out[:-1]])
         logits, _ = lm_forward(params, cfg, impl="naive",
                                tokens=torch.as_tensor(seq, device=dev)[None])
-        rows = logits[0, n - 1:]                       # (len(out), V)
+        rows = logits[0, len(r.prompt) - 1:]            # (len(out), V)
         out = torch.as_tensor(r.out, device=dev)
         gap = ((rows.amax(-1) - rows.gather(1, out[:, None])[:, 0])
                / rows.abs().amax(-1))
         worst_gap = max(worst_gap, gap.max().item())
         agree += int((rows.argmax(-1) == out).sum().item())
         total += len(r.out)
+    return worst_gap, agree, total
+
+
+def lm_parity(cfg, params, reqs) -> None:
+    """Margin-aware parity of the served tokens against the plain path
+    (same weights): each request's prefill logits, and each engine
+    token's plain logit against that position's maximum."""
+    worst_prefill = max(rel_err(*(served_prefill(cfg, params, r.prompt, impl)
+                                  for impl in ("chunked", "naive")))[1]
+                        for r in reqs)
+    worst_gap, agree, total = token_margins(cfg, params, reqs)
     ok = worst_prefill <= PREFILL_RTOL and worst_gap <= MARGIN_RTOL
-    log(f"{LM_ARCH} parity vs the plain path: prefill logits rel up to "
+    log(f"{cfg.name} parity vs the plain path: prefill logits rel up to "
         f"{worst_prefill:.3e} (limit {PREFILL_RTOL:g}); engine tokens "
         f"{agree}/{total} equal the plain argmax, the largest gap below "
         f"the plain maximum {worst_gap:.3e} of max|logits| (limit "
@@ -2726,10 +2752,114 @@ def lm_parity(cfg, params, reqs) -> None:
     assert worst_gap <= MARGIN_RTOL, "an engine token is off the plain max"
 
 
-def as_fp32(tree):
+class AttentionProbe:
+    """Two attention cores registered in ``models.attention.ATTN_IMPLS``
+    for the duration of a ``with`` block (never on a served path):
+    ``probe`` runs the plain core and the kernel on the same q, k, v,
+    keeps the kernel's error at each call (``errs``) and returns the
+    plain output, so a prefill under it is the plain path;  ``library``
+    is ``F.scaled_dot_product_attention``, a third implementation to
+    measure how far any correct attention moves the model's bf16
+    logits."""
+
+    def __init__(self):
+        self.errs: list[float] = []
+
+    def probe(self, q, k, v, *, causal, offset=0, scale=None):
+        from repro_torch.models import attention
+        want = attention.naive_attention(q, k, v, causal=causal,
+                                         offset=offset, scale=scale)
+        got = attention.flash_chunked_attention(q, k, v, causal=causal,
+                                                offset=offset, scale=scale)
+        self.errs.append(rel_err(got.float(), want.float())[1])
+        return want
+
+    @staticmethod
+    def library(q, k, v, *, causal, offset=0, scale=None):
+        assert offset == k.shape[1] - q.shape[1] == 0
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, scale=scale).transpose(1, 2)
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        attention.ATTN_IMPLS.update(probe=self.probe, library=self.library)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        for name in ("probe", "library"):
+            del attention.ATTN_IMPLS[name]
+
+
+def rec_bf16_parity(cfg, params, reqs) -> None:
+    """zamba2 in bf16, kernel path against plain path.  Asserted: at
+    every shared-attention call of every served prefill, the kernel's
+    output on the plain path's own q, k, v within FLASH_BF16_RTOL of
+    max|plain| (the D = 80 route inside the model), and the margin-aware
+    token check (MARGIN_RTOL).  The end-to-end prefill logits are printed
+    against PREFILL_RTOL beside two controls that say how far the random
+    bf16 model carries any rounding difference: the library attention in
+    the kernel's place, and the plain path with one embedding element
+    moved by one bf16 ulp."""
+    probe = AttentionProbe()
+    worst = {"kernel": 0.0, "library": 0.0}
+    with probe:
+        for r in reqs:
+            plain = served_prefill(cfg, params, r.prompt, "probe")
+            for name, impl in (("kernel", "chunked"), ("library", "library")):
+                worst[name] = max(worst[name], rel_err(served_prefill(
+                    cfg, params, r.prompt, impl), plain)[1])
+        embed, tok = params["embed"], int(reqs[0].prompt[0])
+        old = embed[tok, 0].clone()
+        embed[tok, 0] = (old.float() * (1 + 2.0 ** -7)).to(embed.dtype)
+        nudged = served_prefill(cfg, params, reqs[0].prompt, "naive")
+        embed[tok, 0] = old
+        nudge = rel_err(nudged, served_prefill(cfg, params, reqs[0].prompt,
+                                               "naive"))[1]
+    worst_gap, agree, total = token_margins(cfg, params, reqs)
+    local = max(probe.errs)
+    ok = local <= FLASH_BF16_RTOL and worst_gap <= MARGIN_RTOL
+    log(f"{cfg.name} bf16 parity vs the plain path: at all "
+        f"{len(probe.errs)} shared-attention calls of the served prefills "
+        f"the kernel on the plain path's q, k, v is within {local:.3e} of "
+        f"max|plain| (limit {FLASH_BF16_RTOL:.3e}); engine tokens "
+        f"{agree}/{total} equal the plain argmax, the largest gap below the "
+        f"plain maximum {worst_gap:.3e} of max|logits| (limit "
+        f"{MARGIN_RTOL:g})" + ("" if ok else "  FAIL"))
+    log(f"{cfg.name} bf16 prefill logits vs the plain path, rel up to: "
+        f"kernel {worst['kernel']:.3e}, library attention "
+        f"{worst['library']:.3e}, the plain path with one embedding "
+        f"element one ulp off {nudge:.3e} (PREFILL_RTOL {PREFILL_RTOL:g}"
+        + (" is met)" if worst["kernel"] <= PREFILL_RTOL
+           else " is met by none: not asserted for this model)"))
+    assert local <= FLASH_BF16_RTOL, "the kernel disagrees inside the model"
+    assert worst_gap <= MARGIN_RTOL, "an engine token is off the plain max"
+
+
+def served_prefill(cfg, params, prompt, impl: str) -> torch.Tensor:
+    """The last-token logits of a prompt prefilled as the engine does: an
+    attention-only model right-padded to its 16-token bucket, a model with
+    a recurrent block at its exact length."""
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.serve import ServeEngine
+    n = len(prompt)
+    if all(k == "attn" for k in cfg.pattern):
+        padded = np.zeros(ServeEngine._bucket(n), np.int64)
+        padded[:n] = prompt
+        last = n - 1
+    else:
+        padded, last = np.asarray(prompt, np.int64), None
+    tok = torch.as_tensor(padded, device=params["embed"].device)[None]
+    return lm_prefill(params, cfg, tokens=tok, max_len=LM_MAX_LEN, impl=impl,
+                      last_index=last)[0]
+
+
+def tree_to(tree, to):
+    """Every leaf of a nested dict ``.to(to)`` (a dtype or a device)."""
     if isinstance(tree, dict):
-        return {k: as_fp32(v) for k, v in tree.items()}
-    return tree.float()
+        return {k: tree_to(v, to) for k, v in tree.items()}
+    return tree.to(to)
 
 
 def long_prompt(cfg, dev) -> torch.Tensor:
@@ -2737,33 +2867,23 @@ def long_prompt(cfg, dev) -> torch.Tensor:
         0, cfg.vocab, (1, LONG_PROMPT)), device=dev)
 
 
-def lm_fp32_parity(cfg, params, reqs) -> None:
+def lm_fp32_parity(cfg, params, prompts) -> None:
     """Kernel path against plain path at full width with the weights in
-    fp32, over every served prompt (padded to its bucket) and the
+    fp32, over every served prompt (prefilled as the engine does) and the
     2048-token prompt: the bf16 comparison is dominated by roundings the
     random model amplifies through its layers, the fp32 one holds the
     kernel's own error."""
     from repro_torch.models.transformer import lm_prefill
-    from repro_torch.serve import ServeEngine
-    p32 = as_fp32(params)
-    dev = p32["embed"].device
-    inputs = []
-    for r in reqs:
-        n = len(r.prompt)
-        padded = np.zeros(ServeEngine._bucket(n), np.int64)
-        padded[:n] = r.prompt
-        inputs.append((torch.as_tensor(padded, device=dev)[None], n - 1,
-                       LM_MAX_LEN))
-    inputs.append((long_prompt(cfg, dev), None, LONG_PROMPT))
-    rels = []
-    for tok, last, max_len in inputs:
-        got, want = (lm_prefill(p32, cfg, tokens=tok, max_len=max_len,
-                                impl=impl, last_index=last)[0]
-                     for impl in ("chunked", "naive"))
-        rels.append(rel_err(got, want)[1])
+    p32 = tree_to(params, torch.float32)
+    rels = [rel_err(*(served_prefill(cfg, p32, p, impl)
+                      for impl in ("chunked", "naive")))[1] for p in prompts]
+    tok = long_prompt(cfg, p32["embed"].device)
+    rels.append(rel_err(*(lm_prefill(p32, cfg, tokens=tok,
+                                     max_len=LONG_PROMPT, impl=impl)[0]
+                          for impl in ("chunked", "naive")))[1])
     ok = max(rels) <= E2E_RTOL
-    log(f"{LM_ARCH} in fp32, kernel vs plain path prefill logits: rel up to "
-        f"{max(rels[:-1]):.3e} over the {len(reqs)} served prompts, "
+    log(f"{cfg.name} in fp32, kernel vs plain path prefill logits: rel up to "
+        f"{max(rels[:-1]):.3e} over the {len(prompts)} served prompts, "
         f"{rels[-1]:.3e} at {LONG_PROMPT} tokens (limit {E2E_RTOL:g})"
         + ("" if ok else "  FAIL"))
     assert ok, "fp32 prefill logits disagree"
@@ -2833,6 +2953,386 @@ def lm_profiles(cfg, params, eng, card) -> None:
                                       max_len=LONG_PROMPT),
                    1, f"{LM_ARCH} prefill of {LONG_PROMPT} tokens", "prefill",
                    card)
+
+
+# ---- the recurrent family ------------------------------------------------
+def rec_apps(cfg) -> int:
+    """Shared-block applications a forward makes: zamba2's flash launches
+    a prefill (none without shared blocks: xlstm has no attention)."""
+    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+
+
+def rec_prompts(cfg) -> list[np.ndarray]:
+    from repro_torch.launch.serve import prompts
+    return prompts(cfg.vocab, LM_REQUESTS, LM_PROMPT_LEN, 0)
+
+
+def rec_flash_cases(cfg, rng, dev) -> dict[str, list[Case]]:
+    """zamba2's flash calls: ``(1, 32, 32, S, S, 80)`` at every served
+    (exact) prompt length, weighted by its share of the requests, and at
+    2048 tokens, in bf16 (the path's type) and fp32 (checks only).  D = 80
+    runs the bf16 kernel's DP = 128 instantiation, columns 80-127
+    masked."""
+    h, d, n_apps = cfg.n_heads, cfg.resolved_head_dim, rec_apps(cfg)
+    counts: dict[int, int] = {}
+    for p in rec_prompts(cfg):
+        counts[len(p)] = counts.get(len(p), 0) + 1
+    serve_cases = []
+    for s, n in sorted(counts.items()):
+        shape = (1, h, cfg.n_kv_heads, s, s, d, True)
+        serve_cases += [flash_case(shape, torch.bfloat16, rng, dev,
+                                   per_request=n * n_apps / LM_REQUESTS),
+                        flash_case(shape, torch.float32, rng, dev)]
+    long = (1, h, cfg.n_kv_heads, LONG_PROMPT, LONG_PROMPT, d, True)
+    return {"serve": serve_cases,
+            "prefill-2048": [flash_case(long, torch.bfloat16, rng, dev,
+                                        per_request=n_apps),
+                             flash_case(long, torch.float32, rng, dev)]}
+
+
+def engine_tokens(cfg, params, impl: str) -> list[list[int]]:
+    """The launcher's requests through a ``ServeEngine`` with attention
+    ``impl``: each request's tokens."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      impl=impl)
+    reqs = [eng.submit(p, max_new=LM_MAX_NEW) for p in rec_prompts(cfg)]
+    eng.run()
+    assert all(r.done and len(r.out) == LM_MAX_NEW for r in reqs)
+    return [r.out for r in reqs]
+
+
+def rec_fp32_parity(cfg, p32) -> None:
+    """The weights in fp32.  With attention (zamba2): the engine's kernel
+    path gives the plain path's greedy tokens on all requests; without
+    (xlstm): two engine runs give the same tokens.  Then prefill-then-
+    decode (each prompt prefilled alone at its exact length, the rows
+    decoded together on the engine's tokens) against one full
+    ``lm_forward`` on the same tokens, every position's logits within
+    E2E_RTOL of that request's max|logits|: in float64 (``layers.wide``:
+    no fp32 rounding anywhere, plain attention), asserted; in fp32 on the
+    engine's path, asserted wherever the forward's own two realizations
+    of the recurrences (``rec_impl`` chunked and seq) agree within
+    E2E_RTOL on the same tokens, else printed beside that gap (the random
+    model carries fp32 roundings that far)."""
+    impls = ("chunked", "naive") if rec_apps(cfg) else ("chunked",) * 2
+    first, second = (engine_tokens(cfg, p32, impl) for impl in impls)
+    same = sum(a == b for a, b in zip(first, second))
+    what = ("kernel path vs plain path" if rec_apps(cfg)
+            else "two runs of the engine")
+    log(f"{cfg.name} in fp32, {what}: {same}/{LM_REQUESTS} requests give "
+        f"the same {LM_MAX_NEW} greedy tokens"
+        + ("" if same == LM_REQUESTS else "  FAIL"))
+    assert same == LM_REQUESTS, f"{cfg.name}: fp32 engine tokens differ"
+    from repro_torch.models.transformer import lm_forward
+    f32 = decode_vs_forward(cfg, p32, first, "chunked")
+    forms = max(rel_err(lm_forward(
+        p32, cfg, continuation(p, out, p32)[None], rec_impl="seq")[0][
+            0, len(p) - 1:], want)[1]
+        for p, out, want in zip(rec_prompts(cfg), first, f32["forward"]))
+    held = forms <= E2E_RTOL
+    p64 = tree_to(p32, torch.float64)
+    f64 = decode_vs_forward(cfg, p64, first, "naive")
+    del p64
+    free_cuda()
+    ok = f64["rel"] <= E2E_RTOL and (f32["rel"] <= E2E_RTOL or not held)
+    log(f"{cfg.name}, prefill then {LM_MAX_NEW - 1} decode steps vs one "
+        f"lm_forward (limit {E2E_RTOL:g}): logits rel up to "
+        f"{f64['rel']:.3e} in float64; {f32['rel']:.3e} in fp32 on the "
+        f"engine's path, " + ("asserted" if held else "not asserted")
+        + f" (the fp32 forward's chunked and seq recurrences differ by "
+        f"{forms:.3e} on the same tokens); {f32['agree']}/{f32['total']} "
+        f"fp32 argmaxes are the engine's tokens" + ("" if ok else "  FAIL"))
+    assert f64["rel"] <= E2E_RTOL, f"{cfg.name}: decode disagrees"
+    assert f32["rel"] <= E2E_RTOL or not held, \
+        f"{cfg.name}: the engine's path disagrees with the full forward"
+
+
+def continuation(prompt, out, params) -> torch.Tensor:
+    """A prompt and its tokens but the last, as one sequence."""
+    return torch.as_tensor(np.concatenate([prompt, out[:-1]]),
+                           device=params["embed"].device)
+
+
+def decode_vs_forward(cfg, params, outs, impl: str,
+                      rec_impl: str = "chunked") -> dict:
+    """Each launcher prompt prefilled alone, the rows' caches joined and
+    decoded together on ``outs`` for LM_MAX_NEW - 1 steps, against
+    ``lm_forward`` over prompt + outs (attention ``impl``, ``rec_impl``
+    in the prefill and the forward; a decode step always steps token by
+    token): the largest rel error over max|logits| of a request, the
+    argmaxes equal to ``outs``, and the forward's logits."""
+    from repro_torch.models.transformer import (lm_decode_step, lm_forward,
+                                                lm_prefill)
+    dev = params["embed"].device
+    prompts = rec_prompts(cfg)
+    heads, caches = [], []
+    for p in prompts:
+        logits, c, _ = lm_prefill(params, cfg, torch.as_tensor(
+            p, device=dev)[None], max_len=LM_MAX_LEN, impl=impl,
+            rec_impl=rec_impl)
+        heads.append(logits)
+        caches.append(c)
+    cache = {key: {name: torch.cat([c[key][name] for c in caches], 1)
+                   for name in stage} for key, stage in caches[0].items()}
+    del caches
+    lengths = torch.as_tensor([len(p) for p in prompts], device=dev)
+    steps = [torch.cat(heads)]
+    for t in range(LM_MAX_NEW - 1):
+        toks = torch.as_tensor([o[t] for o in outs], device=dev)
+        logits, cache = lm_decode_step(params, cfg, toks, cache,
+                                       lengths + t)
+        steps.append(logits)
+    got = torch.stack(steps, 1)                       # (requests, new, V)
+    forward, rels = [], []
+    for i, p in enumerate(prompts):
+        want = lm_forward(params, cfg, continuation(p, outs[i], params)[None],
+                          impl=impl, rec_impl=rec_impl)[0][0, len(p) - 1:]
+        forward.append(want)
+        rels.append(rel_err(got[i], want)[1])
+    agree = int((got.argmax(-1).cpu() == torch.as_tensor(outs)).sum())
+    return {"rel": max(rels), "agree": agree, "total": got.shape[0]
+            * got.shape[1], "forward": forward}
+
+
+def profile_busy(fn, n: int, what: str, per: str, card: str,
+                 bracket: bool = True, tries: int = 3) -> float | None:
+    """``profile_window`` bracketed on the card, taken again up to
+    ``tries`` times where a marker was lost; unless ``bracket`` is False
+    (a call of tens of thousands of kernels loses at most a few at an
+    unbracketed window's ends, and a warm-up call under the profiler
+    would double its cost).  Returns the device busy time per call in ms
+    (None where no event was recorded)."""
+    for _ in range(tries if bracket else 1):
+        events = profile_window(fn, n, what, per, card,
+                                warm=fn if bracket else None)
+        if events:
+            return device_busy(events)[0] / n / 1e3
+    return None
+
+
+def rec_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
+    """One 2048-token ``lm_prefill``: counts set to 0 just before, read
+    just after (zamba2's shared attention through the kernel, each call
+    held to the plain core on the same inputs, as in
+    ``rec_bf16_parity``); the host p50 of 3."""
+    from repro_torch.models.transformer import lm_prefill
+    tok = long_prompt(cfg, params["embed"].device)
+
+    def run(impl="chunked"):
+        return lm_prefill(params, cfg, tokens=tok, max_len=LONG_PROMPT,
+                          impl=impl)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    logits, _, length = run()
+    torch.cuda.synchronize()
+    want = {"flash_attention": rec_apps(cfg)} if rec_apps(cfg) else {}
+    launches = lm_counts(kernels, want,
+                         f"{cfg.name} prefill of {LONG_PROMPT} tokens")
+    assert tuple(logits.shape) == (1, cfg.vocab) and length == LONG_PROMPT
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    if rec_apps(cfg):
+        with AttentionProbe() as probe:
+            err, rel = rel_err(logits, run("probe")[0])
+        local = max(probe.errs)
+        log(f"{cfg.name} prefill of {LONG_PROMPT} tokens: the kernel at its "
+            f"{len(probe.errs)} calls on the plain path's q, k, v within "
+            f"{local:.3e} of max|plain| (limit {FLASH_BF16_RTOL:.3e}); "
+            f"logits vs the plain path max|d|={err:.3e} rel={rel:.3e} "
+            f"(PREFILL_RTOL {PREFILL_RTOL:g}, not asserted for this model: "
+            f"rec_bf16_parity)" + ("" if local <= FLASH_BF16_RTOL
+                                   else "  FAIL"))
+        assert local <= FLASH_BF16_RTOL, "2048-token prefill: kernel differs"
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_a) * 1e3)
+    log(f"{cfg.name} prefill of {LONG_PROMPT} tokens (host clock, "
+        f"synchronized): p50 {statistics.median(times):.4f} ms of "
+        f"{', '.join(f'{t:.4f}' for t in times)}  [{card}]")
+    return launches
+
+
+def rec_scan_times(cfg, params, eng, card) -> None:
+    """Device busy time, kernels and idle share of a decode step over the
+    slots and of one prefill (a 47-token prompt, the longest served, and
+    2048 tokens); then the recurrences' plain paths in a step and in the
+    2048-token prefill, each called alone at the same shapes (the SSD
+    scan: ``ssd_seq`` in a step, ``ssd_chunked`` in a prefill, for
+    Mamba2; ``mlstm_seq`` / ``mlstm_chunked`` and the whole sLSTM block,
+    its token loop, for xLSTM), times the layers of each kind, against
+    the whole."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import unbind_params
+    from repro_torch.models.transformer import (build_stages,
+                                                lm_decode_step, lm_prefill)
+    dev = params["embed"].device
+    rng = np.random.default_rng(1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dt = params["embed"].dtype
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    step_tok = torch.as_tensor(rng.integers(0, cfg.vocab, LM_SLOTS),
+                               device=dev)
+    lengths = torch.arange(LM_SLOTS, device=dev) * 8 + 40
+    whole = {}
+    whole["step"] = profile_busy(
+        lambda: lm_decode_step(params, cfg, step_tok, eng.caches, lengths),
+        5, f"{cfg.name} decode steps over {LM_SLOTS} slots", "step", card)
+    for s in (max(LM_PROMPT_LEN) - 1, LONG_PROMPT):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (1, s)), device=dev)
+        whole[s] = profile_busy(
+            lambda tok=tok: lm_prefill(params, cfg, tokens=tok,
+                                       max_len=max(s, LM_MAX_LEN)),
+            1, f"{cfg.name} prefills of {s} tokens", "prefill", card,
+            bracket=s != LONG_PROMPT)
+    kinds = {kind: cfg.pattern.count(kind) for kind in dict.fromkeys(
+        cfg.pattern)}
+    parts = {}                       # (kind, what) -> ms a call, layers
+    for kind, n_layers in kinds.items():
+        si = [k for k, _, _ in build_stages(cfg)].index(kind)
+        p = unbind_params(params[f"stage_{si}"])[0]["body"]
+        for what, b, S in (("step", LM_SLOTS, 1),
+                           (LONG_PROMPT, 1, LONG_PROMPT)):
+            if kind == "mamba2":
+                sc = cfg.ssm
+                H = sc.expand * cfg.d_model // sc.head_dim
+                x = randn(b, S, H, sc.head_dim)
+                dtv = ssm.softplus(randn(b, S, H, dtype=torch.float32))
+                B, C = (randn(b, S, sc.n_groups, sc.d_state)
+                        for _ in range(2))
+                A = -torch.exp(p["A_log"])
+                st = randn(b, H, sc.d_state, sc.head_dim,
+                           dtype=torch.float32)
+                fn = (lambda: ssm.ssd_seq(x, dtv, A, B, C, p["D"], state=st)
+                      ) if what == "step" else (
+                    lambda: ssm.ssd_chunked(x, dtv, A, B, C, p["D"],
+                                            chunk=sc.chunk))
+                name = "ssd_seq" if what == "step" else "ssd_chunked"
+            elif kind == "mlstm":
+                H = cfg.n_heads
+                P = int(cfg.xlstm.proj_factor * cfg.d_model) // H
+                q, k, v = (randn(b, S, H, P) for _ in range(3))
+                li = randn(b, S, H, dtype=torch.float32)
+                lf = torch.nn.functional.logsigmoid(
+                    randn(b, S, H, dtype=torch.float32) + 4.0)
+                st = ssm.mlstm_init_state(cfg, b, dt, device=dev)
+                st = (st["C"], st["n"], st["m"])
+                fn = (lambda: ssm.mlstm_seq(q, k, v, li, lf, state=st)
+                      ) if what == "step" else (
+                    lambda: ssm.mlstm_chunked(q, k, v, li, lf,
+                                              chunk=cfg.xlstm.chunk))
+                name = "mlstm_seq" if what == "step" else "mlstm_chunked"
+            else:
+                x = randn(b, S, cfg.d_model)
+                fn = lambda: ssm.slstm_block(p, x, cfg)  # noqa: E731
+                name = "slstm_block"
+            parts[(kind, what)] = (name, profile_busy(
+                fn, 1 if S == LONG_PROMPT else 5,
+                f"{cfg.name} {name} calls at b={b}, S={S}", "call", card,
+                bracket=not (S == LONG_PROMPT and kind == "slstm")),
+                n_layers)
+    for what in ("step", LONG_PROMPT):
+        label = ("a decode step" if what == "step"
+                 else f"a {what}-token prefill")
+        for kind in kinds:
+            name, ms, n_layers = parts[(kind, what)]
+            if ms is None or whole[what] is None:
+                log(f"{cfg.name} {name} in {label}: not measured (no "
+                    f"device events)")
+                continue
+            log(f"{cfg.name} {name} in {label}: {ms:.5f} ms device busy a "
+                f"call x {n_layers} layers = {ms * n_layers:.4f} ms of the "
+                f"whole's {whole[what]:.4f} ms "
+                f"({ms * n_layers / whole[what]:.3f})  [{card}]")
+
+
+def stamp(what: str) -> None:
+    """The wall time since the script started, after a phase."""
+    log(f"[{time.perf_counter() - STARTED:.1f} s] {what} done")
+
+
+def rec_arch(arch, kernels, card, rng, dev) -> list[dict]:
+    """One arch of the recurrent family at its published config: served
+    through its entry point (counts set to 0 just before, read just
+    after), stepped and timed through a ``ServeEngine``, zamba2's flash
+    calls checked at their shapes, the bf16 and fp32 parity checks, the
+    2048-token prefill, device profiles; returns zamba2's kernel rows."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve as serve_lm
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optim import tree_leaves
+    cfg = configs.get(arch)
+    n_apps = rec_apps(cfg)
+    want = {"flash_attention": LM_REQUESTS * n_apps} if n_apps else {}
+    cases = rec_flash_cases(cfg, rng, dev) if n_apps else {}
+    max_err = {path: {"flash_attention": max(check_case(c) for c in cs)}
+               for path, cs in cases.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+    res = serve_lm(arch, smoke=False, device="cuda")
+    torch.cuda.synchronize()
+    launches = {"serve": lm_counts(kernels, want, f"{arch} serve")}
+    log(f"{arch} serve (launch.serve.serve, full config): "
+        f"{json.dumps(res)}")
+    assert res["requests"] == LM_REQUESTS
+    assert res["tokens_generated"] == LM_REQUESTS * LM_MAX_NEW, res
+    free_cuda()
+    params = init_lm(0, cfg, device="cuda")
+    log(f"{arch}: {sum(t.numel() for t in tree_leaves(params)) / 1e9:.4f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated  [{card}]")
+    eng, reqs = lm_engine_run(cfg, params, kernels, card, want)
+    stamp(f"{arch} serve and engine run")
+    if n_apps:
+        rec_bf16_parity(cfg, params, reqs)
+        stamp(f"{arch} bf16 parity")
+    launches["prefill-2048"] = rec_long_prefill(cfg, params, kernels, card)
+    rec_scan_times(cfg, params, eng, card)
+    stamp(f"{arch} 2048-token prefill and profiles")
+    del eng, reqs
+    free_cuda()
+    p32 = tree_to(params, torch.float32)
+    del params
+    free_cuda()
+    if n_apps:
+        lm_fp32_parity(cfg, p32, rec_prompts(cfg))
+    rec_fp32_parity(cfg, p32)
+    stamp(f"{arch} fp32 and float64 parity")
+    del p32
+    free_cuda()
+    rows = []
+    for path, path_cases in cases.items():
+        # the served fp32 calls are checked above, never run on the path
+        timed = [c for c in path_cases
+                 if c.per_request or path == "prefill-2048"]
+        rows += kernel_rows(
+            f"{arch}-{path}", timed, launches[path],
+            {"flash_attention": n_apps}, max_err[path], card,
+            unit=(f"ms per {arch} served request: its prefill's {n_apps} "
+                  f"launches at its exact prompt length, mean over the "
+                  f"{LM_REQUESTS} requests" if path == "serve" else
+                  f"ms per {LONG_PROMPT}-token {arch} prefill: sum over "
+                  f"its {n_apps} launches"))
+    stamp(f"{arch} kernel rows")
+    return rows
+
+
+def rec_phase(kernels, card) -> list[dict]:
+    """The recurrent family (``--rec``): zamba2-2.7b and xlstm-350m."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for arch in REC_ARCHS:
+        rows += rec_arch(arch, kernels, card, rng, torch.device("cuda"))
+        free_cuda()
+    return rows
 
 
 # ---- the training path ----------------------------------------------------
@@ -2975,7 +3475,7 @@ def train_fp32_parity(cfg) -> None:
     from repro_torch.data import TokenPipeline
     from repro_torch.models.transformer import init_lm, lm_loss
     from repro_torch.train.optim import tree_leaves
-    params = as_fp32(init_lm(0, cfg, device="cuda"))
+    params = tree_to(init_lm(0, cfg, device="cuda"), torch.float32)
     free_cuda()
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     batch = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
@@ -3443,6 +3943,11 @@ def main() -> int:
     if "--bwd" in sys.argv[1:]:
         train_phase(kernels, card, path=False)
         return finish()
+    if "--rec" in sys.argv[1:]:
+        rows = rec_phase(kernels, card)
+        log(f"card: {card}")
+        log(json.dumps({"kernels": rows}))
+        return finish()
     if "--train" in sys.argv[1:]:
         rows = train_phase(kernels, card)
         log(f"card: {card}")
@@ -3496,28 +4001,38 @@ def main() -> int:
         max_err[path] = {"flash_attention": max(
             check_case(case) for case in path_cases)}
     flash_exact_checks(lm_cfg, rng, dev)
+    stamp("kernel checks")
 
     # ---- phase 3: serve each task's requests through the CUDA kernels ---
     requests = {task: task_requests(task, *plans[task]) for task in tasks}
     launches = {task: serve(task, *plans[task], requests[task], kernels)
                 for task in tasks}
+    stamp("eager serving")
     for task in tasks:
         graph_phase(task, requests[task], kernels, card)
+    stamp("graph phase")
     traced = frontend_phase(kernels, plans, requests, card)
+    stamp("frontend phase")
     for task in tasks:
         lattice_phase(task, task_graph(task), requests[task], autotune_cache,
                       card)
     heldout_phase(card)
+    stamp("lattice phase")
     serving_phase(kernels, requests, card)
+    stamp("serving phase")
     launches["lm-serve"] = lm_serve(lm_cfg, kernels)
     lm_params = init_lm(0, lm_cfg, device="cuda")
     eng, lm_reqs = lm_engine_run(lm_cfg, lm_params, kernels, card)
     lm_parity(lm_cfg, lm_params, lm_reqs)
-    lm_fp32_parity(lm_cfg, lm_params, lm_reqs)
+    lm_fp32_parity(lm_cfg, lm_params, [r.prompt for r in lm_reqs])
     launches["lm-prefill-2048"] = lm_long_prefill(lm_cfg, lm_params,
                                                   kernels, card)
+    stamp("qwen3 phase")
     train_rows = train_phase(kernels, card)
+    stamp("training phase")
     gnn_rows = gnn_phase(kernels, requests, card)
+    stamp("GNN phase")
+    rec_rows = rec_phase(kernels, card)
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []
@@ -3542,7 +4057,7 @@ def main() -> int:
         launches["lm-prefill-2048"], per_prefill, max_err["lm-prefill-2048"],
         card, unit=f"ms per {LONG_PROMPT}-token {LM_ARCH} prefill: sum "
                    f"over its {lm_cfg.n_layers} launches")
-    rows += train_rows + gnn_rows
+    rows += rec_rows + train_rows + gnn_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     return finish()

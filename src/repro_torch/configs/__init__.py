@@ -2,9 +2,12 @@
 
 Port of ``src/repro/configs/__init__.py``.  ``get(name)`` returns the full
 published config, ``get_smoke(name)`` a reduced same-family config for CPU
-tests.  The port serves the dense GQA archs (``PORTED``); every other arch
-of the reference's ``ARCHS`` (MoE, MLA, SSM, xLSTM, shared blocks) raises
-``NotImplementedError`` until ROADMAP queue 1 item 10 ports it.
+tests.  The port serves the dense GQA archs and the recurrent family
+(``PORTED``: zamba2's Mamba2 backbone with its shared GQA blocks, xLSTM's
+mLSTM and sLSTM blocks); every other arch of the reference's ``ARCHS``
+(MoE, MLA, outside embeddings, sinusoidal positions, and the two dense
+archs that need only their config) raises ``NotImplementedError`` until
+ROADMAP queue 1 item 10 ports it.
 """
 from __future__ import annotations
 
@@ -15,15 +18,17 @@ ARCHS = [
     "codeqwen1.5-7b", "llama3.2-1b", "qwen3-0.6b", "musicgen-medium",
     "xlstm-350m", "chameleon-34b",
 ]
-PORTED = ("qwen3-0.6b", "llama3.2-1b")
+PORTED = ("qwen3-0.6b", "llama3.2-1b", "zamba2-2.7b", "xlstm-350m")
 
 
 def _module(name: str):
     if name not in PORTED:
         if name in ARCHS:
             raise NotImplementedError(
-                f"{name}: not ported yet (ROADMAP queue 1 item 10); the "
-                f"port serves {', '.join(PORTED)}")
+                f"{name}: not ported yet (ROADMAP queue 1 item 10: MoE, "
+                f"MLA, outside embeddings, sinusoidal positions and the "
+                f"config-only dense archs); the port serves "
+                f"{', '.join(PORTED)}")
         raise KeyError(f"unknown arch {name!r}")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))

@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.models.layers import (dot, head_rms_norm, init_linear,
-                                       rope)
+                                       rope, wide)
 
 NEG = -1e30
 
@@ -43,8 +43,8 @@ def naive_attention(q, k, v, *, causal: bool, offset: int = 0,
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = scale or 1.0 / math.sqrt(hd)
-    qf = q.float().reshape(B, Sq, Hkv, group, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qf = wide(q).reshape(B, Sq, Hkv, group, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, wide(k)) * scale
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((B, Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -55,7 +55,7 @@ def naive_attention(q, k, v, *, causal: bool, offset: int = 0,
         mask &= kpos[None, None, :] < lv
     s = torch.where(mask[:, None, None], s, NEG)
     p = torch.softmax(s, -1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, wide(v))
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 

@@ -3,8 +3,8 @@
 Port of ``src/repro/models/config.py``, copied as it is: the dataclasses
 are plain stdlib and ``params_count`` sizes the weights and the bounds.
 One frozen dataclass covers dense GQA transformers, MLA, MoE, SSM (Mamba2),
-xLSTM and hybrid block patterns; the port runs the dense GQA ones
-(``repro_torch/configs``).
+xLSTM and hybrid block patterns; the port runs the dense GQA, Mamba2,
+xLSTM and shared-block ones (``repro_torch/configs``).
 """
 from __future__ import annotations
 

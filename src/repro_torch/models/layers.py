@@ -8,11 +8,14 @@ leading layer axis as in the reference.  Norms and the MLP's gate run in
 fp32 and cast back.
 
 ``dot`` returns fp32, as the reference's ``preferred_element_type``
-does.  For fp32 operands the result is the same function.  For bf16
-operands ``torch.matmul`` accumulates in fp32 but rounds its result to
-bf16 before the cast, where XLA keeps the fp32 sum: the two frameworks
-round at different places, so bf16 runs are compared within a tolerance
-and the algorithms in fp32.
+does (float64 operands stay float64: ``wide``, the compute dtype of
+norms, products and the recurrences, is fp32 or wider, so a float64 model
+runs in float64 throughout, a check free of fp32 rounding).  For fp32
+operands the result is the same function.  For bf16 operands
+``torch.matmul`` accumulates in fp32 but rounds its result to bf16 before
+the cast, where XLA keeps the fp32 sum: the two frameworks round at
+different places, so bf16 runs are compared within a tolerance and the
+algorithms in fp32.
 
 The reference's mesh constraints (``shard_axes``, ``wsc``) are a no-op on
 one device and are not ported.  ``causal_mask`` and ``cross_entropy`` (the
@@ -32,15 +35,20 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as fp32, or as it is in float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over x's last axis, as fp32."""
-    return torch.matmul(x, w).float()
+    """``x @ w`` over x's last axis, as fp32 (``wide``)."""
+    return wide(torch.matmul(x, w))
 
 
 def rms_norm(x, scale, eps=1e-5):
-    xf = x.float()
+    xf = wide(x)
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * wide(scale)).to(x.dtype)
 
 
 def head_rms_norm(x, scale, eps=1e-5):
@@ -55,7 +63,7 @@ def rope(x, positions, theta: float = 10_000.0):
     freqs = torch.pow(1.0 / theta, exps)       # no host-to-device copy
     ang = positions[..., :, None].float()[..., None, :] * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)       # (..., S, 1, half)
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = wide(x[..., :half]), wide(x[..., half:])
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
 

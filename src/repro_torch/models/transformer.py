@@ -1,15 +1,26 @@
-"""Decoder-only LM assembled from a block pattern: the dense attention stages.
+"""Decoder-only LM assembled from a block pattern.
 
 Port of ``src/repro/models/transformer.py`` (``build_stages``, ``init_lm``,
-``_attn_block`` with the ``mlp`` variant, ``lm_forward``, ``lm_loss``,
-``init_caches``, ``lm_decode_step``, ``_decode_stage``, ``lm_prefill``).
+``_attn_block`` with the ``mlp`` variant, ``_rec_block``, ``lm_forward``,
+``lm_loss``, ``init_caches``, ``lm_decode_step``, ``_decode_stage``,
+``lm_prefill``; the reference's ``_forward_shared``, ``_decode_shared``
+and ``_prefill_shared`` walk one schedule, ``_super_steps`` here).  Block
+kinds: GQA attention with an MLP, and the recurrent ``mamba2``, ``mlstm``
+and ``slstm`` blocks (``models/ssm.py``); zamba2's shared GQA + MLP blocks
+(``shared_attn_every``: shared block ``idx % n_shared_blocks`` runs after
+every ``shared_attn_every`` backbone blocks, super-step ``idx``).
 Parameters and caches keep the reference's tree: each stage's layers are
 stacked on a leading axis; ``lax.scan`` over a stage becomes a Python loop
-over its layers.  Other block kinds (mamba2, mlstm, slstm), the ``moe``
-variant, MLA, ``shared_attn_every``, input embeddings fed from outside
-(``embed_inputs=False``) and sinusoidal positions raise
+over its layers.  The ``moe`` variant, MLA, input embeddings fed from
+outside (``embed_inputs=False``) and sinusoidal positions raise
 ``NotImplementedError`` (ROADMAP queue 1 item 10); ``lm_forward`` and
 ``lm_prefill`` therefore take tokens only, and positions ``0..S-1``.
+
+``impl`` picks the attention core (``chunked``: the flash kernel;
+``naive``), ``rec_impl`` the recurrences' form in a forward or a prefill
+(``chunked`` or ``seq``); a decode step runs them as ``seq``, one token,
+as the reference does.  Recurrent states are fp32 caches (the conv tails
+in the model dtype).
 
 ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
 reference wraps each scanned block in ``jax.checkpoint``).  A ``mesh``
@@ -21,20 +32,29 @@ Differences from the reference: ``impl`` is an argument only (no
 feeds both the attention and the cache from that projection (the
 reference projects twice, to the same values) and defaults to ``chunked``,
 the flash kernel (the reference's default ``tri`` is not ported); decode
-writes the caches in place and returns the same dict.
+and prefill write the caches in place (K/V rows and recurrent states
+alike) and decode returns the same dict.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import ssm
 from repro_torch.models.attention import (gqa_attend, gqa_decode,
-                                          gqa_project, init_gqa, _pos_vec)
+                                          gqa_project, init_gqa)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, dot, dtype_of,
                                        init_linear, init_mlp, mlp_apply,
                                        normal, rms_norm, stack_params,
                                        unbind_params)
+
+REC_KINDS = ("mamba2", "mlstm", "slstm")
+_INIT_REC = {"mamba2": ssm.init_mamba2, "mlstm": ssm.init_mlstm,
+             "slstm": ssm.init_slstm}
+_REC_STATE = {"mamba2": ssm.mamba2_init_state,
+              "mlstm": ssm.mlstm_init_state,
+              "slstm": ssm.slstm_init_state}
 
 
 # ==================================================================== plan ==
@@ -60,7 +80,9 @@ def build_stages(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every stage is a dense GQA attention block with an MLP."""
+    """Raise unless every stage is a GQA attention block with an MLP or a
+    recurrent block (mamba2, mlstm, slstm), with or without shared
+    blocks."""
     what = []
     if not cfg.embed_inputs:
         what.append("embed_inputs=False")
@@ -68,15 +90,14 @@ def check_supported(cfg: ModelConfig) -> None:
         what.append("pos_emb=sinusoidal")
     if cfg.attn_type != "gqa":
         what.append(f"attn_type={cfg.attn_type}")
-    if cfg.shared_attn_every:
-        what.append("shared_attn_every")
     for kind, variant, _ in build_stages(cfg):
-        if (kind, variant) != ("attn", "mlp"):
+        if (kind, variant) != ("attn", "mlp") and kind not in REC_KINDS:
             what.append(f"{kind}/{variant}" if variant else kind)
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(set(what)))} not ported "
-            f"(ROADMAP queue 1 item 10); the port runs dense GQA stages")
+            f"(ROADMAP queue 1 item 10); the port runs GQA attention with "
+            f"an MLP, mamba2, mlstm and slstm blocks, and shared blocks")
 
 
 def _dense_ff(cfg):
@@ -86,19 +107,27 @@ def _dense_ff(cfg):
 
 
 # ==================================================================== init ==
-def _init_block(gen, cfg, dtype):
+def _init_attn(gen, cfg, dtype, d_ff):
     dev = gen.device
     return {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
             "attn": init_gqa(gen, cfg, dtype),
             "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "mlp": init_mlp(gen, cfg.d_model, _dense_ff(cfg), dtype,
-                            cfg.mlp_act)}
+            "mlp": init_mlp(gen, cfg.d_model, d_ff, dtype, cfg.mlp_act)}
+
+
+def _init_block(gen, cfg, kind, dtype):
+    if kind == "attn":
+        return _init_attn(gen, cfg, dtype, _dense_ff(cfg))
+    return {"norm": torch.ones((cfg.d_model,), dtype=dtype,
+                               device=gen.device),
+            "body": _INIT_REC[kind](gen, cfg, dtype)}
 
 
 def init_lm(seed: int, cfg: ModelConfig, dtype=None, *, device="cuda"):
     """Random weights from ``seed`` (a ``torch.Generator`` on ``device``),
-    in the reference's tree and scales: std ``1/sqrt(fan_in)`` for
-    linears, 0.02 for the embedding, ones for norms."""
+    in the reference's tree, scales and leaf dtypes: std ``1/sqrt(fan_in)``
+    for linears, 0.02 for the embedding, ones for norms; the recurrent
+    blocks' gate and decay leaves stay fp32 (``models/ssm.py``)."""
     check_supported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     gen = torch.Generator(device=device)
@@ -108,9 +137,13 @@ def init_lm(seed: int, cfg: ModelConfig, dtype=None, *, device="cuda"):
                                        device=device)}
     if not cfg.tie_embeddings:
         params["head"] = init_linear(gen, cfg.d_model, cfg.vocab, dtype)
-    for si, (_, _, idxs) in enumerate(build_stages(cfg)):
+    for si, (kind, _, idxs) in enumerate(build_stages(cfg)):
         params[f"stage_{si}"] = stack_params(
-            [_init_block(gen, cfg, dtype) for _ in idxs])
+            [_init_block(gen, cfg, kind, dtype) for _ in idxs])
+    if cfg.shared_attn_every:
+        params["shared"] = stack_params(
+            [_init_attn(gen, cfg, dtype, cfg.d_ff)
+             for _ in range(cfg.n_shared_blocks)])
     return params
 
 
@@ -124,39 +157,81 @@ def _attn_block(p, x, positions, cfg, *, impl, offset=0):
     return x + mlp_apply(p["mlp"], h, cfg.mlp_act), k, v
 
 
+def _rec_block(p, x, cfg, kind, *, impl, state=None):
+    """One recurrent block; returns ``(x, new_state)``."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if kind == "mamba2":
+        out, st = ssm.mamba2_forward(p["body"], h, cfg, state=state,
+                                     impl=impl)
+    elif kind == "mlstm":
+        out, st = ssm.mlstm_block(p["body"], h, cfg, state=state, impl=impl)
+    else:
+        out, st = ssm.slstm_block(p["body"], h, cfg, state=state)
+    return x + out, st
+
+
 def _layers(params, cfg):
-    """``(stage key, layer index within the stage, layer params)`` for
-    every layer, in order."""
-    for si in range(len(build_stages(cfg))):
+    """``(stage key, kind, layer index within the stage, layer params)``
+    for every layer of the stages, in order."""
+    for si, (kind, _, _) in enumerate(build_stages(cfg)):
         for li, p in enumerate(unbind_params(params[f"stage_{si}"])):
-            yield f"stage_{si}", li, p
+            yield f"stage_{si}", kind, li, p
+
+
+def _super_steps(params, cfg):
+    """zamba2's schedule: for each super-step ``idx``, ``(idx, kind, its
+    backbone layers as (index in stage_0, params), the shared block that
+    serves it)``.  The backbone must be one stage of whole super-steps."""
+    stages = build_stages(cfg)
+    every = cfg.shared_attn_every
+    if len(stages) != 1 or len(stages[0][2]) % every:
+        raise ValueError(f"{cfg.name}: shared blocks need one homogeneous "
+                         f"backbone stage of a multiple of {every} layers")
+    kind = stages[0][0]
+    layers = unbind_params(params["stage_0"])
+    shared = unbind_params(params["shared"])
+    for idx in range(len(layers) // every):
+        span = range(idx * every, (idx + 1) * every)
+        yield (idx, kind, [(li, layers[li]) for li in span],
+               shared[idx % cfg.n_shared_blocks])
 
 
 def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _block_out(p, x, positions, cfg, impl):
-    return _attn_block(p, x, positions, cfg, impl=impl)[0]
+def _block_out(p, x, positions, cfg, kind, impl, rec_impl):
+    if kind == "attn":
+        return _attn_block(p, x, positions, cfg, impl=impl)[0]
+    return _rec_block(p, x, cfg, kind, impl=rec_impl)[0]
 
 
 def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked",
-               remat=False):
+               rec_impl="chunked", remat=False):
     """Full-sequence forward over tokens ``(b, S)``.  Returns ``(logits
     (b, S, V) fp32, aux)``; aux is 0.0 (it is the MoE load-balancing loss
-    in the reference).  ``remat``: each layer runs under
-    ``torch.utils.checkpoint`` (its activations recomputed in the
+    in the reference).  ``remat``: each layer (and each shared block) runs
+    under ``torch.utils.checkpoint`` (its activations recomputed in the
     backward, its input saved)."""
     check_supported(cfg)
     b, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
     x = params["embed"][tokens]
-    for _, _, p in _layers(params, cfg):
+
+    def run(p, x, kind):
         if remat:
-            x = checkpoint(_block_out, p, x, positions, cfg, impl,
-                           use_reentrant=False)
-        else:
-            x = _block_out(p, x, positions, cfg, impl)
+            return checkpoint(_block_out, p, x, positions, cfg, kind, impl,
+                              rec_impl, use_reentrant=False)
+        return _block_out(p, x, positions, cfg, kind, impl, rec_impl)
+
+    if cfg.shared_attn_every:
+        for _, kind, layers, shared in _super_steps(params, cfg):
+            for _, p in layers:
+                x = run(p, x, kind)
+            x = run(shared, x, "attn")
+    else:
+        for _, kind, _, p in _layers(params, cfg):
+            x = run(p, x, kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dot(x, _head(params, cfg)), 0.0
 
@@ -171,7 +246,7 @@ def check_single_device(mesh) -> None:
 
 # ==================================================================== loss ==
 def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
-            remat=False, aux_weight=1e-2):
+            rec_impl="chunked", remat=False, aux_weight=1e-2):
     """Next-token loss of ``batch = {"tokens", "labels"}`` (labels ``-1``
     ignored): ``(loss, {"ce", "aux"})`` with ``loss = ce + aux_weight ·
     aux``.  The reference's mesh axes (``dp_axes``, ``model_axis``) have no
@@ -182,25 +257,53 @@ def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
                                   "\"embeds\") are not ported (ROADMAP "
                                   "queue 1 item 10)")
     logits, aux = lm_forward(params, cfg, batch["tokens"], impl=impl,
-                             remat=remat)
+                             rec_impl=rec_impl, remat=remat)
     ce = cross_entropy(logits, batch["labels"])
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ================================================================== caches ==
+def _kv_cache(n, cfg, batch, max_len, dtype, device):
+    hd = cfg.resolved_head_dim
+    return {name: torch.zeros((n, batch, max_len, cfg.n_kv_heads, hd),
+                              dtype=dtype, device=device)
+            for name in ("k", "v")}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                 device="cuda"):
-    """Per-layer decode caches, stacked per stage: ``{"stage_i": {"k", "v":
-    (L, batch, max_len, Hkv, hd)}}``, zeros."""
+    """Per-layer decode caches, stacked per stage, zeros (the recurrent
+    states at their initial values): ``{"stage_i": {"k", "v": (L, batch,
+    max_len, Hkv, hd)}}`` for attention, the block's state leaves with a
+    leading ``L`` for a recurrent stage (fp32 states, ``ssm.acc``; conv
+    tails in ``dtype``), and ``"shared": {"k", "v"}`` with one slab per
+    shared-block application (``n_layers // shared_attn_every``)."""
     check_supported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
-    hd = cfg.resolved_head_dim
-    return {f"stage_{si}": {
-        name: torch.zeros((len(idxs), batch, max_len, cfg.n_kv_heads, hd),
-                          dtype=dtype, device=device)
-        for name in ("k", "v")}
-        for si, (_, _, idxs) in enumerate(build_stages(cfg))}
+    caches = {}
+    stages = build_stages(cfg)
+    for si, (kind, _, idxs) in enumerate(stages):
+        L = len(idxs)
+        if kind == "attn":
+            caches[f"stage_{si}"] = _kv_cache(L, cfg, batch, max_len, dtype,
+                                              device)
+            continue
+        state = _REC_STATE[kind](cfg, batch, dtype, device=device)
+        caches[f"stage_{si}"] = {
+            name: t[None].expand(L, *t.shape).contiguous()
+            for name, t in state.items()}
+    if cfg.shared_attn_every:
+        n_apps = len(stages[0][2]) // cfg.shared_attn_every
+        caches["shared"] = _kv_cache(n_apps, cfg, batch, max_len, dtype,
+                                     device)
+    return caches
+
+
+def _store(stage_cache, li, state) -> None:
+    """Write a recurrent block's state into layer ``li``'s cache rows."""
+    for name, t in state.items():
+        stage_cache[name][li].copy_(t)
 
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length):
@@ -208,17 +311,31 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length):
     context size).  Writes the caches in place; returns ``(logits (b, V),
     caches)``."""
     check_supported(cfg)
-    positions = _pos_vec(length, tokens.shape[0], tokens.device)
     x = params["embed"][tokens[:, None]]                        # (b, 1, d)
-    for key, li, p in _layers(params, cfg):
-        x = _decode_stage(p, caches[key], li, x, length, cfg)
+    if cfg.shared_attn_every:
+        for idx, kind, layers, shared in _super_steps(params, cfg):
+            for li, p in layers:
+                x = _decode_stage(p, caches["stage_0"], li, x, length, cfg,
+                                  kind)
+            x = _decode_stage(shared, caches["shared"], idx, x, length, cfg,
+                              "attn")
+    else:
+        for key, kind, li, p in _layers(params, cfg):
+            x = _decode_stage(p, caches[key], li, x, length, cfg, kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dot(x, _head(params, cfg))[:, 0], caches
 
 
-def _decode_stage(p, stage_cache, li, x, length, cfg):
+def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
     """Layer ``li`` of a stage at one decode step (the body of the
-    reference's scan)."""
+    reference's scan): attention reads and writes K/V row ``length``; a
+    recurrent block steps its state (``impl="seq"``, one token) and
+    writes it back."""
+    if kind != "attn":
+        state = {name: c[li] for name, c in stage_cache.items()}
+        x, state = _rec_block(p, x, cfg, kind, impl="seq", state=state)
+        _store(stage_cache, li, state)
+        return x
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     out, _, _ = gqa_decode(p["attn"], h, stage_cache["k"][li],
                            stage_cache["v"][li], length, cfg)
@@ -228,15 +345,17 @@ def _decode_stage(p, stage_cache, li, x, length, cfg):
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
-               impl="chunked", last_index=None):
+               impl="chunked", rec_impl="chunked", last_index=None):
     """Prefill: forward over the prompt tokens ``(b, S)``, filling fresh
     decode caches.
 
     Returns ``(last_logits (b, V), caches, length)``.  Cache layout as
-    ``init_caches``; K/V are written at positions ``[0, S)``.
-    ``last_index``: int or ``(b,)`` index of the true last prompt token
-    (right-padded prompts are causal-safe: pads never reach positions at
-    or before it); ``length`` is then ``last_index + 1``, else ``S``.
+    ``init_caches``; K/V are written at positions ``[0, S)``, recurrent
+    states after the last token.  ``last_index``: int or ``(b,)`` index of
+    the true last prompt token (right-padded prompts are causal-safe for
+    attention: pads never reach positions at or before it; a recurrent
+    state absorbs them, so recurrent models are prefilled at their exact
+    length); ``length`` is then ``last_index + 1``, else ``S``.
     """
     check_supported(cfg)
     b, S = tokens.shape
@@ -245,10 +364,27 @@ def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
     x = params["embed"][tokens]
     caches = init_caches(cfg, b, max_len, params["embed"].dtype,
                          device=dev)
-    for key, li, p in _layers(params, cfg):
+
+    def attn(p, x, cache, li):
         x, k, v = _attn_block(p, x, positions, cfg, impl=impl)
-        caches[key]["k"][li, :, :S] = k
-        caches[key]["v"][li, :, :S] = v
+        cache["k"][li, :, :S] = k
+        cache["v"][li, :, :S] = v
+        return x
+
+    def rec(p, x, cache, li, kind):
+        x, state = _rec_block(p, x, cfg, kind, impl=rec_impl)
+        _store(cache, li, state)
+        return x
+
+    if cfg.shared_attn_every:
+        for idx, kind, layers, shared in _super_steps(params, cfg):
+            for li, p in layers:
+                x = rec(p, x, caches["stage_0"], li, kind)
+            x = attn(shared, x, caches["shared"], idx)
+    else:
+        for key, kind, li, p in _layers(params, cfg):
+            x = (attn(p, x, caches[key], li) if kind == "attn"
+                 else rec(p, x, caches[key], li, kind))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_index is None:
         x_last = x[:, -1:]

@@ -9,7 +9,9 @@ converted to numpy) and returns the same tree of tensors on ``device``;
 ``opt_state_to_reference`` do the same for an AdamW state ``{"step", "m",
 "v"}``, with fp32 moments or int8 ``QTensor``s (any object with ``codes``
 and ``scale`` is taken for one).  A missing or unknown key, or a shape
-that differs from what ``cfg`` implies (``param_shapes``), raises.
+that differs from what ``cfg`` implies (``param_shapes``), raises.  Leaves
+take the model dtype, except the recurrent blocks' gate and decay leaves
+the reference keeps in fp32 (``FP32_LEAVES``, ``param_dtypes``).
 """
 from __future__ import annotations
 
@@ -22,38 +24,97 @@ from repro_torch.models.transformer import (_dense_ff, build_stages,
 from repro_torch.train.optim import QBLOCK, QTensor
 
 
-def param_shapes(cfg) -> dict:
-    """The parameter tree ``init_lm(cfg)`` builds, with shapes as leaves."""
-    check_supported(cfg)
+# Leaves the reference keeps in fp32 whatever the model dtype (its
+# ``ssm.init_mamba2``, ``init_mlstm`` and ``init_slstm``), by block kind.
+FP32_LEAVES = {"mamba2": ("A_log", "dt_bias", "D"), "mlstm": ("if_bias",),
+               "slstm": ("bias",)}
+
+
+def _attn_shapes(cfg, n, ff):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    hq, hkv, ff = cfg.n_heads * hd, cfg.n_kv_heads * hd, _dense_ff(cfg)
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    attn = {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
+            "wo": (n, hq, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(n, hq), bk=(n, hkv), bv=(n, hkv))
+    if cfg.qk_norm:
+        attn.update(q_norm=(n, hd), k_norm=(n, hd))
+    mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
+    if cfg.mlp_act == "swiglu":
+        mlp["wg"] = (n, d, ff)
+    return {"norm1": (n, d), "attn": attn, "norm2": (n, d), "mlp": mlp}
+
+
+def _rec_body_shapes(cfg, kind, n):
+    d = cfg.d_model
+    if kind == "mamba2":
+        s = cfg.ssm
+        d_in = s.expand * d
+        gN = s.n_groups * s.d_state
+        nh = d_in // s.head_dim
+        return {"in_proj": (n, d, 2 * d_in + 2 * gN + nh),
+                "conv_w": (n, s.conv_width, d_in + 2 * gN),
+                "conv_b": (n, d_in + 2 * gN), "A_log": (n, nh),
+                "dt_bias": (n, nh), "D": (n, nh), "norm": (n, d_in),
+                "out_proj": (n, d_in, d)}
+    H = cfg.n_heads
+    if kind == "mlstm":
+        d_in = int(cfg.xlstm.proj_factor * d)
+        return {"up": (n, d, 2 * d_in),
+                "conv_w": (n, cfg.xlstm.conv_width, d_in),
+                "conv_b": (n, d_in), "wq": (n, d_in, d_in),
+                "wk": (n, d_in, d_in), "wv": (n, d_in, d_in),
+                "wif": (n, d_in, 2 * H), "if_bias": (n, 2 * H),
+                "skip": (n, d_in), "norm": (n, d_in), "down": (n, d_in, d)}
+    hd = d // H
+    return {"w": (n, d, 4 * d), "r": (n, H, hd, 4 * hd), "bias": (n, 4 * d),
+            "norm": (n, d), "out": (n, d, d)}
+
+
+def param_shapes(cfg) -> dict:
+    """The parameter tree ``init_lm(cfg)`` builds, with shapes as leaves
+    (``param_dtypes`` gives each leaf's dtype)."""
+    check_supported(cfg)
+    d = cfg.d_model
     tree = {"embed": (cfg.vocab, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         tree["head"] = (d, cfg.vocab)
-    for si, (_, _, idxs) in enumerate(build_stages(cfg)):
+    for si, (kind, _, idxs) in enumerate(build_stages(cfg)):
         n = len(idxs)
-        attn = {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
-                "wo": (n, hq, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=(n, hq), bk=(n, hkv), bv=(n, hkv))
-        if cfg.qk_norm:
-            attn.update(q_norm=(n, hd), k_norm=(n, hd))
-        mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
-        if cfg.mlp_act == "swiglu":
-            mlp["wg"] = (n, d, ff)
-        tree[f"stage_{si}"] = {"norm1": (n, d), "attn": attn,
-                               "norm2": (n, d), "mlp": mlp}
+        tree[f"stage_{si}"] = (
+            _attn_shapes(cfg, n, _dense_ff(cfg)) if kind == "attn"
+            else {"norm": (n, d), "body": _rec_body_shapes(cfg, kind, n)})
+    if cfg.shared_attn_every:
+        tree["shared"] = _attn_shapes(cfg, cfg.n_shared_blocks, cfg.d_ff)
     return tree
 
 
-def _convert(spec, tree, path, device, dtype):
+def param_dtypes(cfg, dtype=None) -> dict:
+    """``param_shapes``' tree with each leaf's dtype: ``dtype`` (default
+    ``cfg.dtype``), except the recurrent blocks' ``FP32_LEAVES``."""
+    dtype = dtype or dtype_of(cfg.dtype)
+    shapes = param_shapes(cfg)
+    tree = _map(lambda _: dtype, shapes)
+    for si, (kind, _, _) in enumerate(build_stages(cfg)):
+        for name in FP32_LEAVES.get(kind, ()):
+            tree[f"stage_{si}"]["body"][name] = torch.float32
+    return tree
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _convert(spec, dtypes, tree, path, device):
     if isinstance(spec, tuple):
         arr = np.asarray(tree)
         if arr.shape != spec:
             raise ValueError(f"from_reference: {path} has shape {arr.shape}, "
                              f"expected {spec}")
         return torch.from_numpy(arr.astype(np.float32)).to(device=device,
-                                                           dtype=dtype)
+                                                           dtype=dtypes)
     if not isinstance(tree, dict):
         raise ValueError(f"from_reference: {path} must be a dict")
     missing = sorted(set(spec) - set(tree))
@@ -61,15 +122,16 @@ def _convert(spec, tree, path, device, dtype):
     if missing or unknown:
         raise KeyError(f"from_reference: at {path or '<root>'}: missing "
                        f"{missing}, unknown {unknown}")
-    return {k: _convert(spec[k], tree[k], f"{path}/{k}", device, dtype)
+    return {k: _convert(spec[k], dtypes[k], tree[k], f"{path}/{k}", device)
             for k in spec}
 
 
 def from_reference(cfg, tree: dict, *, device="cuda", dtype=None) -> dict:
     """The port's parameters from the reference's ``init_lm`` tree (numpy
-    leaves, any float dtype), cast to ``dtype`` (default ``cfg.dtype``)."""
-    return _convert(param_shapes(cfg), tree, "", device,
-                    dtype or dtype_of(cfg.dtype))
+    leaves, any float dtype), cast to ``dtype`` (default ``cfg.dtype``)
+    but for the leaves the reference keeps in fp32 (``param_dtypes``)."""
+    return _convert(param_shapes(cfg), param_dtypes(cfg, dtype), tree, "",
+                    device)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -6,17 +6,21 @@ Port of ``src/repro/serve/engine.py`` (``ServeEngine``, ``Request``):
     decode steps run in lockstep over all slots, per-slot masks handle
     ragged lengths;
   * prompts are prefilled one at a time into a free slot through the
-    flash kernel, right-padded to a multiple of 16 (causal-safe, since the
-    port runs attention-only models); generation joins the next decode
-    step;
+    flash kernel (``impl``; ``"naive"`` is the plain path, for parity
+    checks); an attention-only model's prompt is right-padded to a
+    multiple of 16 (causal-safe), a model with any recurrent block is
+    prefilled at its exact length (its state would absorb every pad);
+    generation joins the next decode step;
   * finished slots (EOS, ``max_new`` or ``max_len``) are recycled at once.
 
 Where the reference rebuilds its caches functionally, the port writes them
 in place: a prefill's single-row caches are copied into the slot's row of
-the pool, and each decode step writes one position per slot.  Per-slot
-lengths and last tokens live on the host and go to the device with each
-step.  Sampled decoding draws from a ``torch.Generator`` seeded with
-``seed``; greedy decoding takes the argmax.
+the pool, leaf by leaf (K/V, the shared blocks' K/V and the recurrent
+states, each in its own dtype), and each decode step writes one position
+per slot and steps every recurrent state.  Per-slot lengths and last
+tokens live on the host and go to the device with each step.  Sampled
+decoding draws from a ``torch.Generator`` seeded with ``seed``; greedy
+decoding takes the argmax.
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg, params, *, slots: int = 8, max_len: int = 512,
-                 greedy: bool = True, seed: int = 0):
+                 greedy: bool = True, seed: int = 0, impl: str = "chunked"):
         self.cfg = cfg
+        self.impl = impl
         self.params = params
         self.slots = slots
         self.max_len = max_len
@@ -76,6 +81,10 @@ class ServeEngine:
     def _bucket(n, quantum=16):
         return max(quantum, -(-n // quantum) * quantum)
 
+    @property
+    def _attention_only(self):
+        return all(k == "attn" for k in self.cfg.pattern)
+
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
@@ -86,12 +95,20 @@ class ServeEngine:
                 return
             req = self.queue.pop(0)
             S = len(req.prompt)
-            # right-pad to a bucket boundary: pads sit in the masked future
-            padded = np.zeros((self._bucket(S),), np.int64)
-            padded[:S] = req.prompt
-            logits, caches1, _ = lm_prefill(
-                self.params, self.cfg, self._tensor(padded)[None],
-                max_len=self.max_len, impl="chunked", last_index=S - 1)
+            if self._attention_only:
+                # right-pad to a bucket boundary: pads sit in the masked
+                # future
+                padded = np.zeros((self._bucket(S),), np.int64)
+                padded[:S] = req.prompt
+                logits, caches1, _ = lm_prefill(
+                    self.params, self.cfg, self._tensor(padded)[None],
+                    max_len=self.max_len, impl=self.impl, last_index=S - 1)
+            else:
+                # a recurrent state absorbs every token it sees: prefill
+                # at the exact prompt length
+                logits, caches1, _ = lm_prefill(
+                    self.params, self.cfg, self._tensor(req.prompt)[None],
+                    max_len=self.max_len, impl=self.impl)
             for key, stage in self.caches.items():       # the slot's row
                 for name, full in stage.items():
                     full[:, slot].copy_(caches1[key][name][:, 0])

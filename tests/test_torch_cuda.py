@@ -41,8 +41,8 @@ from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
 from repro_torch.kernels.spdmm import spdmm, spdmm_rows
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import (knn_adversarial, vip_masked_graph,  # noqa: E402
-                        window_mask)
+from chip_smoke import (knn_adversarial, tree_to,  # noqa: E402
+                        vip_masked_graph, window_mask)
 
 RTOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -151,6 +151,14 @@ FLASH_BF16 = ([(1, 16, 8, 2048, 2048, d, c) for d in (64, 128)
               + [(1, 16, 8, 77, 77, 128, True), (1, 16, 8, 100, 100, 64, True),
                  (2, 4, 2, 77, 100, 128, True),
                  (1, 16, 8, 100, 300, 128, True)])
+
+# Head dims off the bf16 kernel's instantiations (64, 128): D = 80 runs
+# under DP = 128 with its columns 80-127 masked, at zamba2-2.7b's shared
+# attention (32 heads of 80, no GQA; the served exact prompt lengths and a
+# 2048-token prompt), and D = 96 at GQA, ragged and non-causal shapes
+FLASH_PADDED_D = ([(1, 32, 32, s, s, 80, True) for s in (8, 29, 47, 2048)]
+                  + [(2, 4, 2, 77, 100, 96, True),
+                     (1, 8, 8, 64, 64, 96, False)])
 
 
 # The flash backward (dq, dk, dv) on the card: llama3.2-1b's training shape,
@@ -847,6 +855,27 @@ def test_cuda_flash_attention_bf16_tensor_cores_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_PADDED_D, ids=str)
+def test_cuda_flash_attention_padded_head_dims_match_plain(cuda, case,
+                                                           dtype):
+    """D = 80 (zamba2's shared attention) and D = 96 launch the kernel
+    instantiated for the next size up, within the flash tolerances."""
+    b, hq, hkv, sq, sk, d, causal = case
+    q, k, v = (t(a).to(cuda, dtype)
+               for a in flash_inputs(*case[:6], seed=sq + d))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.attention_ref(q, k, v, causal=causal)
+    close(got.float().cpu(), want.float().cpu(),
+          rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_misaligned_bf16_views(cuda):
     """bf16 k/v/q rows go through 16-byte copies: a base or a stride off a
     16-byte boundary raises; nothing is copied and nothing falls back."""
@@ -926,6 +955,34 @@ def test_cuda_smoke_serve_runs_through_the_kernel(cuda):
         logits, _ = lm_forward(params, cfg, toks[None], impl="naive")
         assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
+def test_cuda_recurrent_smoke_engines_give_the_cpu_tokens(cuda, arch):
+    """The smoke zamba2 and xlstm (fp32) served on the card emit the CPU
+    port's tokens from the same weights; zamba2's prefills launch the
+    flash kernel once per shared-block application, xlstm's none."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get_smoke(arch)
+    params = init_lm(0, cfg, device="cpu")
+    on_card = tree_to(params, cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 9, 12, 7, 20)]
+    outs = []
+    for p in (params, on_card):
+        eng = ServeEngine(cfg, p, slots=3, max_len=64)
+        before = flash_attention.launches
+        reqs = [eng.submit(x, max_new=6) for x in prompts]
+        eng.run()
+        launched = flash_attention.launches - before
+        outs.append([r.out for r in reqs])
+    n_apps = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.shared_attn_every else 0)
+    assert launched == len(prompts) * n_apps
+    assert outs[1] == outs[0]
 
 # ------------------------------------ CUDA graphs and batched execution --
 # Small configs of every GNN-CV path: the graph runner equals the eager

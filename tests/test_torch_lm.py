@@ -6,7 +6,11 @@ Logits and caches of ``lm_forward``, ``lm_prefill`` and ``lm_decode_step``
 must agree within 1e-5 of max|ref| (fp32 smoke configs: the same
 arithmetic, summed in another order), and the port's ``ServeEngine`` must
 emit exactly the reference engine's tokens on the request sets of
-``tests/test_serve.py``.
+``tests/test_serve.py`` (a shorter set for the recurrent archs, whose
+reference engine compiles a prefill per exact prompt length).  The dense
+GQA archs (``ARCHS``) and the recurrent family (``REC_ARCHS``: zamba2's
+Mamba2 backbone with shared GQA blocks, xLSTM's mLSTM and sLSTM) go
+through the same tests wherever a test applies to both (``ALL``).
 """
 import dataclasses
 import subprocess
@@ -22,6 +26,7 @@ from repro import configs as rconfigs
 from repro.launch.serve import serve as ref_serve
 from repro.models.attention import gqa_decode as ref_gqa_decode
 from repro.models.attention import gqa_forward as ref_gqa_forward
+from repro.models.transformer import init_caches as ref_init_caches
 from repro.models.transformer import init_lm as ref_init
 from repro.models.transformer import lm_decode_step as ref_decode
 from repro.models.transformer import lm_forward as ref_forward
@@ -33,12 +38,16 @@ from repro_torch import configs
 from repro_torch.launch.serve import serve
 from repro_torch.models.attention import gqa_decode, gqa_forward
 from repro_torch.models.layers import causal_mask, cross_entropy
-from repro_torch.models.transformer import (init_lm, lm_decode_step,
-                                            lm_forward, lm_loss, lm_prefill)
-from repro_torch.models.weights import from_reference, param_shapes
+from repro_torch.models.transformer import (init_caches, init_lm,
+                                            lm_decode_step, lm_forward,
+                                            lm_loss, lm_prefill)
+from repro_torch.models.weights import (from_reference, param_dtypes,
+                                        param_shapes)
 from repro_torch.serve import ServeEngine
 
 ARCHS = ["qwen3-0.6b", "llama3.2-1b"]
+REC_ARCHS = ["zamba2-2.7b", "xlstm-350m"]
+ALL = ARCHS + REC_ARCHS
 RTOL = 1e-5
 CPU = torch.device("cpu")
 
@@ -65,7 +74,7 @@ def tokens(vocab, shape, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_configs_equal_the_reference(arch):
     for get in ("get", "get_smoke"):
         ours = getattr(configs, get)(arch)
@@ -74,17 +83,19 @@ def test_configs_equal_the_reference(arch):
         assert ours.params_count() == theirs.params_count()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-350m",
-                                  "zamba2-2.7b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "chameleon-34b",
+                                  "musicgen-medium", "grok-1-314b"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get(arch)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_param_tree_matches_the_reference(arch):
-    """Keys, shapes and dtypes of ``init_lm``, and ``param_shapes`` of the
-    published config against the reference's (by ``jax.eval_shape``)."""
+    """Keys, shapes and dtypes of ``init_lm``, and ``param_shapes`` and
+    ``param_dtypes`` of the published (bf16) config against the
+    reference's (by ``jax.eval_shape``): the recurrent blocks' fp32
+    leaves stay fp32."""
     cfg, rp, pcfg, _ = both(arch)
     ours = init_lm(0, pcfg, device=CPU)
     flat_r = jax.tree_util.tree_flatten_with_path(rp)[0]
@@ -98,6 +109,36 @@ def test_param_tree_matches_the_reference(arch):
                                            rconfigs.get(arch)))
     shapes = jax.tree.map(lambda a: a.shape, full)
     assert shapes == param_shapes(configs.get(arch))
+    dtypes = jax.tree.map(lambda a: str(a.dtype), full)
+    assert dtypes == jax.tree.map(lambda d: str(d).split(".")[-1],
+                                  param_dtypes(configs.get(arch)))
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_bf16_weights_keep_the_reference_dtypes(arch):
+    """Under a bf16 model, ``init_lm`` and ``from_reference`` give every
+    leaf the reference's dtype: the model dtype, but fp32 for mamba2's
+    ``A_log``, ``dt_bias`` and ``D``, mLSTM's ``if_bias`` and sLSTM's
+    ``bias``; the caches likewise (fp32 states, bf16 K/V and conv
+    tails)."""
+    cfg = dataclasses.replace(rconfigs.get_smoke(arch), dtype="bfloat16")
+    pcfg = dataclasses.replace(configs.get_smoke(arch), dtype="bfloat16")
+    rp = ref_init(jax.random.PRNGKey(0), cfg)
+    want = {str(p): str(a.dtype)
+            for p, a in jax.tree_util.tree_flatten_with_path(rp)[0]}
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), rp)
+    for ours in (init_lm(0, pcfg, device=CPU),
+                 from_reference(pcfg, tree, device=CPU)):
+        got = {str(p): str(a.dtype).split(".")[-1]
+               for p, a in jax.tree_util.tree_flatten_with_path(ours)[0]}
+        assert got == want
+    fp32 = [p for p, d in want.items() if d == "float32"]
+    assert bool(fp32) == (arch in REC_ARCHS), fp32
+    rc = ref_init_caches(cfg, 2, 16)
+    pc = init_caches(pcfg, 2, 16, device=CPU)
+    assert jax.tree.map(lambda a: (a.shape, str(a.dtype)), rc) == \
+        jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]),
+                     pc)
 
 
 def test_from_reference_rejects_a_bad_tree():
@@ -116,7 +157,7 @@ def test_from_reference_rejects_a_bad_tree():
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_lm_forward_matches_reference(arch, impl):
     cfg, rp, pcfg, pp = both(arch)
     toks = tokens(cfg.vocab, (2, 24))
@@ -127,7 +168,7 @@ def test_lm_forward_matches_reference(arch, impl):
 
 
 @pytest.mark.parametrize("last_index", [None, 10])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_lm_prefill_matches_reference(arch, last_index):
     cfg, rp, pcfg, pp = both(arch)
     toks = tokens(cfg.vocab, (1, 16), seed=1)
@@ -144,7 +185,7 @@ def test_lm_prefill_matches_reference(arch, last_index):
             close(cache[key][name], arr)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_lm_decode_step_matches_reference(arch):
     """One step with per-row lengths from caches the reference prefilled."""
     cfg, rp, pcfg, pp = both(arch)
@@ -215,10 +256,15 @@ def run_both(arch, slots, max_len, sizes, max_new, seed):
     return rreqs, oreqs
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_engine_tokens_equal_the_reference_engine(arch):
-    """``test_serve.py``'s set: 5 ragged prompts through 3 slots."""
-    rreqs, oreqs = run_both(arch, 3, 64, (5, 9, 12, 7, 11), 6, seed=1)
+    """``test_serve.py``'s set: 5 ragged prompts through 3 slots; for the
+    recurrent archs 3 prompts of 2 lengths through 2 slots (a slot
+    recycled), 4 new tokens each."""
+    if arch in REC_ARCHS:
+        rreqs, oreqs = run_both(arch, 2, 32, (5, 9, 5), 4, seed=1)
+    else:
+        rreqs, oreqs = run_both(arch, 3, 64, (5, 9, 12, 7, 11), 6, seed=1)
     assert all(r.done for r in oreqs)
     assert [r.out for r in oreqs] == [r.out for r in rreqs]
 
@@ -248,7 +294,7 @@ def test_engine_eos_equals_the_reference_engine():
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_engine_matches_full_forward(arch):
     """The port's continuous batching reproduces the port's own greedy
     full-forward decoding (``tests/test_serve.py``'s check, in the port)."""
@@ -266,6 +312,53 @@ def test_engine_matches_full_forward(arch):
                                tokens=torch.as_tensor(toks)[None])
         want = logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
         assert r.out == want, (r.rid, r.out, want)
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_float64_prefill_then_decode_equals_the_forward(arch):
+    """A float64 model runs in float64 throughout (``layers.wide``, the
+    recurrences' ``acc``): a chunked prefill of 12 tokens and 17 decode
+    steps give one full forward's logits within 1e-12 of max|logits|, and
+    every cache leaf is float64."""
+    pcfg = configs.get_smoke(arch)
+    params = jax.tree.map(lambda t: t.double(), init_lm(0, pcfg, device=CPU))
+    toks = torch.as_tensor(tokens(pcfg.vocab, (1, 30), seed=6))
+    logits, cache, _ = lm_prefill(params, pcfg, toks[:, :12], max_len=32,
+                                  impl="naive")
+    got = [logits]
+    for t in range(12, 29):
+        logits, cache = lm_decode_step(params, pcfg, toks[:, t], cache, t)
+        got.append(logits)
+    want, _ = lm_forward(params, pcfg, toks[:, :29], impl="naive")
+    err = (torch.stack(got, 1) - want[:, 11:]).abs().max()
+    assert err <= 1e-12 * want.abs().max(), err
+    assert {str(t.dtype) for t in jax.tree.leaves(cache)} == \
+        {"torch.float64"}
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_engine_prefills_recurrent_models_at_their_exact_length(
+        arch, monkeypatch):
+    """An attention-only model is prefilled at its 16-token bucket with
+    ``last_index``; a model with a recurrent block at the exact prompt
+    length, without one (its state would absorb the pads)."""
+    import repro_torch.serve.engine as engine_mod
+    seen = []
+    real = engine_mod.lm_prefill
+
+    def spy(params, cfg, tokens, **kw):
+        seen.append((tokens.shape[1], kw.get("last_index")))
+        return real(params, cfg, tokens, **kw)
+
+    monkeypatch.setattr(engine_mod, "lm_prefill", spy)
+    pcfg = configs.get_smoke(arch)
+    eng = ServeEngine(pcfg, init_lm(0, pcfg, device=CPU), slots=2,
+                      max_len=64)
+    reqs = [eng.submit(np.arange(n) % pcfg.vocab, max_new=2) for n in (5, 17)]
+    eng.run()
+    assert all(r.done for r in reqs)
+    assert seen == ([(16, 4), (32, 16)] if arch in ARCHS
+                    else [(5, None), (17, None)])
 
 
 def test_sampled_decoding_repeats_with_its_seed():
@@ -331,7 +424,7 @@ def port_loss_and_grads(params, cfg, batch, **kw):
 
 
 @pytest.mark.parametrize("impl", ["chunked", "naive"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_lm_loss_and_grads_match_the_reference(arch, impl):
     cfg, rp, pcfg, pp = both(arch)
     batch = train_batch(cfg.vocab, (2, 32), seed=3)
@@ -350,7 +443,7 @@ def test_lm_loss_and_grads_match_the_reference(arch, impl):
         close(g, np.asarray(ref_g), rtol=GRAD_RTOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_remat_gives_the_same_loss_and_grads(arch):
     """``remat=True`` recomputes each layer in the backward: the same loss
     and grads, bit for bit on the CPU (the same ops in the same order)."""
