@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gnn           # the GNN phase alone
     python3 chip_smoke.py --train         # the training phase alone
     python3 chip_smoke.py --rec           # the recurrent LM family alone
+    python3 chip_smoke.py --moe           # deepseek-v3 and grok-1 alone
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -116,6 +117,23 @@ path == plain path tokens, or two runs equal; prefill logits) and
 float64 (prefill then decode == one ``lm_forward``); a 2048-token
 prefill each (p50, device breakdown) and the device time of the SSD,
 mLSTM and sLSTM plain paths in a decode step and that prefill.
+Last, the mixtures of experts (``moe_phase``, alone under ``--moe``):
+deepseek-v3-671b (MLA: q·k over 192, v of 128, 128 heads; 256 experts
+top-8 behind 3 dense layers) and grok-1-314b (48/8 GQA heads of 128; 8
+experts top-2) at their published width in bf16, the depth cut (printed:
+``MOE_LAYERS``) to fit one card; the flash kernel held against its plain
+version at each model's shapes (its (192, 128) instantiation for
+deepseek: the served buckets, 2048 tokens, a continuation and rows with
+no live key, bf16 and fp32), each model served 16 requests through a
+``ServeEngine`` at the launcher's defaults (launch counts, tok/s, time to
+first token, step p50), the margin-aware token check and every flash call
+of the served prefills within 2^-7 of the plain core on its own inputs
+and the margin-aware check on the tokens the prefills emit (the streams'
+margins printed beside two controls': ``moe_bf16_parity``), a 2048-token
+prefill, profiles with flash's share of the device, and the
+weights in fp32 (deepseek cut to 4 layers: ``MOE_FP32_LAYERS``): prefill
+logits of the kernel path within 1e-4 of the plain path's and the
+engine's greedy tokens equal.
 Every number printed is measured in this run.
 The last line is the JSON result; any failure exits nonzero before it.
 Imports the port only (``repro_torch``), never JAX.
@@ -142,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from typing import Callable
 
@@ -321,6 +340,14 @@ MARGIN_RTOL = 4e-2
 # published configs, random weights from seed 0, served with the launcher's
 # defaults above, every prompt prefilled at its exact length.
 REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")
+# The mixtures of experts (``moe_phase``) at their published width, the
+# depth cut to fit one 80 GB card in bf16 (random weights from seed 0):
+# deepseek-v3-671b to its 3 dense layers and 2 MoE layers of 61 (about 53
+# GB: each MoE layer holds 256 experts of 3 x 7168 x 2048), grok-1-314b to
+# 2 of 64 (about 23 GB); for the fp32 check deepseek to 3 dense + 1 MoE
+# (about 60 GB), grok stays at 2 (about 45 GB).
+MOE_LAYERS = {"deepseek-v3-671b": 5, "grok-1-314b": 2}
+MOE_FP32_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2}
 # The training path: llama3.2-1b at its published width (16 layers, d 2048,
 # 32/8 heads of 64, d_ff 8192, vocab 128256, tied, bf16), random weights
 # from seed 0, through ``launch.train.train`` at the launcher's defaults
@@ -2537,26 +2564,30 @@ def live_pairs(sq: int, sk: int, causal: bool) -> int:
 
 
 def flash_case(shape, dtype, rng, dev, per_request=0.0,
-               lse=False) -> Case:
-    """Flash attention at ``(B, Hq, Hkv, Sq, Sk, D, causal)``.  Bound: q,
-    k, v and o moved once (and the fp32 LSE written, with ``lse``: the
-    training forward); 4·D operations per live pair at the peak of the
-    input's type.  Library: one ``F.scaled_dot_product_attention`` call
-    (its causal mask is aligned at the top left, so only at Sq = Sk or
-    without a mask is it the same function)."""
+               lse=False, dv=None) -> Case:
+    """Flash attention at ``(B, Hq, Hkv, Sq, Sk, D, causal)``, v's head dim
+    ``dv`` (default D).  Bound: q, k, v and o moved once (and the fp32 LSE
+    written, with ``lse``: the training forward); 2·(D + DV) operations
+    per live pair at the peak of the input's type.  Library: one
+    ``F.scaled_dot_product_attention`` call (its causal mask is aligned
+    at the top left, so only at Sq = Sk or without a mask is it the same
+    function)."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     b, hq, hkv, sq, sk, d, causal = shape
+    dv = dv or d
     q, k, v = (torch.tensor(rng.standard_normal(sh), dtype=torch.float32,
                             device=dev).to(dtype)
-               for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+               for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
     library = None
     if sq == sk or not causal:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
     bf16 = dtype == torch.bfloat16
     label = (f"flash_attention {str(dtype).split('.')[-1]} q{tuple(q.shape)} "
-             f"kv{tuple(k.shape)} causal={causal}" + (" +lse" if lse else ""))
+             + (f"kv{tuple(k.shape)}" if dv == d else
+                f"k{tuple(k.shape)} v{tuple(v.shape)}")
+             + f" causal={causal}" + (" +lse" if lse else ""))
 
     def run():
         if lse:
@@ -2567,9 +2598,10 @@ def flash_case(shape, dtype, rng, dev, per_request=0.0,
     return Case(
         "flash_attention", label, run,
         lambda: ref.attention_ref(q, k, v, causal=causal), library,
-        q.element_size() * (2.0 * q.numel() + 2.0 * k.numel())
+        q.element_size() * (q.numel() + k.numel() + v.numel()
+                            + b * hq * sq * dv)
         + (4.0 * b * hq * sq if lse else 0.0),
-        4.0 * d * b * hq * live_pairs(sq, sk, causal), per_request,
+        2.0 * (d + dv) * b * hq * live_pairs(sq, sk, causal), per_request,
         rtol=FLASH_BF16_RTOL if bf16 else KERNEL_RTOL,
         rate=BF16_FLOPS if bf16 else FP32_FLOPS)
 
@@ -2719,18 +2751,27 @@ def token_margins(cfg, params, reqs) -> tuple[float, int, int]:
     equal to the plain argmax, tokens)``."""
     from repro_torch.models.transformer import lm_forward
     dev = params["embed"].device
-    worst_gap, agree, total = 0.0, 0, 0
+    rows = []
     for r in reqs:
         seq = np.concatenate([r.prompt, r.out[:-1]])
         logits, _ = lm_forward(params, cfg, impl="naive",
                                tokens=torch.as_tensor(seq, device=dev)[None])
-        rows = logits[0, len(r.prompt) - 1:]            # (len(out), V)
-        out = torch.as_tensor(r.out, device=dev)
-        gap = ((rows.amax(-1) - rows.gather(1, out[:, None])[:, 0])
-               / rows.abs().amax(-1))
+        rows.append(logits[0, len(r.prompt) - 1:])      # (len(out), V)
+    return gap_stats(rows, [r.out for r in reqs])
+
+
+def gap_stats(rows, outs) -> tuple[float, int, int]:
+    """Per request, logits ``(len(out), V)`` and the tokens ``out``: the
+    largest gap between a position's maximum and its token's logit over
+    max|logits| there, the tokens equal to the argmax, the tokens."""
+    worst_gap, agree, total = 0.0, 0, 0
+    for row, out in zip(rows, outs):
+        out = torch.as_tensor(out, device=row.device)
+        gap = ((row.amax(-1) - row.gather(1, out[:, None])[:, 0])
+               / row.abs().amax(-1))
         worst_gap = max(worst_gap, gap.max().item())
-        agree += int((rows.argmax(-1) == out).sum().item())
-        total += len(r.out)
+        agree += int((row.argmax(-1) == out).sum().item())
+        total += len(out)
     return worst_gap, agree, total
 
 
@@ -2779,7 +2820,8 @@ class AttentionProbe:
         assert offset == k.shape[1] - q.shape[1] == 0
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, scale=scale).transpose(1, 2)
+            is_causal=causal, scale=scale,
+            enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
 
     def __enter__(self):
         from repro_torch.models import attention
@@ -2793,20 +2835,45 @@ class AttentionProbe:
 
 
 def rec_bf16_parity(cfg, params, reqs) -> None:
-    """zamba2 in bf16, kernel path against plain path.  Asserted: at
-    every shared-attention call of every served prefill, the kernel's
-    output on the plain path's own q, k, v within FLASH_BF16_RTOL of
-    max|plain| (the D = 80 route inside the model), and the margin-aware
+    """zamba2 in bf16, kernel path against plain path.  Asserted: at every
+    shared-attention call of every served prefill, the kernel's output on
+    the plain path's own q, k, v within FLASH_BF16_RTOL of max|plain| (the
+    D = 80 route inside the model; ``probe_parity``), and the margin-aware
     token check (MARGIN_RTOL).  The end-to-end prefill logits are printed
     against PREFILL_RTOL beside two controls that say how far the random
     bf16 model carries any rounding difference: the library attention in
     the kernel's place, and the plain path with one embedding element
     moved by one bf16 ulp."""
+    local, calls, worst, nudge, _ = probe_parity(cfg, params, reqs)
+    worst_gap, agree, total = token_margins(cfg, params, reqs)
+    ok = local <= FLASH_BF16_RTOL and worst_gap <= MARGIN_RTOL
+    log(f"{cfg.name} bf16 parity vs the plain path: at all "
+        f"{calls} shared-attention calls of the served prefills "
+        f"the kernel on the plain path's q, k, v is within {local:.3e} of "
+        f"max|plain| (limit {FLASH_BF16_RTOL:.3e}); engine tokens "
+        f"{agree}/{total} equal the plain argmax, the largest gap below the "
+        f"plain maximum {worst_gap:.3e} of max|logits| (limit "
+        f"{MARGIN_RTOL:g})" + ("" if ok else "  FAIL"))
+    log_prefill_controls(cfg, worst, nudge)
+    assert local <= FLASH_BF16_RTOL, "the kernel disagrees inside the model"
+    assert worst_gap <= MARGIN_RTOL, "an engine token is off the plain max"
+
+
+def probe_parity(cfg, params, reqs):
+    """Every served prompt prefilled under ``AttentionProbe`` (the plain
+    path, the kernel held to the plain core at each attention call), by
+    the kernel path and by the library attention, and once with one
+    embedding element a bf16 ulp off: ``(the kernel's largest error at a
+    call over max|plain|, the calls, {"kernel", "library"}: each path's
+    largest prefill-logit error over max|logits|, the nudge's, the plain
+    path's prefill logits of each prompt)``."""
     probe = AttentionProbe()
     worst = {"kernel": 0.0, "library": 0.0}
+    plains = []
     with probe:
         for r in reqs:
             plain = served_prefill(cfg, params, r.prompt, "probe")
+            plains.append(plain)
             for name, impl in (("kernel", "chunked"), ("library", "library")):
                 worst[name] = max(worst[name], rel_err(served_prefill(
                     cfg, params, r.prompt, impl), plain)[1])
@@ -2817,24 +2884,64 @@ def rec_bf16_parity(cfg, params, reqs) -> None:
         embed[tok, 0] = old
         nudge = rel_err(nudged, served_prefill(cfg, params, reqs[0].prompt,
                                                "naive"))[1]
-    worst_gap, agree, total = token_margins(cfg, params, reqs)
-    local = max(probe.errs)
-    ok = local <= FLASH_BF16_RTOL and worst_gap <= MARGIN_RTOL
-    log(f"{cfg.name} bf16 parity vs the plain path: at all "
-        f"{len(probe.errs)} shared-attention calls of the served prefills "
-        f"the kernel on the plain path's q, k, v is within {local:.3e} of "
-        f"max|plain| (limit {FLASH_BF16_RTOL:.3e}); engine tokens "
-        f"{agree}/{total} equal the plain argmax, the largest gap below the "
-        f"plain maximum {worst_gap:.3e} of max|logits| (limit "
-        f"{MARGIN_RTOL:g})" + ("" if ok else "  FAIL"))
+    return max(probe.errs), len(probe.errs), worst, nudge, plains
+
+
+def log_prefill_controls(cfg, worst, nudge) -> None:
     log(f"{cfg.name} bf16 prefill logits vs the plain path, rel up to: "
         f"kernel {worst['kernel']:.3e}, library attention "
         f"{worst['library']:.3e}, the plain path with one embedding "
         f"element one ulp off {nudge:.3e} (PREFILL_RTOL {PREFILL_RTOL:g}"
         + (" is met)" if worst["kernel"] <= PREFILL_RTOL
            else " is met by none: not asserted for this model)"))
+
+
+def moe_bf16_parity(cfg, params, reqs) -> None:
+    """A MoE model in bf16, kernel path against plain path; the kernel
+    acts only in the prefills (a decode step runs the same plain code on
+    both paths).  Asserted: at every attention call of every served
+    prefill, the kernel's output on the plain path's own q, k, v within
+    FLASH_BF16_RTOL of max|plain| (``probe_parity``); and the
+    margin-aware check (MARGIN_RTOL) on the token each prefill emits,
+    against the plain prefill's logits.  Printed, not asserted: the check
+    over every token of the streams against one full ``lm_forward``
+    (``token_margins``), for the kernel engine and two controls, an
+    engine with the library attention (SDPA) in the kernel's place and
+    the plain engine itself (``impl="naive"``, no kernel at all).  Past
+    the first token these random bf16 mixtures carry one rounding
+    difference in a prefill's caches through their routers' top-k into
+    other experts, so any attention core that rounds otherwise than the
+    plain one moves later tokens by about the bound, and MLA's decode is
+    another form of its forward (absorbed in the latent space in fp32,
+    where the forward rounds the decompressed k and v to bf16): PERF.md,
+    PR 25."""
+    local, calls, worst, nudge, plain = probe_parity(cfg, params, reqs)
+    first, first_agree, n_first = gap_stats(
+        plain, [r.out[:1] for r in reqs])
+    streams = {"kernel": token_margins(cfg, params, reqs)}
+    for name, impl in (("library attention", "library"),
+                       ("plain (impl=naive)", "naive")):
+        with AttentionProbe():
+            outs = engine_tokens(cfg, params, impl)
+        streams[name] = token_margins(cfg, params, [
+            types.SimpleNamespace(prompt=p, out=o)
+            for p, o in zip(rec_prompts(cfg), outs)])
+    ok = local <= FLASH_BF16_RTOL and first <= MARGIN_RTOL
+    log(f"{cfg.name} bf16 parity vs the plain path: at all {calls} "
+        f"attention calls of the served prefills the kernel on the plain "
+        f"path's q, k, v is within {local:.3e} of max|plain| (limit "
+        f"{FLASH_BF16_RTOL:.3e}); the prefills' tokens {first_agree}/"
+        f"{n_first} equal the plain argmax, the largest gap below the plain "
+        f"maximum {first:.3e} of max|logits| (limit {MARGIN_RTOL:g})"
+        + ("" if ok else "  FAIL"))
+    log(f"{cfg.name} bf16 streams against one lm_forward (not asserted; "
+        f"MARGIN_RTOL {MARGIN_RTOL:g}): " + "; ".join(
+            f"the {name} engine's tokens {agree}/{total} on the plain "
+            f"argmax, largest gap {gap:.3e}"
+            for name, (gap, agree, total) in streams.items()))
+    log_prefill_controls(cfg, worst, nudge)
     assert local <= FLASH_BF16_RTOL, "the kernel disagrees inside the model"
-    assert worst_gap <= MARGIN_RTOL, "an engine token is off the plain max"
+    assert first <= MARGIN_RTOL, "a prefill's token is off the plain max"
 
 
 def served_prefill(cfg, params, prompt, impl: str) -> torch.Tensor:
@@ -2929,9 +3036,22 @@ def lm_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
     return launches
 
 
+def flash_share(events, what: str, card: str) -> None:
+    """Flash's share of the device busy time of a profiled window."""
+    if not events:
+        return
+    flash = [e for e in events if kernel_base(e.name).startswith(
+        DEVICE_PREFIX["flash_attention"])]
+    busy = device_busy(events)[0]
+    took = device_busy(flash)[0] if flash else 0.0
+    log(f"  {what}: flash {len(flash)} kernels, {took / 1e3:.4f} ms of "
+        f"{busy / 1e3:.4f} ms device busy ({took / busy:.4f})  [{card}]")
+
+
 def lm_profiles(cfg, params, eng, card) -> None:
     """Device busy time and idle share of a served prefill (bucket 48),
-    a decode step over all slots, and the 2048-token prefill."""
+    a decode step over all slots, and the 2048-token prefill, and flash's
+    share of each."""
     from repro_torch.models.transformer import lm_decode_step, lm_prefill
     dev = params["embed"].device
     rng = np.random.default_rng(1)
@@ -2941,18 +3061,18 @@ def lm_profiles(cfg, params, eng, card) -> None:
     step_tok = torch.as_tensor(rng.integers(0, cfg.vocab, LM_SLOTS),
                                device=dev)
     lengths = torch.arange(LM_SLOTS, device=dev) * 8 + 40
-    profile_window(lambda: lm_prefill(params, cfg, tokens=tok48,
-                                      max_len=LM_MAX_LEN, last_index=40),
-                   5, f"{LM_ARCH} prefills of a 48-token bucket", "prefill",
-                   card)
-    profile_window(lambda: lm_decode_step(params, cfg, step_tok, eng.caches,
-                                          lengths),
-                   10, f"{LM_ARCH} decode steps over {LM_SLOTS} slots",
-                   "step", card)
-    profile_window(lambda: lm_prefill(params, cfg, tokens=tok_long,
-                                      max_len=LONG_PROMPT),
-                   1, f"{LM_ARCH} prefill of {LONG_PROMPT} tokens", "prefill",
-                   card)
+    for fn, n, what, per in (
+            (lambda: lm_prefill(params, cfg, tokens=tok48,
+                                max_len=LM_MAX_LEN, last_index=40),
+             5, "prefills of a 48-token bucket", "prefill"),
+            (lambda: lm_decode_step(params, cfg, step_tok, eng.caches,
+                                    lengths),
+             10, f"decode steps over {LM_SLOTS} slots", "step"),
+            (lambda: lm_prefill(params, cfg, tokens=tok_long,
+                                max_len=LONG_PROMPT),
+             1, f"prefill of {LONG_PROMPT} tokens", "prefill")):
+        flash_share(profile_window(fn, n, f"{cfg.name} {what}", per, card),
+                    f"{cfg.name} {what}", card)
 
 
 # ---- the recurrent family ------------------------------------------------
@@ -2961,6 +3081,12 @@ def rec_apps(cfg) -> int:
     a prefill (none without shared blocks: xlstm has no attention)."""
     return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
         else 0
+
+
+def attn_calls(cfg) -> int:
+    """Flash launches a forward or a prefill makes: one per attention
+    layer and per shared-block application."""
+    return cfg.pattern.count("attn") + rec_apps(cfg)
 
 
 def rec_prompts(cfg) -> list[np.ndarray]:
@@ -3114,9 +3240,9 @@ def profile_busy(fn, n: int, what: str, per: str, card: str,
 
 def rec_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
     """One 2048-token ``lm_prefill``: counts set to 0 just before, read
-    just after (zamba2's shared attention through the kernel, each call
-    held to the plain core on the same inputs, as in
-    ``rec_bf16_parity``); the host p50 of 3."""
+    just after (the attention calls through the kernel, each held to the
+    plain core on the same inputs, as in ``rec_bf16_parity``); the host
+    p50 of 3."""
     from repro_torch.models.transformer import lm_prefill
     tok = long_prompt(cfg, params["embed"].device)
 
@@ -3128,12 +3254,12 @@ def rec_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
         fn.launches = 0
     logits, _, length = run()
     torch.cuda.synchronize()
-    want = {"flash_attention": rec_apps(cfg)} if rec_apps(cfg) else {}
+    want = {"flash_attention": attn_calls(cfg)} if attn_calls(cfg) else {}
     launches = lm_counts(kernels, want,
                          f"{cfg.name} prefill of {LONG_PROMPT} tokens")
     assert tuple(logits.shape) == (1, cfg.vocab) and length == LONG_PROMPT
     assert torch.isfinite(logits).all(), "non-finite prefill logits"
-    if rec_apps(cfg):
+    if attn_calls(cfg):
         with AttentionProbe() as probe:
             err, rel = rel_err(logits, run("probe")[0])
         local = max(probe.errs)
@@ -3142,7 +3268,7 @@ def rec_long_prefill(cfg, params, kernels, card) -> dict[str, int]:
             f"{local:.3e} of max|plain| (limit {FLASH_BF16_RTOL:.3e}); "
             f"logits vs the plain path max|d|={err:.3e} rel={rel:.3e} "
             f"(PREFILL_RTOL {PREFILL_RTOL:g}, not asserted for this model: "
-            f"rec_bf16_parity)" + ("" if local <= FLASH_BF16_RTOL
+            f"its bf16 parity checks)" + ("" if local <= FLASH_BF16_RTOL
                                    else "  FAIL"))
         assert local <= FLASH_BF16_RTOL, "2048-token prefill: kernel differs"
     times = []
@@ -3331,6 +3457,152 @@ def rec_phase(kernels, card) -> list[dict]:
     rows = []
     for arch in REC_ARCHS:
         rows += rec_arch(arch, kernels, card, rng, torch.device("cuda"))
+        free_cuda()
+    return rows
+
+
+# ---- the mixtures of experts ----------------------------------------------
+def moe_config(arch: str, n_layers: int):
+    """The published config with only its depth cut to ``n_layers``
+    (deepseek keeps its 3 dense layers first); the cut printed."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import build_stages
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    n_moe = sum(len(idxs) for _, variant, idxs in build_stages(cfg)
+                if variant == "moe")
+    log(f"{arch}: published width (d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+        + (f"MLA q_lora {cfg.mla.q_lora_rank} kv_lora "
+           f"{cfg.mla.kv_lora_rank} nope {cfg.mla.nope_head_dim} rope "
+           f"{cfg.mla.rope_head_dim} v {cfg.mla.v_head_dim}, "
+           if cfg.attn_type == "mla" else f"head dim "
+           f"{cfg.resolved_head_dim}, ")
+        + f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+        f"{cfg.moe.d_ff_expert}, {cfg.moe.router} router, "
+        f"{cfg.moe.n_shared} shared; {cfg.dtype}); depth cut n_layers "
+        f"{full.n_layers} -> {n_layers} ({n_layers - n_moe} dense + "
+        f"{n_moe} MoE), {cfg.params_count() / 1e9:.3f} B params")
+    return cfg
+
+
+def moe_head_dims(cfg) -> tuple[int, int]:
+    """(q·k head dim, v head dim) of the model's attention."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return m.nope_head_dim + m.rope_head_dim, m.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
+def moe_flash_cases(cfg, rng, dev) -> dict[str, list[Case]]:
+    """The flash kernel's calls on a MoE model's path: the served
+    prefills (buckets of 16, weighted by their share of the requests, one
+    launch a layer) and a 2048-token prefill, in bf16 (the path's type)
+    and fp32 (checks only), and at the model's head dims a continuation
+    (Sq < Sk) and rows with no live key (Sq > Sk), in both types."""
+    hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, attn_calls(cfg)
+    d, dv = moe_head_dims(cfg)
+    bf16, f32 = torch.bfloat16, torch.float32
+    serve = []
+    for s, count in sorted(lm_buckets(cfg).items()):
+        shape = (1, hq, hkv, s, s, d, True)
+        serve += [flash_case(shape, bf16, rng, dev, dv=dv,
+                             per_request=count * n / LM_REQUESTS),
+                  flash_case(shape, f32, rng, dev, dv=dv)]
+    for shape in ((1, hq, hkv, 64, 256, d, True),
+                  (1, hq, hkv, 80, 48, d, True)):
+        serve += [flash_case(shape, dt, rng, dev, dv=dv)
+                  for dt in (f32, bf16)]
+    long = (1, hq, hkv, LONG_PROMPT, LONG_PROMPT, d, True)
+    return {"serve": serve,
+            "prefill-2048": [flash_case(long, bf16, rng, dev, dv=dv,
+                                        per_request=n),
+                             flash_case(long, f32, rng, dev, dv=dv)]}
+
+
+def moe_fp32(arch, kernels, card) -> None:
+    """The weights in fp32 (drawn fresh, depth ``MOE_FP32_LAYERS``): the
+    kernel path's prefill logits over the served prompts and 2048 tokens
+    within E2E_RTOL of the plain path's (``lm_fp32_parity``), and the
+    engine's greedy tokens equal on both paths."""
+    from repro_torch.models.transformer import init_lm
+    cfg = moe_config(arch, MOE_FP32_LAYERS[arch])
+    p32 = init_lm(0, cfg, dtype=torch.float32, device="cuda")
+    log(f"{arch} fp32: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated  [{card}]")
+    lm_fp32_parity(cfg, p32, rec_prompts(cfg))
+    for fn in kernels.values():
+        fn.launches = 0
+    first = engine_tokens(cfg, p32, "chunked")
+    launched = kernels["flash_attention"].launches
+    second = engine_tokens(cfg, p32, "naive")
+    same = sum(a == b for a, b in zip(first, second))
+    log(f"{arch} in fp32, the engine's kernel path ({launched} flash "
+        f"launches) vs its plain path: {same}/{LM_REQUESTS} requests give "
+        f"the same {LM_MAX_NEW} greedy tokens"
+        + ("" if same == LM_REQUESTS else "  FAIL"))
+    assert launched == LM_REQUESTS * attn_calls(cfg), launched
+    assert same == LM_REQUESTS, f"{arch}: fp32 engine tokens differ"
+
+
+def moe_arch(arch, kernels, card, rng, dev) -> list[dict]:
+    """One MoE model at its published width, its depth cut: the flash
+    kernel at its shapes against its plain version, the launcher's
+    requests through a ``ServeEngine`` (counts set to 0 just before, read
+    just after), the bf16 parity checks, the 2048-token prefill, profiles,
+    then the fp32 check; returns its kernel rows."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optim import tree_leaves
+    cfg = moe_config(arch, MOE_LAYERS[arch])
+    n = attn_calls(cfg)
+    cases = moe_flash_cases(cfg, rng, dev)
+    max_err = {path: {"flash_attention": max(check_case(c) for c in cs)}
+               for path, cs in cases.items()}
+    stamp(f"{arch} kernel checks")
+    params = init_lm(0, cfg, device="cuda")
+    log(f"{arch}: {sum(t.numel() for t in tree_leaves(params)) / 1e9:.4f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated  [{card}]")
+    eng, reqs = lm_engine_run(cfg, params, kernels, card,
+                              {"flash_attention": LM_REQUESTS * n})
+    launches = {"serve": {name: fn.launches for name, fn in kernels.items()}}
+    assert all(r.done and len(r.out) == LM_MAX_NEW for r in reqs)
+    stamp(f"{arch} engine run")
+    moe_bf16_parity(cfg, params, reqs)
+    stamp(f"{arch} bf16 parity")
+    launches["prefill-2048"] = rec_long_prefill(cfg, params, kernels, card)
+    lm_profiles(cfg, params, eng, card)
+    stamp(f"{arch} 2048-token prefill and profiles")
+    del eng, reqs, params
+    free_cuda()
+    moe_fp32(arch, kernels, card)
+    free_cuda()
+    stamp(f"{arch} fp32 parity")
+    rows = []
+    for path, path_cases in cases.items():
+        # the served fp32 calls and the edge cases are checked above,
+        # never run on the path
+        timed = [c for c in path_cases
+                 if c.per_request or path == "prefill-2048"]
+        rows += kernel_rows(
+            f"{arch}-{path}", timed, launches[path],
+            {"flash_attention": n}, max_err[path], card,
+            unit=(f"ms per {arch} served request: its prefill's {n} "
+                  f"launches at its 16-token bucket, mean over the "
+                  f"{LM_REQUESTS} requests" if path == "serve" else
+                  f"ms per {LONG_PROMPT}-token {arch} prefill: sum over "
+                  f"its {n} launches"))
+    stamp(f"{arch} kernel rows")
+    return rows
+
+
+def moe_phase(kernels, card) -> list[dict]:
+    """The mixtures of experts (``--moe``): deepseek-v3-671b and
+    grok-1-314b."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for arch in MOE_LAYERS:
+        rows += moe_arch(arch, kernels, card, rng, torch.device("cuda"))
         free_cuda()
     return rows
 
@@ -3900,7 +4172,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, ddmm, flash_attention,
                                      flash_attention_bwd, knn, sddmm,
                                      shift_conv2d, spdmm_rows)
-    from repro_torch.kernels.flash_attention import MAX_D
+    from repro_torch.kernels.flash_attention import takes
     from repro_torch.kernels.knn import WARP_MAX_K
     from repro_torch.kernels.sddmm import BLOCK
     from repro_torch.models.transformer import init_lm
@@ -3932,7 +4204,8 @@ def main() -> int:
         "csrc/knn.cu and knn.py disagree"
     assert lib.repro_sddmm_block() == BLOCK, \
         "csrc/sddmm.cu and sddmm.py disagree"
-    assert lib.repro_flash_max_d() == MAX_D, \
+    assert all(bool(lib.repro_flash_takes(d, dv)) == takes(d, dv)
+               for d in range(0, 264, 8) for dv in range(0, 264, 8)), \
         "csrc/flash_attention.cu and flash_attention.py disagree"
     if "--conv-sweep" in sys.argv[1:]:
         conv_sweep(card)
@@ -3945,6 +4218,11 @@ def main() -> int:
         return finish()
     if "--rec" in sys.argv[1:]:
         rows = rec_phase(kernels, card)
+        log(f"card: {card}")
+        log(json.dumps({"kernels": rows}))
+        return finish()
+    if "--moe" in sys.argv[1:]:
+        rows = moe_phase(kernels, card)
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
         return finish()
@@ -4033,6 +4311,9 @@ def main() -> int:
     gnn_rows = gnn_phase(kernels, requests, card)
     stamp("GNN phase")
     rec_rows = rec_phase(kernels, card)
+    stamp("recurrent phase")
+    moe_rows = moe_phase(kernels, card)
+    stamp("MoE phase")
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []
@@ -4057,7 +4338,7 @@ def main() -> int:
         launches["lm-prefill-2048"], per_prefill, max_err["lm-prefill-2048"],
         card, unit=f"ms per {LONG_PROMPT}-token {LM_ARCH} prefill: sum "
                    f"over its {lm_cfg.n_layers} launches")
-    rows += rec_rows + train_rows + gnn_rows
+    rows += rec_rows + moe_rows + train_rows + gnn_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     return finish()

@@ -23,8 +23,14 @@
 // cost nothing and rows with no live key keep l = 0), read q, k, v and o
 // through their batch, head and sequence strides (the head dim contiguous),
 // so the model's (B, S, H, D) activations pass as permuted views with no
-// copy, and pad the head dim with zeros to 64 or 128 (D <= 128), which
-// leaves every product unchanged.
+// copy, and pad the head dims with zeros to their instantiation's, which
+// leaves every product unchanged.  v's head dim DV may differ from q's and
+// k's D: each kernel is instantiated at (DP, DVP) = (64, 64), (128, 128)
+// and (192, 128), the last for MLA (deepseek-v3: q·k over nope 128 + rope
+// 64 = 192, v of 128).  At (192, 128) q's fragments take 12 k16 steps and
+// the bf16 kernel's shared memory is (64 + 2·64)·200·2 + 2·64·136·2 =
+// 111,616 bytes (opted in past 48 KB); at 128 heads the grid has 128
+// blocks per 64-query tile.
 //
 // bf16 (the served type): FlashAttention-2 on the tensor cores.
 // - 4 warps, each owning 16 query rows; q·kᵀ and p·v run on
@@ -70,7 +76,9 @@
 
 namespace {
 
-constexpr int MAX_D = 128;
+// The head dims the kernel takes: q·k's D and v's DV up to MAX_D each, or D
+// up to MAX_DQK with DV up to MAX_D (MLA's 128 + 64 with v's 128).
+constexpr int MAX_D = 128, MAX_DQK = 192;
 
 struct Strides {
   long long b, h, s;           // element strides; the head dim's is 1
@@ -81,25 +89,25 @@ constexpr int BQ = 64, BK = 32, TX = 16, TY = 16, THREADS = TX * TY;
 constexpr int RM = BQ / TY;    // query rows per thread (4)
 constexpr int CN = BK / TX;    // score columns per thread (2)
 
-template <int DP>
+template <int DP, int DVP>
 constexpr int smem_floats() {
-  return BQ * (DP + 1) + BK * (DP + 1) + BK * DP + BQ * (BK + 1);
+  return BQ * (DP + 1) + BK * (DP + 1) + BK * DVP + BQ * (BK + 1);
 }
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_simt_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int group, int Sq, int Sk,
-                      int D, int causal, float scale, Strides qs,
+                      int D, int DV, int causal, float scale, Strides qs,
                       Strides ks, Strides vs, Strides os) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [BQ][DP + 1]
   float* Ks = Qs + BQ * (DP + 1);         // [BK][DP + 1]
-  float* Vs = Ks + BK * (DP + 1);         // [BK][DP]
-  float* Ps = Vs + BK * DP;               // [BQ][BK + 1]
-  constexpr int CD = DP / TX;             // output columns per thread
+  float* Vs = Ks + BK * (DP + 1);         // [BK][DVP]
+  float* Ps = Vs + BK * DVP;              // [BQ][BK + 1]
+  constexpr int CD = DVP / TX;            // output columns per thread
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   // the tiles near the diagonal's end hold the most live keys: start them
@@ -134,9 +142,11 @@ flash_f32_simt_kernel(const float* __restrict__ q,
     __syncthreads();             // the last tile's K, V and P are consumed
     for (int e = tid; e < BK * DP; e += THREADS) {
       const int r = e / DP, d = e % DP, gk = k0 + r;
-      const bool in = gk < Sk && d < D;
-      Ks[r * (DP + 1) + d] = in ? kb[gk * ks.s + d] : 0.f;
-      Vs[r * DP + d] = in ? vb[gk * vs.s + d] : 0.f;
+      Ks[r * (DP + 1) + d] = gk < Sk && d < D ? kb[gk * ks.s + d] : 0.f;
+    }
+    for (int e = tid; e < BK * DVP; e += THREADS) {
+      const int r = e / DVP, d = e % DVP, gk = k0 + r;
+      Vs[r * DVP + d] = gk < Sk && d < DV ? vb[gk * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -199,7 +209,7 @@ flash_f32_simt_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < RM; ++i) p[i] = Ps[(ty * RM + i) * (BK + 1) + j];
 #pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = Vs[j * DP + tx + TX * c];
+      for (int c = 0; c < CD; ++c) vv[c] = Vs[j * DVP + tx + TX * c];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -219,7 +229,7 @@ flash_f32_simt_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
       const int d = tx + TX * c;
-      if (d < D) ob[gq * os.s + d] = acc[i][c] / den;
+      if (d < DV) ob[gq * os.s + d] = acc[i][c] / den;
     }
   }
 }
@@ -227,29 +237,33 @@ flash_f32_simt_kernel(const float* __restrict__ q,
 // ---- bf16: tensor cores ----------------------------------------------------
 constexpr int MQ = 64, MK = 64, MWARPS = 4, MTHREADS = 32 * MWARPS;
 
-template <int DP>
+template <int DP, int DVP>
 constexpr int mma_smem_bytes() {
-  return (MQ + 4 * MK) * (DP + 8) * 2;    // q, then 2 stages of k and v
+  // q, then 2 stages of k and 2 of v
+  return ((MQ + 2 * MK) * (DP + 8) + 2 * MK * (DVP + 8)) * 2;
 }
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(MTHREADS)
 flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int group, int Sq, int Sk,
-                      int D, int causal, float scale_log2, Strides qs,
-                      Strides ks, Strides vs, Strides os) {
-  constexpr int LD = DP + 8;          // shared row stride, elements
-  constexpr int CH = DP / 8;          // 16-byte chunks per row
-  constexpr int KD = DP / 16;         // k16 steps over the head dim
-  constexpr int ND = DP / 8;          // n8 tiles of the head dim
+                      int D, int DV, int causal, float scale_log2,
+                      Strides qs, Strides ks, Strides vs, Strides os) {
+  constexpr int LD = DP + 8;          // q and k shared row stride, elements
+  constexpr int LDV = DVP + 8;        // v's
+  constexpr int CH = DP / 8;          // 16-byte chunks per q or k row
+  constexpr int CHV = DVP / 8;        // per v row
+  constexpr int KD = DP / 16;         // k16 steps over q·k's head dim
+  constexpr int ND = DVP / 8;         // n8 tiles of v's head dim
   constexpr int NS = MK / 8;          // n8 tiles of a key tile
+  static_assert(KD % 2 == 0 && ND % 2 == 0, "pairs of k16 and n8 steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + MQ * LD;             // [2][MK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * MK * LD;         // [2][MK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * MK * LD;         // [2][MK][LDV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;      // fragment row, column pair
@@ -270,14 +284,20 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   auto load_kv = [&](int kt, int stage) {
     __nv_bfloat16* kd = Ks + stage * MK * LD;
-    __nv_bfloat16* vd = Vs + stage * MK * LD;
+    __nv_bfloat16* vd = Vs + stage * MK * LDV;
 #pragma unroll
     for (int i = 0; i < MK * CH / MTHREADS; ++i) {
       const int c = tid + i * MTHREADS, r = c / CH, d = (c % CH) * 8;
       const int key = kt * MK + r;
       const bool in = key < Sk && d < D;
       cp_async16(kd + r * LD + d, in ? kb + key * ks.s + d : kb, in);
-      cp_async16(vd + r * LD + d, in ? vb + key * vs.s + d : vb, in);
+    }
+#pragma unroll
+    for (int i = 0; i < MK * CHV / MTHREADS; ++i) {
+      const int c = tid + i * MTHREADS, r = c / CHV, d = (c % CHV) * 8;
+      const int key = kt * MK + r;
+      const bool in = key < Sk && d < DV;
+      cp_async16(vd + r * LDV + d, in ? vb + key * vs.s + d : vb, in);
     }
   };
   // keys [0, kend) can be live for some row of this tile
@@ -314,7 +334,7 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             (lane >> 4) * 8);
     }
     const __nv_bfloat16* Kt = Ks + stage * MK * LD;
-    const __nv_bfloat16* Vt = Vs + stage * MK * LD;
+    const __nv_bfloat16* Vt = Vs + stage * MK * LDV;
 
     // s = q kᵀ: B fragments of kᵀ are rows of k; one ldmatrix.x4 gives
     // (b0, b1) of two k16 steps for 8 keys
@@ -394,7 +414,7 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dn = 0; dn < ND; dn += 2) {
         uint32_t bv[4];
-        ldsm_x4_t(bv, Vt + (c * 16 + (lane & 15)) * LD + dn * 8 +
+        ldsm_x4_t(bv, Vt + (c * 16 + (lane & 15)) * LDV + dn * 8 +
                           (lane >> 4) * 8);
 #pragma unroll
         for (int k = 2; k >= 0; --k) {          // small parts first
@@ -421,8 +441,8 @@ flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (den == 0.f) den = 1.f;          // no live key: acc is 0
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      const int d = j * 8 + 2 * tq;     // D % 8 == 0: the pair is all in
-      if (d < D)
+      const int d = j * 8 + 2 * tq;     // DV % 8 == 0: the pair is all in
+      if (d < DV)
         *reinterpret_cast<uint32_t*>(ob + row * os.s + d) =
             pack_bf16(acc[j][2 * half] / den, acc[j][2 * half + 1] / den);
     }
@@ -437,76 +457,96 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-               int causal, float scale, Strides qs, Strides ks, Strides vs,
-               Strides os, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<DP>() * sizeof(float);
-  const cudaError_t err = opt_in_smem(flash_f32_simt_kernel<DP>, bytes);
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, Hq, Hkv, Sq, Sk, D, DV, causal;
+  float scale;
+  Strides qs, ks, vs, os;
+  cudaStream_t stream;
+};
+
+template <int DP, int DVP>
+int launch_f32(const Call& c) {
+  constexpr int bytes = smem_floats<DP, DVP>() * sizeof(float);
+  const cudaError_t err = opt_in_smem(flash_f32_simt_kernel<DP, DVP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_f32_simt_kernel<DP><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq / Hkv,
-      Sq, Sk, D, causal, scale, qs, ks, vs, os);
+  const dim3 grid((c.Sq + BQ - 1) / BQ, c.Hq, c.B);
+  flash_f32_simt_kernel<DP, DVP><<<grid, THREADS, bytes, c.stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<float*>(c.o), c.lse,
+      c.Hq / c.Hkv, c.Sq, c.Sk, c.D, c.DV, c.causal, c.scale, c.qs, c.ks,
+      c.vs, c.os);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                int causal, float scale, Strides qs, Strides ks, Strides vs,
-                Strides os, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<DP>();
-  const cudaError_t err = opt_in_smem(flash_bf16_mma_kernel<DP>, bytes);
+template <int DP, int DVP>
+int launch_bf16(const Call& c) {
+  constexpr int bytes = mma_smem_bytes<DP, DVP>();
+  const cudaError_t err = opt_in_smem(flash_bf16_mma_kernel<DP, DVP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + MQ - 1) / MQ, Hq, B);
-  flash_bf16_mma_kernel<DP><<<grid, MTHREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, Hq / Hkv, Sq, Sk, D, causal, scale * 1.4426950408889634f, qs, ks,
-      vs, os);
+  const dim3 grid((c.Sq + MQ - 1) / MQ, c.Hq, c.B);
+  flash_bf16_mma_kernel<DP, DVP><<<grid, MTHREADS, bytes, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q),
+      static_cast<const __nv_bfloat16*>(c.k),
+      static_cast<const __nv_bfloat16*>(c.v),
+      static_cast<__nv_bfloat16*>(c.o), c.lse, c.Hq / c.Hkv, c.Sq, c.Sk, c.D,
+      c.DV, c.causal, c.scale * 1.4426950408889634f, c.qs, c.ks, c.vs, c.os);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation a call runs under: the first (DP, DVP) of (64, 64),
+// (128, 128) and (192, 128) with D <= DP and DV <= DVP, as 64, 128 or 192;
+// 0 where none takes it.
+int head_dims(int D, int DV) {
+  if (D < 1 || DV < 1) return 0;
+  if (D <= 64 && DV <= 64) return 64;
+  if (D <= MAX_D && DV <= MAX_D) return 128;
+  if (D <= MAX_DQK && DV <= MAX_D) return 192;
+  return 0;
 }
 
 }  // namespace
 
-// The largest head dim the kernel takes.
-extern "C" int repro_flash_max_d() { return MAX_D; }
+// Whether the kernel takes q·k's head dim D with v's head dim DV: 1 or 0.
+extern "C" int repro_flash_takes(int D, int DV) {
+  return head_dims(D, DV) != 0;
+}
 
-// q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o like q; each addressed as
-// base + b*s_b + h*s_h + i*s_s + d (the head dim contiguous).  lse: null,
-// or fp32 (B, Hq, Sq) contiguous for each row's log-sum-exp.  dtype 0 is
-// float32, 1 bfloat16; bf16 needs D % 8 == 0 and 16-byte-aligned bases and
-// strides (the wrapper checks).  Returns cudaGetLastError() after the
-// launch.
+// q: (B, Hq, Sq, D), k: (B, Hkv, Sk, D), v: (B, Hkv, Sk, DV), o: (B, Hq,
+// Sq, DV); each addressed as base + b*s_b + h*s_h + i*s_s + d (the head dim
+// contiguous).  lse: null, or fp32 (B, Hq, Sq) contiguous for each row's
+// log-sum-exp.  dtype 0 is float32, 1 bfloat16; bf16 needs D % 8 == 0,
+// DV % 8 == 0 and 16-byte-aligned bases and strides (the wrapper checks).
+// (D, DV) must be one ``repro_flash_takes`` takes.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-    float scale,
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D, int DV,
+    int causal, float scale,
     long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss,
     void* stream) {
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
-  if (D < 1 || D > MAX_D || Hkv < 1 || Hq % Hkv != 0)
+  const int dp = head_dims(D, DV);
+  if (dp == 0 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
-      os{osb, osh, oss};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Call c{q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, DV, causal, scale,
+               Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+               Strides{vsb, vsh, vss}, Strides{osb, osh, oss},
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return D <= 64 ? launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
-                                    causal, scale, qs, ks, vs, os, st)
-                   : launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
-                                     causal, scale, qs, ks, vs, os, st);
+    return dp == 64    ? launch_f32<64, 64>(c)
+           : dp == 128 ? launch_f32<128, 128>(c)
+                       : launch_f32<192, 128>(c);
   if (dtype == 1) {
-    if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return D <= 64 ? launch_bf16<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
-                                     causal, scale, qs, ks, vs, os, st)
-                   : launch_bf16<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
-                                      causal, scale, qs, ks, vs, os, st);
+    if (D % 8 != 0 || DV % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dp == 64    ? launch_bf16<64, 64>(c)
+           : dp == 128 ? launch_bf16<128, 128>(c)
+                       : launch_bf16<192, 128>(c);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,7 +4,8 @@ with an online softmax, so the ``(Sq, Sk)`` score matrix never reaches
 device memory.
 
 Port of ``src/repro/kernels/flash_attention.py`` (``flash_attention``);
-the kernel is ``csrc/flash_attention.cu``.  Query i sees keys
+the kernel is ``csrc/flash_attention.cu``.  v's head dim may differ from
+q's and k's (MLA: q·k over 192, v of 128; ``MAX_D``).  Query i sees keys
 ``j <= i + (Sk - Sq)`` when ``causal`` (the decode / prefill-continuation
 convention), key tiles above the diagonal are skipped, the running max,
 sum and accumulator stay in fp32, and a row with no live key returns 0.
@@ -39,43 +40,66 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Largest head dim csrc/flash_attention.cu takes (``repro_flash_max_d``).
-MAX_D = 128
+# The (q·k head dim, v head dim) limits of csrc/flash_attention.cu's
+# instantiations (``repro_flash_takes``): a call is taken where both fit
+# one pair.  (192, 128) is MLA's nope 128 + rope 64 with v's 128.
+MAX_D = ((128, 128), (192, 128))
+# The backward (csrc/flash_attention_bwd.cu) takes one head dim for q, k
+# and v, up to this.
+MAX_D_BWD = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def takes(d: int, dv: int) -> bool:
+    """Whether the forward kernel takes q·k's head dim ``d`` with v's
+    ``dv``."""
+    return d >= 1 and dv >= 1 and any(d <= a and dv <= b for a, b in MAX_D)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
-    """q: ``(B, Hq, Sq, D)``; k, v: ``(B, Hkv, Sk, D)``; ``Hq % Hkv == 0``.
+    """q: ``(B, Hq, Sq, D)``; k: ``(B, Hkv, Sk, D)``; v: ``(B, Hkv, Sk,
+    DV)``; ``Hq % Hkv == 0``; on the card ``(D, DV)`` within one pair of
+    ``MAX_D``.
 
     Any batch, head and sequence strides (a permuted ``(B, S, H, D)``
     activation is read in place); the head dim must be contiguous on the
-    card, and in bf16 every base and stride must be 16-byte aligned (D a
-    multiple of 8), for the kernel's 16-byte copies.  Returns q's dtype,
-    laid out like q.  ``scale`` defaults to ``1/sqrt(D)``.
+    card, and in bf16 every base and stride must be 16-byte aligned (D and
+    DV multiples of 8), for the kernel's 16-byte copies.  Returns ``(B, Hq,
+    Sq, DV)`` in q's dtype, laid out like q.  ``scale`` defaults to
+    ``1/sqrt(D)``.
     """
     return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
 
 
-def _check_heads(name: str, q, k, v) -> tuple[int, int, int, int, int, int]:
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+def _check_heads(name: str, q, k, v):
+    """-> ``(B, Hq, Hkv, Sq, Sk, D, DV)``: k and v share batch, heads and
+    length, q and k the head dim D; v's DV is its own."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: q{tuple(q.shape)} does not fit "
-                         f"k/v{tuple(k.shape)}")
-    return B, Hq, Hkv, Sq, Sk, D
+                         f"k{tuple(k.shape)}")
+    return B, Hq, Hkv, Sq, Sk, D, v.shape[3]
+
+
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty ``(B, Hq, Sq, dv)`` laid out as q: its first three axes in
+    q's stride order, the head dim contiguous."""
+    order = sorted(range(3), key=q.stride, reverse=True)
+    out = torch.empty([q.shape[i] for i in order] + [dv], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*(order.index(i) for i in range(3)), 3)
 
 
 def _check_card(name: str, q, *others) -> None:
     """What both kernels take: one CUDA device, one supported dtype, the
     head dim contiguous, int32-indexable sizes."""
-    D = q.shape[-1]
-    if D > MAX_D:
-        raise ValueError(f"{name}: head dim {D} > {MAX_D}")
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in {list(DTYPES)}")
     for oname, t in others:
@@ -121,14 +145,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp of the scaled scores, fp32 ``(B, Hq, Sq)`` contiguous
     (``-inf`` for a row with no live key): ``(out, lse)``.  One launch,
     counted in ``flash_attention.launches``."""
-    B, Hq, Hkv, Sq, Sk, D = _check_heads("flash_attention", q, k, v)
+    B, Hq, Hkv, Sq, Sk, D, DV = _check_heads("flash_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         if return_lse:
             return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale)
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    if not takes(D, DV):
+        raise ValueError(f"flash_attention: head dims (q·k {D}, v {DV}) "
+                         f"fit none of the kernel's {MAX_D}")
     _check_card("flash_attention", q, ("k", k), ("v", v))
-    out = torch.empty_like(q)               # q's layout: strides preserved
+    out = _out_like(q, DV)
     _check_aligned("flash_attention", ("q", q), ("k", k), ("v", v),
                    ("out", out))
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -136,8 +163,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _build.library().repro_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _build.ptr(lse), DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
-        ctypes.c_float(scale), *strides, _build.stream_of(q))
+        _build.ptr(lse), DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, DV,
+        int(causal), ctypes.c_float(scale), *strides, _build.stream_of(q))
     _build.check(err, "flash_attention")
     _build.counted(flash_attention)
     return (out, lse) if return_lse else out
@@ -158,12 +185,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in bf16 every base and stride must be 16-byte aligned (D a multiple of
     8), as in the forward (fp32 takes any alignment, stride 0 included).
     One call launches three kernels (delta, dk/dv, dq) and counts one
-    launch in ``flash_attention_bwd.launches``."""
-    B, Hq, Hkv, Sq, Sk, D = _check_heads("flash_attention_bwd", q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape:
+    launch in ``flash_attention_bwd.launches``.  v's head dim DV may differ
+    from D on CPU tensors (``out`` and ``dout`` then have DV); the kernel
+    takes ``DV == D <= MAX_D_BWD`` and raises ``NotImplementedError``
+    otherwise (MLA's (192, 128) is ROADMAP queue 1's next item)."""
+    B, Hq, Hkv, Sq, Sk, D, DV = _check_heads("flash_attention_bwd", q, k, v)
+    if out.shape != (B, Hq, Sq, DV) or dout.shape != out.shape:
         raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
-                         f"dout{tuple(dout.shape)} must be shaped like "
-                         f"q{tuple(q.shape)}")
+                         f"dout{tuple(dout.shape)} must be "
+                         f"{(B, Hq, Sq, DV)}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be fp32 "
                          f"{(B, Hq, Sq)}, got {lse.dtype} "
@@ -172,6 +202,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                      scale=scale)
+    if DV != D or D > MAX_D_BWD:
+        raise NotImplementedError(
+            f"flash_attention_bwd: the backward kernel takes one head dim "
+            f"up to {MAX_D_BWD} for q, k and v, got q·k {D} and v {DV} "
+            f"(MLA's backward at (192, 128) is ROADMAP queue 1's next item: "
+            f"training MLA on the card)")
     _check_card("flash_attention_bwd", q, ("k", k), ("v", v), ("out", out),
                 ("dout", dout))
     if lse.device != q.device or not lse.is_contiguous():
@@ -204,8 +240,8 @@ class FlashAttentionFn(torch.autograd.Function):
     ``jax.custom_vjp``).  The forward runs ``flash_attention_fwd`` and
     saves q, k, v, out and the LSE; the backward runs
     ``flash_attention_bwd`` (the kernel on CUDA tensors, the plain version
-    on CPU tensors).  q ``(B, Hq, Sq, D)`` and k, v ``(B, Hkv, Sk, D)`` in
-    any strides, as the forward takes them.  A ``dout`` whose head dim is
+    on CPU tensors).  q ``(B, Hq, Sq, D)``, k ``(B, Hkv, Sk, D)`` and v
+    ``(B, Hkv, Sk, DV)`` in any strides, as the forward takes them.  A ``dout`` whose head dim is
     not contiguous (an expanded gradient, e.g. of ``out.sum()``), or, in
     bf16 on the card, is not 16-byte aligned, is copied to a fresh
     contiguous tensor before the kernel reads it."""

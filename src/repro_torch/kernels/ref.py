@@ -158,7 +158,8 @@ def knn_ref(x, k, mask=None, self_loops=False):
 
 
 def attention_ref(q, k, v, *, causal=True, scale=None):
-    """Softmax attention: q ``(B, Hq, Sq, D)``, k/v ``(B, Hkv, Sk, D)``, GQA
+    """Softmax attention: q ``(B, Hq, Sq, D)``, k ``(B, Hkv, Sk, D)``, v
+    ``(B, Hkv, Sk, DV)`` (DV may differ from D: MLA), GQA
     by head repetition (kv head ``h // (Hq / Hkv)``); query i sees keys
     ``j <= i + (Sk - Sq)`` when ``causal``.  Scores, softmax and the value
     sum in fp32; the output in q's dtype.
@@ -218,7 +219,8 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, scale=None):
     live pairs (0 elsewhere, so a row with no live key adds nothing),
     ``ds = p·(dp - D)·scale``, ``dq = ds k``, ``dk = dsᵀ q`` and
     ``dv = pᵀ dO``, dk and dv summed over each kv head's ``Hq / Hkv`` query
-    heads; each cast to its input's dtype."""
+    heads; each cast to its input's dtype.  v's head dim may differ from
+    q's (``out`` and ``dout`` then have v's)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -237,6 +239,6 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, scale=None):
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
-    fold = (b, hkv, group, sk, d)
-    return (dq.to(q.dtype), dk.reshape(fold).sum(2).to(k.dtype),
-            dv.reshape(fold).sum(2).to(v.dtype))
+    fold = (b, hkv, group, sk)
+    return (dq.to(q.dtype), dk.reshape(*fold, d).sum(2).to(k.dtype),
+            dv.reshape(*fold, v.shape[-1]).sum(2).to(v.dtype))

@@ -1,8 +1,10 @@
-"""GQA attention for the LM stack.
+"""GQA and MLA attention for the LM stack.
 
-Port of the GQA part of ``src/repro/models/attention.py``: ``naive_attention``,
+Port of ``src/repro/models/attention.py``: ``naive_attention``,
 ``decode_attention``, ``init_gqa``, ``gqa_project``, ``gqa_forward``,
-``_pos_vec`` and ``gqa_decode``.  Activations keep the reference's
+``_pos_vec``, ``gqa_decode``, and MLA (DeepSeek's multi-head latent
+attention): ``init_mla``, ``_mla_qkr``, ``mla_forward`` and ``mla_decode``.
+Activations keep the reference's
 ``(B, S, H, hd)`` layout.  Two of the reference's implementations of the
 attention core are ported:
 
@@ -18,7 +20,17 @@ attention core are ported:
            LSE and the backward kernel recomputes the scores.
 
 ``tri`` and ``chunked_scan`` compute the same function and are not ported
-(ROADMAP queue 1 item 10); nor is MLA.
+(ROADMAP queue 1 item 10).
+
+MLA projects q through a rank-``q_lora`` bottleneck and k, v through a
+shared rank-``kv_lora`` latent ``ckv`` plus one rope key ``kr`` shared by
+the heads.  A forward or a prefill decompresses per-head k and v and runs
+the attention core with q·k over ``nope + rope`` (192 for deepseek-v3)
+and v of ``v_head_dim`` (128): the flash kernel's (192, 128)
+instantiation under ``chunked``.  A decode step is the reference's
+weight-absorbed form: scores and context in the latent space, from the
+cache of ``ckv`` and ``kr`` alone, as fp32 einsums (no kernel stands
+behind it in the reference either).
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ import torch
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.models.layers import (dot, head_rms_norm, init_linear,
-                                       rope, wide)
+                                       rms_norm, rope, wide)
 
 NEG = -1e30
 
@@ -153,6 +165,69 @@ def gqa_forward(params, x, positions, cfg, *, impl="chunked", offset=0):
     return gqa_attend(params, x, q, k, v, impl=impl, offset=offset)
 
 
+# ------------------------------------------------------------------- MLA --
+def init_mla(gen, cfg, dtype):
+    m, H, dev = cfg.mla, cfg.n_heads, gen.device
+    qh = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wdq": init_linear(gen, cfg.d_model, m.q_lora_rank, dtype),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+        "wuq": init_linear(gen, m.q_lora_rank, H * qh, dtype),
+        "wdkv": init_linear(gen, cfg.d_model,
+                            m.kv_lora_rank + m.rope_head_dim, dtype),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+        "wukv": init_linear(gen, m.kv_lora_rank,
+                            H * (m.nope_head_dim + m.v_head_dim), dtype),
+        "wo": init_linear(gen, H * m.v_head_dim, cfg.d_model, dtype),
+    }
+
+
+def _mla_qkr(params, x, positions, cfg):
+    """The shared projections: q_nope ``(B, S, H, nope)``, q_rope ``(B, S,
+    H, rope)``, ckv ``(B, S, kv_lora)``, kr ``(B, S, 1, rope)``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rms_norm(dot(x, params["wdq"]).to(x.dtype), params["q_norm"],
+                  cfg.norm_eps)
+    q = dot(cq, params["wuq"]).to(x.dtype).reshape(
+        B, S, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
+    qn, qr = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    qr = rope(qr, positions, cfg.rope_theta)
+    dkv = dot(x, params["wdkv"]).to(x.dtype)
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
+                   cfg.norm_eps)
+    kr = rope(dkv[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)
+    return qn, qr, ckv, kr
+
+
+def mla_attend(params, x, qn, qr, ckv, kr, cfg, *, impl="chunked",
+               offset=0):
+    """Attention of ``_mla_qkr``'s projections and the output projection:
+    per-head k and v decompressed from ckv, q·k over ``nope + rope`` with
+    scale ``1/sqrt(nope + rope)``, v of ``v_head_dim`` (a view into the
+    decompressed kv, read in place by the kernel)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    kv = dot(ckv, params["wukv"]).to(x.dtype).reshape(
+        B, S, H, m.nope_head_dim + m.v_head_dim)
+    kn, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    q = torch.cat([qn, qr], -1)
+    k = torch.cat([kn, kr.expand(B, S, H, m.rope_head_dim)], -1)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    out = attention_impl(impl)(q, k, v, causal=True, offset=offset,
+                               scale=scale)
+    return dot(out.reshape(B, S, -1), params["wo"]).to(x.dtype)
+
+
+def mla_forward(params, x, positions, cfg, *, impl="chunked", offset=0):
+    """Training / prefill MLA: decompress per-head k and v, then standard
+    attention (``impl``: ``chunked``, the flash kernel, or ``naive``)."""
+    qn, qr, ckv, kr = _mla_qkr(params, x, positions, cfg)
+    return mla_attend(params, x, qn, qr, ckv, kr, cfg, impl=impl,
+                      offset=offset)
+
+
 def _pos_vec(length, b, device):
     """length int or ``(b,)`` -> positions ``(b, 1)``."""
     lv = torch.as_tensor(length, dtype=torch.long, device=device)
@@ -164,15 +239,53 @@ def gqa_decode(params, x, cache_k, cache_v, length, cfg):
     at row ``length`` of each cache in place (a row at or past the cache's
     end is dropped, as the reference's ``mode="drop"``) and returns
     ``(out, cache_k, cache_v)``."""
-    b, max_len = x.shape[0], cache_k.shape[1]
+    b = x.shape[0]
     positions = _pos_vec(length, b, x.device)
     q, k1, v1 = gqa_project(params, x, positions, cfg)
     rows = torch.arange(b, device=x.device)
-    pos = positions[:, 0]
-    keep = (pos < max_len)[:, None, None]
-    at = (rows, pos.clamp(max=max_len - 1))
-    cache_k.index_put_(at, torch.where(keep, k1[:, 0], cache_k[at]))
-    cache_v.index_put_(at, torch.where(keep, v1[:, 0], cache_v[at]))
+    _write_row(cache_k, rows, positions[:, 0], k1[:, 0])
+    _write_row(cache_v, rows, positions[:, 0], v1[:, 0])
     out = decode_attention(q, cache_k, cache_v, positions[:, 0] + 1)
     out = out.reshape(b, 1, -1)
     return dot(out, params["wo"]).to(x.dtype), cache_k, cache_v
+
+
+def _write_row(cache, rows, pos, new) -> None:
+    """Write ``new[b]`` at ``cache[b, pos[b]]`` in place; a row at or past
+    the cache's end is dropped (the reference's ``mode="drop"``)."""
+    max_len = cache.shape[1]
+    keep = (pos < max_len).reshape(-1, *([1] * (new.dim() - 1)))
+    at = (rows, pos.clamp(max=max_len - 1))
+    cache.index_put_(at, torch.where(keep, new, cache[at]))
+
+
+def mla_decode(params, x, cache_ckv, cache_kr, length, cfg):
+    """Absorbed decode in the compressed space.  x ``(B, 1, d)``; caches
+    ckv ``(B, S, kv_lora)`` and kr ``(B, S, rope)``, written in place at
+    row ``length`` (dropped at or past the end); ``length`` int or
+    ``(B,)``.  Scores ``= (q_nope W_uk) ckvᵀ + q_rope krᵀ``, the context
+    stays rank ``kv_lora`` until ``W_uv``; fp32 (``wide``).  Returns
+    ``(out, cache_ckv, cache_kr)``."""
+    m = cfg.mla
+    B, H = x.shape[0], cfg.n_heads
+    positions = _pos_vec(length, B, x.device)
+    qn, qr, ckv1, kr1 = _mla_qkr(params, x, positions, cfg)
+    rows = torch.arange(B, device=x.device)
+    _write_row(cache_ckv, rows, positions[:, 0], ckv1[:, 0])
+    _write_row(cache_kr, rows, positions[:, 0], kr1[:, 0, 0])
+    wukv = params["wukv"].reshape(m.kv_lora_rank, H,
+                                  m.nope_head_dim + m.v_head_dim)
+    w_uk = wide(wukv[..., :m.nope_head_dim])         # (kv_lora, H, nope)
+    w_uv = wide(wukv[..., m.nope_head_dim:])         # (kv_lora, H, v)
+    ckv, kr = wide(cache_ckv), wide(cache_kr)
+    q_abs = torch.einsum("bthn,khn->bthk", wide(qn), w_uk)
+    s = torch.einsum("bthk,bsk->bhts", q_abs, ckv)
+    s = s + torch.einsum("bthr,bsr->bhts", wide(qr), kr)
+    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    lv = torch.as_tensor(length, device=x.device).reshape(-1, 1, 1, 1)
+    mask = torch.arange(ckv.shape[1], device=x.device)[None, None, None] <= lv
+    p = torch.softmax(torch.where(mask, s, NEG), -1)
+    ctx = torch.einsum("bhts,bsk->bthk", p, ckv)
+    out = torch.einsum("bthk,khv->bthv", ctx, w_uv)
+    out = out.reshape(B, 1, -1).to(x.dtype)
+    return dot(out, params["wo"]).to(x.dtype), cache_ckv, cache_kr

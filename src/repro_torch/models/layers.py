@@ -2,9 +2,10 @@
 
 Port of ``src/repro/models/layers.py`` (``dot``, ``rms_norm``,
 ``head_rms_norm``, ``rope``, ``mlp_apply``, ``causal_mask``,
-``cross_entropy``, ``init_linear``, ``init_mlp``, ``stack_params``).
-Parameters are plain nested dicts of tensors, stacked per stage on a
-leading layer axis as in the reference.  Norms and the MLP's gate run in
+``cross_entropy``, ``init_linear``, ``init_mlp``).  Parameters are plain
+nested dicts of tensors, stacked per stage on a leading layer axis as in
+the reference (``transformer._init_stage`` stacks them, in place of the
+reference's ``stack_params``).  Norms and the MLP's gate run in
 fp32 and cast back.
 
 ``dot`` returns fp32, as the reference's ``preferred_element_type``
@@ -116,14 +117,6 @@ def init_mlp(gen, d, ff, dtype, act="swiglu"):
     if act == "swiglu":
         p["wg"] = init_linear(gen, d, ff, dtype)
     return p
-
-
-def stack_params(trees):
-    """Stack a list of identical nested dicts along a new axis 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: stack_params([t[k] for t in trees]) for k in first}
-    return torch.stack(trees, 0)
 
 
 def unbind_params(tree) -> list:

@@ -5,16 +5,20 @@ Port of ``src/repro/models/transformer.py`` (``build_stages``, ``init_lm``,
 ``lm_loss``, ``init_caches``, ``lm_decode_step``, ``_decode_stage``,
 ``lm_prefill``; the reference's ``_forward_shared``, ``_decode_shared``
 and ``_prefill_shared`` walk one schedule, ``_super_steps`` here).  Block
-kinds: GQA attention with an MLP, and the recurrent ``mamba2``, ``mlstm``
+kinds: attention (GQA or MLA) with an MLP or a mixture of experts (the
+``moe`` variant, ``models/moe.py``: a stage's blocks from
+``moe.first_dense_layers`` on), and the recurrent ``mamba2``, ``mlstm``
 and ``slstm`` blocks (``models/ssm.py``); zamba2's shared GQA + MLP blocks
 (``shared_attn_every``: shared block ``idx % n_shared_blocks`` runs after
 every ``shared_attn_every`` backbone blocks, super-step ``idx``).
 Parameters and caches keep the reference's tree: each stage's layers are
 stacked on a leading axis; ``lax.scan`` over a stage becomes a Python loop
-over its layers.  The ``moe`` variant, MLA, input embeddings fed from
-outside (``embed_inputs=False``) and sinusoidal positions raise
+over its layers.  MLA caches hold the latent ``ckv`` and the rope key
+``kr`` per position, GQA's K and V.  Input embeddings fed from outside
+(``embed_inputs=False``) and sinusoidal positions raise
 ``NotImplementedError`` (ROADMAP queue 1 item 10); ``lm_forward`` and
 ``lm_prefill`` therefore take tokens only, and positions ``0..S-1``.
+The MoE blocks' load-balancing losses sum into ``lm_forward``'s aux.
 
 ``impl`` picks the attention core (``chunked``: the flash kernel;
 ``naive``), ``rec_impl`` the recurrences' form in a forward or a prefill
@@ -33,7 +37,9 @@ feeds both the attention and the cache from that projection (the
 reference projects twice, to the same values) and defaults to ``chunked``,
 the flash kernel (the reference's default ``tri`` is not ported); decode
 and prefill write the caches in place (K/V rows and recurrent states
-alike) and decode returns the same dict.
+alike) and decode returns the same dict.  ``init_lm`` draws each layer in
+turn and writes it into stacked leaves allocated once (``_init_stage``),
+so a stage never exists twice in memory.
 """
 from __future__ import annotations
 
@@ -41,13 +47,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
-from repro_torch.models.attention import (gqa_attend, gqa_decode,
-                                          gqa_project, init_gqa)
+from repro_torch.models.attention import (_mla_qkr, gqa_attend, gqa_decode,
+                                          gqa_project, init_gqa, init_mla,
+                                          mla_attend, mla_decode)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, dot, dtype_of,
                                        init_linear, init_mlp, mlp_apply,
-                                       normal, rms_norm, stack_params,
-                                       unbind_params)
+                                       normal, rms_norm, unbind_params)
+from repro_torch.models.moe import init_moe, moe_apply
 
 REC_KINDS = ("mamba2", "mlstm", "slstm")
 _INIT_REC = {"mamba2": ssm.init_mamba2, "mlstm": ssm.init_mlstm,
@@ -80,24 +87,26 @@ def build_stages(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every stage is a GQA attention block with an MLP or a
-    recurrent block (mamba2, mlstm, slstm), with or without shared
-    blocks."""
+    """Raise unless every stage is an attention block (GQA or MLA) with an
+    MLP or a mixture of experts, or a recurrent block (mamba2, mlstm,
+    slstm), with or without shared blocks, on token inputs and rope (or
+    no) positions."""
     what = []
     if not cfg.embed_inputs:
         what.append("embed_inputs=False")
     if cfg.pos_emb == "sinusoidal":
         what.append("pos_emb=sinusoidal")
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         what.append(f"attn_type={cfg.attn_type}")
-    for kind, variant, _ in build_stages(cfg):
-        if (kind, variant) != ("attn", "mlp") and kind not in REC_KINDS:
-            what.append(f"{kind}/{variant}" if variant else kind)
+    for kind, _, _ in build_stages(cfg):
+        if kind != "attn" and kind not in REC_KINDS:
+            what.append(kind)
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(set(what)))} not ported "
-            f"(ROADMAP queue 1 item 10); the port runs GQA attention with "
-            f"an MLP, mamba2, mlstm and slstm blocks, and shared blocks")
+            f"(ROADMAP queue 1 item 10); the port runs GQA and MLA "
+            f"attention with an MLP or MoE, mamba2, mlstm and slstm "
+            f"blocks, and shared blocks")
 
 
 def _dense_ff(cfg):
@@ -107,20 +116,61 @@ def _dense_ff(cfg):
 
 
 # ==================================================================== init ==
-def _init_attn(gen, cfg, dtype, d_ff):
+def _init_attn(gen, cfg, dtype, d_ff, *, variant="mlp", mla=False):
     dev = gen.device
-    return {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "attn": init_gqa(gen, cfg, dtype),
-            "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "mlp": init_mlp(gen, cfg.d_model, d_ff, dtype, cfg.mlp_act)}
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+         "attn": (init_mla if mla else init_gqa)(gen, cfg, dtype),
+         "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
+    if variant == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, d_ff, dtype, cfg.mlp_act)
+    return p
 
 
-def _init_block(gen, cfg, kind, dtype):
+def _init_block(gen, cfg, kind, variant, dtype):
     if kind == "attn":
-        return _init_attn(gen, cfg, dtype, _dense_ff(cfg))
+        return _init_attn(gen, cfg, dtype, _dense_ff(cfg), variant=variant,
+                          mla=cfg.attn_type == "mla")
     return {"norm": torch.ones((cfg.d_model,), dtype=dtype,
                                device=gen.device),
             "body": _INIT_REC[kind](gen, cfg, dtype)}
+
+
+def _init_stage(n: int, make) -> dict:
+    """``n`` layers ``make()`` draws in turn, stacked on a new axis 0: the
+    stacked leaves are allocated at the first layer and each layer is
+    copied in and freed, so the peak is the stage plus one layer (the
+    reference's ``stack_params`` of a list would hold the stage twice:
+    45 GB for deepseek-v3's two MoE layers); a one-layer stage is that
+    layer's leaves as views, with no copy."""
+    def view(t):
+        if isinstance(t, dict):
+            return {k: view(v) for k, v in t.items()}
+        return t[None]
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    layer = make()
+    if n == 1:
+        return view(layer)
+    out = alloc(layer)
+    for i in range(n):
+        if i:
+            layer = make()
+        put(out, layer, i)
+        del layer
+    return out
 
 
 def init_lm(seed: int, cfg: ModelConfig, dtype=None, *, device="cuda"):
@@ -137,24 +187,43 @@ def init_lm(seed: int, cfg: ModelConfig, dtype=None, *, device="cuda"):
                                        device=device)}
     if not cfg.tie_embeddings:
         params["head"] = init_linear(gen, cfg.d_model, cfg.vocab, dtype)
-    for si, (kind, _, idxs) in enumerate(build_stages(cfg)):
-        params[f"stage_{si}"] = stack_params(
-            [_init_block(gen, cfg, kind, dtype) for _ in idxs])
+    for si, (kind, variant, idxs) in enumerate(build_stages(cfg)):
+        params[f"stage_{si}"] = _init_stage(
+            len(idxs), lambda: _init_block(gen, cfg, kind, variant, dtype))
     if cfg.shared_attn_every:
-        params["shared"] = stack_params(
-            [_init_attn(gen, cfg, dtype, cfg.d_ff)
-             for _ in range(cfg.n_shared_blocks)])
+        params["shared"] = _init_stage(
+            cfg.n_shared_blocks, lambda: _init_attn(gen, cfg, dtype,
+                                                    cfg.d_ff))
     return params
 
 
 # ================================================================= forward ==
+def _ffn(p, h, cfg):
+    """A block's second half on its normed input: ``(out, aux)``, the
+    mixture of experts where the block has one (aux its load-balancing
+    loss), else the MLP (aux 0.0)."""
+    if "moe" in p:
+        return moe_apply(p["moe"], h, cfg)
+    return mlp_apply(p["mlp"], h, cfg.mlp_act), 0.0
+
+
 def _attn_block(p, x, positions, cfg, *, impl, offset=0):
-    """One dense block; returns ``(x, k, v)`` (k, v for the cache)."""
+    """One attention block (MLA where the config says, else GQA, which
+    zamba2's shared blocks always are); returns ``(x, aux, cache rows)``:
+    ``{"k", "v"}`` ``(b, S, Hkv, hd)``, or MLA's ``{"ckv"}`` ``(b, S,
+    kv_lora)`` and ``{"kr"}`` ``(b, S, rope)``."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    q, k, v = gqa_project(p["attn"], h, positions, cfg)
-    x = x + gqa_attend(p["attn"], h, q, k, v, impl=impl, offset=offset)
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_act), k, v
+    if "wdq" in p["attn"]:
+        qn, qr, ckv, kr = _mla_qkr(p["attn"], h, positions, cfg)
+        x = x + mla_attend(p["attn"], h, qn, qr, ckv, kr, cfg, impl=impl,
+                           offset=offset)
+        rows = {"ckv": ckv, "kr": kr[:, :, 0]}
+    else:
+        q, k, v = gqa_project(p["attn"], h, positions, cfg)
+        x = x + gqa_attend(p["attn"], h, q, k, v, impl=impl, offset=offset)
+        rows = {"k": k, "v": v}
+    out, aux = _ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + out, aux, rows
 
 
 def _rec_block(p, x, cfg, kind, *, impl, state=None):
@@ -201,22 +270,25 @@ def _head(params, cfg):
 
 
 def _block_out(p, x, positions, cfg, kind, impl, rec_impl):
+    """One layer of a forward: ``(x, aux)``."""
     if kind == "attn":
-        return _attn_block(p, x, positions, cfg, impl=impl)[0]
-    return _rec_block(p, x, cfg, kind, impl=rec_impl)[0]
+        return _attn_block(p, x, positions, cfg, impl=impl)[:2]
+    return _rec_block(p, x, cfg, kind, impl=rec_impl)[0], 0.0
 
 
 def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked",
                rec_impl="chunked", remat=False):
     """Full-sequence forward over tokens ``(b, S)``.  Returns ``(logits
-    (b, S, V) fp32, aux)``; aux is 0.0 (it is the MoE load-balancing loss
-    in the reference).  ``remat``: each layer (and each shared block) runs
-    under ``torch.utils.checkpoint`` (its activations recomputed in the
+    (b, S, V) fp32, aux)``; aux is the MoE blocks' load-balancing losses
+    summed over the layers (fp32), 0.0 for a model without experts.
+    ``remat``: each layer (and each shared block) runs under
+    ``torch.utils.checkpoint`` (its activations recomputed in the
     backward, its input saved)."""
     check_supported(cfg)
     b, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
     x = params["embed"][tokens]
+    aux = 0.0
 
     def run(p, x, kind):
         if remat:
@@ -227,13 +299,16 @@ def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked",
     if cfg.shared_attn_every:
         for _, kind, layers, shared in _super_steps(params, cfg):
             for _, p in layers:
-                x = run(p, x, kind)
-            x = run(shared, x, "attn")
+                x, a = run(p, x, kind)
+                aux = aux + a
+            x, a = run(shared, x, "attn")
+            aux = aux + a
     else:
         for _, kind, _, p in _layers(params, cfg):
-            x = run(p, x, kind)
+            x, a = run(p, x, kind)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dot(x, _head(params, cfg)), 0.0
+    return dot(x, _head(params, cfg)), aux
 
 
 def check_single_device(mesh) -> None:
@@ -264,7 +339,13 @@ def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
 
 
 # ================================================================== caches ==
-def _kv_cache(n, cfg, batch, max_len, dtype, device):
+def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False):
+    if mla:
+        m = cfg.mla
+        return {name: torch.zeros((n, batch, max_len, width), dtype=dtype,
+                                  device=device)
+                for name, width in (("ckv", m.kv_lora_rank),
+                                    ("kr", m.rope_head_dim))}
     hd = cfg.resolved_head_dim
     return {name: torch.zeros((n, batch, max_len, cfg.n_kv_heads, hd),
                               dtype=dtype, device=device)
@@ -275,7 +356,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                 device="cuda"):
     """Per-layer decode caches, stacked per stage, zeros (the recurrent
     states at their initial values): ``{"stage_i": {"k", "v": (L, batch,
-    max_len, Hkv, hd)}}`` for attention, the block's state leaves with a
+    max_len, Hkv, hd)}}`` for GQA attention, ``{"ckv": (L, batch,
+    max_len, kv_lora), "kr": (L, batch, max_len, rope)}`` for MLA, the
+    block's state leaves with a
     leading ``L`` for a recurrent stage (fp32 states, ``ssm.acc``; conv
     tails in ``dtype``), and ``"shared": {"k", "v"}`` with one slab per
     shared-block application (``n_layers // shared_attn_every``)."""
@@ -286,8 +369,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     for si, (kind, _, idxs) in enumerate(stages):
         L = len(idxs)
         if kind == "attn":
-            caches[f"stage_{si}"] = _kv_cache(L, cfg, batch, max_len, dtype,
-                                              device)
+            caches[f"stage_{si}"] = _kv_cache(
+                L, cfg, batch, max_len, dtype, device,
+                mla=cfg.attn_type == "mla")
             continue
         state = _REC_STATE[kind](cfg, batch, dtype, device=device)
         caches[f"stage_{si}"] = {
@@ -328,7 +412,8 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length):
 
 def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
     """Layer ``li`` of a stage at one decode step (the body of the
-    reference's scan): attention reads and writes K/V row ``length``; a
+    reference's scan): attention reads and writes its cache row
+    ``length`` (GQA's K/V, MLA's ckv/kr), then the MLP or the experts; a
     recurrent block steps its state (``impl="seq"``, one token) and
     writes it back."""
     if kind != "attn":
@@ -337,11 +422,14 @@ def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
         _store(stage_cache, li, state)
         return x
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, _, _ = gqa_decode(p["attn"], h, stage_cache["k"][li],
-                           stage_cache["v"][li], length, cfg)
+    if "wdq" in p["attn"]:
+        out, _, _ = mla_decode(p["attn"], h, stage_cache["ckv"][li],
+                               stage_cache["kr"][li], length, cfg)
+    else:
+        out, _, _ = gqa_decode(p["attn"], h, stage_cache["k"][li],
+                               stage_cache["v"][li], length, cfg)
     x = x + out
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+    return x + _ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), cfg)[0]
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
@@ -350,7 +438,8 @@ def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
     decode caches.
 
     Returns ``(last_logits (b, V), caches, length)``.  Cache layout as
-    ``init_caches``; K/V are written at positions ``[0, S)``, recurrent
+    ``init_caches``; K/V (MLA: ckv/kr) are written at positions ``[0,
+    S)``, recurrent
     states after the last token.  ``last_index``: int or ``(b,)`` index of
     the true last prompt token (right-padded prompts are causal-safe for
     attention: pads never reach positions at or before it; a recurrent
@@ -366,9 +455,9 @@ def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
                          device=dev)
 
     def attn(p, x, cache, li):
-        x, k, v = _attn_block(p, x, positions, cfg, impl=impl)
-        cache["k"][li, :, :S] = k
-        cache["v"][li, :, :S] = v
+        x, _, rows = _attn_block(p, x, positions, cfg, impl=impl)
+        for name, t in rows.items():
+            cache[name][li, :, :S] = t
         return x
 
     def rec(p, x, cache, li, kind):

@@ -30,7 +30,36 @@ FP32_LEAVES = {"mamba2": ("A_log", "dt_bias", "D"), "mlstm": ("if_bias",),
                "slstm": ("bias",)}
 
 
-def _attn_shapes(cfg, n, ff):
+def _mlp_shapes(cfg, n, ff):
+    d = cfg.d_model
+    mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
+    if cfg.mlp_act == "swiglu":
+        mlp["wg"] = (n, d, ff)
+    return mlp
+
+
+def _mla_shapes(cfg, n):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    return {"wdq": (n, d, m.q_lora_rank), "q_norm": (n, m.q_lora_rank),
+            "wuq": (n, m.q_lora_rank,
+                    H * (m.nope_head_dim + m.rope_head_dim)),
+            "wdkv": (n, d, m.kv_lora_rank + m.rope_head_dim),
+            "kv_norm": (n, m.kv_lora_rank),
+            "wukv": (n, m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)),
+            "wo": (n, H * m.v_head_dim, d)}
+
+
+def _moe_shapes(cfg, n):
+    mo, d = cfg.moe, cfg.d_model
+    E, ff = mo.n_experts, mo.d_ff_expert
+    tree = {"router": (n, d, E), "wi": (n, E, d, ff), "wg": (n, E, d, ff),
+            "wo": (n, E, ff, d)}
+    if mo.n_shared:
+        tree["shared"] = _mlp_shapes(cfg, n, ff * mo.n_shared)
+    return tree
+
+
+def _attn_shapes(cfg, n, ff, variant="mlp", mla=False):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
@@ -39,10 +68,13 @@ def _attn_shapes(cfg, n, ff):
         attn.update(bq=(n, hq), bk=(n, hkv), bv=(n, hkv))
     if cfg.qk_norm:
         attn.update(q_norm=(n, hd), k_norm=(n, hd))
-    mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
-    if cfg.mlp_act == "swiglu":
-        mlp["wg"] = (n, d, ff)
-    return {"norm1": (n, d), "attn": attn, "norm2": (n, d), "mlp": mlp}
+    tree = {"norm1": (n, d), "attn": _mla_shapes(cfg, n) if mla else attn,
+            "norm2": (n, d)}
+    if variant == "moe":
+        tree["moe"] = _moe_shapes(cfg, n)
+    else:
+        tree["mlp"] = _mlp_shapes(cfg, n, ff)
+    return tree
 
 
 def _rec_body_shapes(cfg, kind, n):
@@ -79,10 +111,11 @@ def param_shapes(cfg) -> dict:
     tree = {"embed": (cfg.vocab, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         tree["head"] = (d, cfg.vocab)
-    for si, (kind, _, idxs) in enumerate(build_stages(cfg)):
+    for si, (kind, variant, idxs) in enumerate(build_stages(cfg)):
         n = len(idxs)
         tree[f"stage_{si}"] = (
-            _attn_shapes(cfg, n, _dense_ff(cfg)) if kind == "attn"
+            _attn_shapes(cfg, n, _dense_ff(cfg), variant,
+                         mla=cfg.attn_type == "mla") if kind == "attn"
             else {"norm": (n, d), "body": _rec_body_shapes(cfg, kind, n)})
     if cfg.shared_attn_every:
         tree["shared"] = _attn_shapes(cfg, cfg.n_shared_blocks, cfg.d_ff)

@@ -15,9 +15,10 @@ Port of ``src/repro/serve/engine.py`` (``ServeEngine``, ``Request``):
 
 Where the reference rebuilds its caches functionally, the port writes them
 in place: a prefill's single-row caches are copied into the slot's row of
-the pool, leaf by leaf (K/V, the shared blocks' K/V and the recurrent
-states, each in its own dtype), and each decode step writes one position
-per slot and steps every recurrent state.  Per-slot lengths and last
+the pool, leaf by leaf (K/V, MLA's latent ``ckv`` and rope key ``kr``,
+the shared blocks' K/V and the recurrent states, each in its own dtype),
+and each decode step writes one position per slot and steps every
+recurrent state.  Per-slot lengths and last
 tokens live on the host and go to the device with each step.  Sampled
 decoding draws from a ``torch.Generator`` seeded with ``seed``; greedy
 decoding takes the argmax.

@@ -174,7 +174,8 @@ def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels, "
             "repro_torch.gnncv.tasks, repro_torch.core.weights, "
             "repro_torch.models.transformer, repro_torch.models.weights, "
-            "repro_torch.models.ssm, "
+            "repro_torch.models.ssm, repro_torch.models.moe, "
+            "repro_torch.models.attention, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.gcv, "
             "repro_torch.obs.profile, repro_torch.core.runtime.cache, "

@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ddmm import ddmm, launch_plan as ddmm_plan
-from repro_torch.kernels.flash_attention import MAX_D, flash_attention
+from repro_torch.kernels.flash_attention import (MAX_D, flash_attention,
+                                                 takes)
 from repro_torch.kernels.knn import WARP_MAX_K, knn
 from repro_torch.kernels.sddmm import BLOCK, live_tiles, sddmm
 from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
@@ -160,6 +161,18 @@ FLASH_PADDED_D = ([(1, 32, 32, s, s, 80, True) for s in (8, 29, 47, 2048)]
                   + [(2, 4, 2, 77, 100, 96, True),
                      (1, 8, 8, 64, 64, 96, False)])
 
+# v's head dim apart from q's and k's: (B, Hq, Hkv, Sq, Sk, D, DV, causal).
+# deepseek-v3's MLA at its 128 heads of (192, 128): the served buckets (16,
+# 32, 48) and a 2048-token prompt, a continuation, rows with no live key
+# (Sq > Sk), non-causal at a ragged length; then DV < D and DV > D under
+# the smaller instantiations (MLA's smoke config's (24, 16))
+FLASH_DV = ([(1, 128, 128, s, s, 192, 128, True) for s in (16, 32, 48, 2048)]
+            + [(1, 16, 16, 64, 256, 192, 128, True),
+               (2, 8, 8, 80, 48, 192, 128, True),
+               (1, 8, 8, 100, 100, 192, 128, False),
+               (2, 4, 4, 37, 37, 24, 16, True),
+               (1, 4, 2, 77, 100, 64, 128, True)])
+
 
 # The flash backward (dq, dk, dv) on the card: llama3.2-1b's training shape,
 # qwen3-0.6b's 2048-token shape (D 128), non-causal, continuations (Sq <
@@ -174,10 +187,10 @@ FLASH_BWD = [(8, 32, 8, 128, 128, 64, True), (1, 16, 8, 2048, 2048, 128, True),
              (2, 4, 1, 150, 90, 128, True), (1, 8, 8, 1, 200, 128, True)]
 
 
-def flash_inputs(b, hq, hkv, sq, sk, d, seed=0):
+def flash_inputs(b, hq, hkv, sq, sk, d, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv or d))]
 
 
 def close(got, want, rtol=RTOL):
@@ -876,6 +889,83 @@ def test_cuda_flash_attention_padded_head_dims_match_plain(cuda, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_DV, ids=str)
+def test_cuda_flash_attention_with_its_own_v_head_dim_matches_plain(
+        cuda, case, dtype):
+    """v's head dim apart from q's: MLA's (192, 128) instantiation at
+    deepseek-v3's shapes, and DV != D under (64, 64) and (128, 128); one
+    launch, output ``(B, Hq, Sq, DV)``, within the flash tolerances; rows
+    with no live key exactly 0."""
+    b, hq, hkv, sq, sk, d, dv, causal = case
+    q, k, v = (t(a).to(cuda, dtype)
+               for a in flash_inputs(b, hq, hkv, sq, sk, d, seed=sq + d,
+                                     dv=dv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, sq, dv)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    close(got.float().cpu(), want.float().cpu(),
+          rtol=RTOL if dtype == torch.float32 else BF16_RTOL)
+    if causal and sq > sk:
+        assert (got[:, :, :sq - sk] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_refuses_dqk_apart_from_dv(cuda):
+    """The backward kernel takes one head dim up to 128: MLA's (192, 128),
+    and DV != D at any size, raise naming the next slice, launching
+    nothing (the plain version takes them on CPU tensors)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    before = flash_attention_bwd.launches
+    for d, dv in ((192, 128), (64, 32), (192, 192)):
+        q, k, v = (t(a).to(cuda, torch.bfloat16)
+                   for a in flash_inputs(1, 4, 4, 16, 16, d, dv=dv))
+        if dv <= 128:
+            out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+        else:
+            out = torch.zeros((1, 4, 16, dv), device=cuda,
+                              dtype=torch.bfloat16)
+            lse = torch.zeros((1, 4, 16), device=cuda)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_moe_smoke_serve_runs_through_the_kernel(cuda):
+    """deepseek-v3's and grok-1's fp32 smoke configs served on the card:
+    every prefill launches the kernel once per layer (MLA at (24, 16));
+    the served tokens equal greedy decoding of the plain path's full
+    forward."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.serve import ServeEngine
+    for arch in ("deepseek-v3-671b", "grok-1-314b"):
+        cfg = configs.get_smoke(arch)
+        params = init_lm(0, cfg, device="cuda")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 9, 20)]
+        eng = ServeEngine(cfg, params, slots=2, max_len=64)
+        before = flash_attention.launches
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == \
+            len(prompts) * cfg.n_layers
+        for r in reqs:
+            toks = torch.as_tensor(np.concatenate([r.prompt, r.out[:-1]]),
+                                   device=cuda)
+            logits, aux = lm_forward(params, cfg, toks[None], impl="naive")
+            assert aux.item() > 0
+            assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_misaligned_bf16_views(cuda):
     """bf16 k/v/q rows go through 16-byte copies: a base or a stride off a
     16-byte boundary raises; nothing is copied and nothing falls back."""
@@ -914,10 +1004,13 @@ def test_cuda_flash_attention_reads_permuted_views(cuda, dtype):
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels import _build
-    assert _build.library().repro_flash_max_d() == MAX_D
-    z = torch.zeros((1, 2, 8, MAX_D + 64), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(z, z, z)
+    lib = _build.library()
+    assert all(bool(lib.repro_flash_takes(d, dv)) == takes(d, dv)
+               for d in range(0, 260, 4) for dv in range(0, 260, 4))
+    for d, dv in ((MAX_D[-1][0] + 8, 64), (64, MAX_D[-1][1] + 8)):
+        z = torch.zeros((1, 2, 8, d), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(z, z, torch.zeros((1, 2, 8, dv), device=cuda))
     h = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(h, h, h)

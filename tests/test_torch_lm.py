@@ -83,8 +83,8 @@ def test_configs_equal_the_reference(arch):
         assert ours.params_count() == theirs.params_count()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "chameleon-34b",
-                                  "musicgen-medium", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "chameleon-34b",
+                                  "musicgen-medium", "codeqwen1.5-7b"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get(arch)
