@@ -45,9 +45,10 @@ SIGNATURES = {
     "repro_sddmm": [_P] * 4 + [_I] * 7 + [_P],
     "repro_sddmm_block": [],
     "repro_flash_attention": [_P] * 5 + [_I] * 9 + [_F] + [_L] * 12 + [_P],
-    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 8
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 9
     + [_F, ctypes.POINTER(_L), _P],
     "repro_flash_takes": [_I, _I],
+    "repro_flash_bwd_takes": [_I, _I],
 }
 
 # Every launcher returns a C int (an error code or a constant) but these.

@@ -25,8 +25,9 @@ the reference's ``models/attention.py:_flash_bwd``, the backward of
 bf16 runs FlashAttention-2's deterministic backward on the tensor cores
 (one kernel per 32-key tile for dk and dv, one per 64-query tile for dq,
 p and ds in two bf16 parts, tiles staged by 16-byte copies, no atomics);
-fp32 runs the SIMT kernels.  In bf16 both directions need every operand
-16-byte aligned and raise otherwise.
+fp32 runs the SIMT kernels.  The backward takes the forward's head-dim
+pairs (``MAX_D_BWD``), MLA's (192, 128) among them.  In bf16 both
+directions need every operand 16-byte aligned and raise otherwise.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -44,16 +45,16 @@ from repro_torch.kernels import _build, ref
 # instantiations (``repro_flash_takes``): a call is taken where both fit
 # one pair.  (192, 128) is MLA's nope 128 + rope 64 with v's 128.
 MAX_D = ((128, 128), (192, 128))
-# The backward (csrc/flash_attention_bwd.cu) takes one head dim for q, k
-# and v, up to this.
-MAX_D_BWD = 128
+# The (q·k head dim, v head dim) limits of csrc/flash_attention_bwd.cu's
+# instantiations (``repro_flash_bwd_takes``): the forward's pairs.
+MAX_D_BWD = ((128, 128), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def takes(d: int, dv: int) -> bool:
-    """Whether the forward kernel takes q·k's head dim ``d`` with v's
-    ``dv``."""
-    return d >= 1 and dv >= 1 and any(d <= a and dv <= b for a, b in MAX_D)
+def takes(d: int, dv: int, pairs=MAX_D) -> bool:
+    """Whether the forward kernel (or, with ``pairs=MAX_D_BWD``, the
+    backward) takes q·k's head dim ``d`` with v's ``dv``."""
+    return d >= 1 and dv >= 1 and any(d <= a and dv <= b for a, b in pairs)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -186,9 +187,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     8), as in the forward (fp32 takes any alignment, stride 0 included).
     One call launches three kernels (delta, dk/dv, dq) and counts one
     launch in ``flash_attention_bwd.launches``.  v's head dim DV may differ
-    from D on CPU tensors (``out`` and ``dout`` then have DV); the kernel
-    takes ``DV == D <= MAX_D_BWD`` and raises ``NotImplementedError``
-    otherwise (MLA's (192, 128) is ROADMAP queue 1's next item)."""
+    from D (``out``, ``dout`` and dv then have DV); on the card ``(D, DV)``
+    must fit one pair of ``MAX_D_BWD`` (MLA's (192, 128) included), else
+    ``ValueError``."""
     B, Hq, Hkv, Sq, Sk, D, DV = _check_heads("flash_attention_bwd", q, k, v)
     if out.shape != (B, Hq, Sq, DV) or dout.shape != out.shape:
         raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
@@ -202,12 +203,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                      scale=scale)
-    if DV != D or D > MAX_D_BWD:
-        raise NotImplementedError(
-            f"flash_attention_bwd: the backward kernel takes one head dim "
-            f"up to {MAX_D_BWD} for q, k and v, got q·k {D} and v {DV} "
-            f"(MLA's backward at (192, 128) is ROADMAP queue 1's next item: "
-            f"training MLA on the card)")
+    if not takes(D, DV, MAX_D_BWD):
+        raise ValueError(f"flash_attention_bwd: head dims (q·k {D}, v {DV}) "
+                         f"fit none of the kernel's {MAX_D_BWD}")
     _check_card("flash_attention_bwd", q, ("k", k), ("v", v), ("out", out),
                 ("dout", dout))
     if lse.device != q.device or not lse.is_contiguous():
@@ -224,7 +222,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.library().repro_flash_attention_bwd(
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, dk, dv,
                                   delta)),
-        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
+        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, DV, int(causal),
         ctypes.c_float(scale), strides, _build.stream_of(q))
     _build.check(err, "flash_attention_bwd")
     _build.counted(flash_attention_bwd)

@@ -11,12 +11,15 @@ fp32 and cast back.
 ``dot`` returns fp32, as the reference's ``preferred_element_type``
 does (float64 operands stay float64: ``wide``, the compute dtype of
 norms, products and the recurrences, is fp32 or wider, so a float64 model
-runs in float64 throughout, a check free of fp32 rounding).  For fp32
-operands the result is the same function.  For bf16 operands
-``torch.matmul`` accumulates in fp32 but rounds its result to bf16 before
-the cast, where XLA keeps the fp32 sum: the two frameworks round at
-different places, so bf16 runs are compared within a tolerance and the
-algorithms in fp32.
+runs in float64 throughout, a check free of fp32 rounding).  bf16 operands
+give the fp32 result of their product, unrounded, and their VJP is the
+reference's: ``dx = bf16(g @ wᵀ)`` and ``dw = bf16(xᵀ @ g)`` with the fp32
+cotangent ``g`` unrounded (``WideDot``).  On the card that is cuBLAS with
+bf16 operands and an fp32 output (``torch.mm(out_dtype=)``), ``g`` split
+into two bf16 parts (about 2^-16 of ``g`` left out, below the result's
+own bf16 rounding); no weight is widened there.  On the CPU the operands
+are widened, which is the reference's arithmetic.  fp32 and float64
+operands take ``torch.matmul`` as they are.
 
 The reference's mesh constraints (``shard_axes``, ``wsc``) are a no-op on
 one device and are not ported.  ``causal_mask`` and ``cross_entropy`` (the
@@ -41,9 +44,84 @@ def wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
+def _parts(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """A bf16 operand as it is; an fp32 one (a cotangent) as two bf16
+    parts whose sum is it to about 2^-16 of each entry."""
+    if t.dtype == torch.bfloat16:
+        return (t,)
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) as fp32, each operand bf16 or an
+    fp32 cotangent: widened on the CPU; on the card bf16 cuBLAS products
+    with fp32 outputs over ``_parts``, summed in fp32."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    mm = torch.mm if a.ndim == 2 else torch.bmm
+    out = None
+    for x in _parts(a):
+        for y in _parts(b):
+            part = mm(x, y, out_dtype=torch.float32)
+            out = part if out is None else out.add_(part)
+    return out
+
+
+def _wide_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``WideDot``'s forward: x ``(..., K)`` @ w ``(K, N)``, or x ``(n, K)``
+    against each expert of w ``(E, K, N)``."""
+    if w.ndim == 3:
+        return _mm32(x.expand(w.shape[0], *x.shape), w)
+    return _mm32(x.reshape(-1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
+
+
+class WideDot(torch.autograd.Function):
+    """bf16 ``x @ w`` as its fp32 result, the reference's ``dot_general``
+    with ``preferred_element_type=float32``, with that product's VJP: each
+    input's grad is the fp32 product of the unrounded fp32 cotangent,
+    rounded once to bf16.  ``w`` is ``(K, N)`` (x ``(..., K)`` ->
+    ``(..., N)``) or a stack of experts ``(E, K, N)`` (x ``(n, K)`` ->
+    ``(E, n, N)``, the reference's ``einsum("td,edf->tef")`` in the
+    port's layout; x's grad sums over the experts in fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _wide_dot(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if w.ndim == 3:
+            if ctx.needs_input_grad[0]:
+                dx = _mm32(g, w.mT).sum(0).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _mm32(x.mT.expand(w.shape[0], *x.mT.shape),
+                           g).to(w.dtype)
+            return dx, dw
+        g2 = g.reshape(-1, g.shape[-1])
+        if ctx.needs_input_grad[0]:
+            dx = _mm32(g2, w.mT).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm32(x.reshape(-1, x.shape[-1]).mT, g2).to(w.dtype)
+        return dx, dw
+
+
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over x's last axis, as fp32 (``wide``)."""
-    return wide(torch.matmul(x, w))
+    """``x @ w`` over x's last axis, as fp32 (``wide``); ``w`` may be a
+    stack of experts ``(E, K, N)`` (-> ``(E, n, N)``).  bf16 operands keep
+    the fp32 product unrounded (``WideDot``)."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        if w.ndim == 3:
+            # x against each expert as one batched product: ``matmul``'s
+            # fold of (n, K) @ (E, K, N) copies the weight, and autograd
+            # keeps that copy for the backward
+            x = x.expand(w.shape[0], *x.shape)
+        return wide(torch.matmul(x, w))
+    return WideDot.apply(x, w)
 
 
 def rms_norm(x, scale, eps=1e-5):

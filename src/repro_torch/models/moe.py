@@ -16,16 +16,20 @@ Differences from the reference:
 * Top-k is a stable descending sort, so of two equal probabilities the
   lower expert index comes first, as ``jax.lax.top_k`` orders them
   (``torch.topk`` leaves the order of ties unspecified).
-* ``moe_dense`` takes the tokens in blocks of ``token_block`` tokens, so
-  its ``(tokens, experts, d_ff_expert)`` intermediates stay near
-  ``BLOCK_ELEMS`` elements (deepseek-v3 at 2048 tokens would otherwise
-  hold 4.3 GB in each, in fp32).  Each token's arithmetic is the same; the
-  down projection contracts experts and ``d_ff_expert`` together in one
-  product, as the reference's ``"tef,efd->td"`` does.
-* Rounding: the reference keeps the two up projections in fp32
-  (``preferred_element_type``); the port's bf16 products round to bf16
-  before they widen (``layers.dot``).  fp32 models compute the same
-  function; bf16 logits move within the model's bf16 rounding.
+* Where no grad is wanted (serving), ``moe_dense`` takes the tokens in
+  blocks of ``token_block`` tokens, so its ``(tokens, experts,
+  d_ff_expert)`` intermediates stay near ``BLOCK_ELEMS`` elements
+  (deepseek-v3 at 2048 tokens would otherwise hold 4.3 GB in each, in
+  fp32).  Each token's arithmetic is the same; the down projection
+  contracts experts and ``d_ff_expert`` together in one product, as the
+  reference's ``"tef,efd->td"`` does.  Where a grad is wanted it takes all
+  tokens in one block: autograd keeps every block's intermediates for the
+  backward whatever the blocking, and an expert weight's grad is then one
+  fp32 product over all tokens rounded once to bf16, as the reference's
+  (blocks would add bf16 grads in bf16).
+* The up and down projections keep their fp32 products (``layers.dot``),
+  as the reference's ``preferred_element_type`` does, so each token's
+  forward and the VJP are the reference's arithmetic.
 * Expert weights are drawn one expert at a time into the stacked leaf
   (``torch.Generator`` numbers: not the reference's bits), so no
   ``(experts, d, d_ff)`` fp32 draw is held at full width.
@@ -103,7 +107,7 @@ def aux_load_balance_loss(probs, topi, n_experts: int, *, axes=()):
 
 
 def token_block(cfg) -> int:
-    """Tokens ``moe_dense`` takes at once."""
+    """Tokens ``moe_dense`` takes at once where no grad is wanted."""
     mo = cfg.moe
     return max(1, BLOCK_ELEMS // (mo.n_experts * mo.d_ff_expert))
 
@@ -111,8 +115,8 @@ def token_block(cfg) -> int:
 def _experts(params, tb, gates, dtype):
     """Every expert on the tokens ``tb`` ``(n, d)``, weighted by ``gates``
     ``(n, E)``: ``(n, d)`` in ``dtype``."""
-    hg = wide(torch.matmul(tb, params["wg"]))          # (E, n, ff)
-    hi = wide(torch.matmul(tb, params["wi"]))
+    hg = dot(tb, params["wg"])                         # (E, n, ff) fp32
+    hi = dot(tb, params["wi"])
     h = (F.silu(hg) * hi * gates.T[:, :, None]).to(dtype)
     E, n, ff = h.shape
     h = h.permute(1, 0, 2).reshape(n, E * ff)
@@ -128,7 +132,10 @@ def moe_dense(params, x, cfg):
     t = x.reshape(-1, cfg.d_model)
     topw, topi, probs = _route(params, t, mo)
     gates = torch.zeros_like(probs).scatter(1, topi, topw)      # (T, E)
-    n = token_block(cfg)
+    grad = torch.is_grad_enabled() and (
+        t.requires_grad or any(params[k].requires_grad
+                               for k in ("wg", "wi", "wo")))
+    n = t.shape[0] if grad else token_block(cfg)
     out = torch.cat([_experts(params, t[i:i + n], gates[i:i + n], x.dtype)
                      for i in range(0, t.shape[0], n)])
     if mo.n_shared:

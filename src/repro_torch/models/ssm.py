@@ -15,6 +15,13 @@ reference's mesh constraints (``wsc``) are a no-op on one device and are
 left out.  None of these recurrences has a Pallas kernel in the
 reference (they run in XLA there), so they run as plain PyTorch here.
 
+One difference from the reference: ``ssd_chunked`` masks the pairs above
+each chunk's diagonal before its exp, where the reference masks after it
+(``jnp.where(tri, exp(diff), 0)``).  The forward is the same; at a
+published chunk (zamba2's 128 tokens) the exp overflows there, and the
+reference's grads of ``dt`` and ``A`` come out NaN where the port's are
+finite.
+
 ``init_*`` draw from an explicit ``torch.Generator`` on its device, in the
 reference's scales.  Five leaves stay fp32 whatever the model dtype, as in
 the reference: ``A_log``, ``dt_bias`` and ``D`` of Mamba2, ``if_bias`` of
@@ -100,11 +107,13 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, state=None):
     dx = dtf[..., None] * xf                            # (b,nc,Q,H,P)
     cum = torch.cumsum(la, dim=2)                       # inclusive A_cum
     total = cum[:, :, -1]                               # (b,nc,H)
-    # L[i,j] = exp(cum_i - cum_j) for i>=j (within a chunk)
+    # L[i,j] = exp(cum_i - cum_j) for i>=j (within a chunk); the pairs
+    # above the diagonal are masked before the exp, whose argument there
+    # (a sum of -log a, up to about 200 over a 128-token chunk) overflows:
+    # masked after it, the exp's inf times the mask's zero grad is NaN
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b,nc,Q,Q,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), dtype=diff.dtype, device=x.device))
+    L = torch.exp(diff.masked_fill(~tri[None, None, :, :, None], NEG))
     scores = torch.einsum("bcqhn,bckhn->bcqkh", Cx, Bx) * L
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, dx)
     # per-chunk local final state: sum_j exp(total - cum_j) B_j dx_j^T

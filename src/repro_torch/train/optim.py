@@ -7,19 +7,25 @@ and v as int8 log-spaced codes with one fp32 scale per block of
 ``_QRANGE = 24`` octaves below each block's absmax: code c in [-127, 127]
 stands for ``sign(c) · 2^((|c| - 1)/126 · R - R) · absmax``.
 
-API as the reference's (optax-like): ``opt = adamw(...)``; ``state =
-opt.init(params)``; ``updates, state, metrics = opt.update(grads, state,
-params)``; the caller adds each update to its parameter.  Trees are nested
-dicts of tensors; an int8 moment is a ``QTensor``.  The global grad-norm
-clip sums the leaves in the reference's order (sorted keys), the bias
-corrections are fp32, weight decay applies where ``p.ndim >= 2`` (each
-stage's stacked ``(L, d)`` norm scales too, as in the reference), and each
-update is cast to its parameter's dtype (bf16 parameters keep no fp32
-master copy).
+API as the reference's (optax-like) but in place: ``opt = adamw(...)``;
+``state = opt.init(params)``; ``state, metrics = opt.update(grads, state,
+params)`` adds each update to its parameter.  Trees are nested dicts of
+tensors; an int8 moment is a ``QTensor``.  The global grad-norm clip sums
+the leaves in the reference's order (sorted keys), the bias corrections
+are fp32, weight decay applies where ``p.ndim >= 2`` (each stage's stacked
+``(L, d)`` norm scales too, as in the reference), and each update is cast
+to its parameter's dtype and added there, as the reference's ``(p +
+u).astype(p.dtype)`` (bf16 parameters keep no fp32 master copy).
 
-Difference from the reference: the fp32 moments are updated in place and
-the returned state holds the same tensors (the reference is functional);
-the arithmetic, in the reference's order, is the same.
+Difference from the reference, which is functional (it returns the updates
+and a new state): the arithmetic, element by element in the reference's
+order, is the same, but each parameter gets its update added in place and
+each moment, int8 codes and scales included, is overwritten in place, a
+leaf's rows ``CHUNK_ELEMS`` elements at a time (int8 blocks run along the
+last axis, so rows quantize alone).  Neither an updates tree nor a second
+state is ever held, and a leaf's fp32 temporaries stay near 256 MiB: a
+1.6 B-element expert leaf (grok-1's) would otherwise need about 40 GB of
+them.  The returned state is the one passed in.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch.nn.functional as F
 
 QBLOCK = 256
 _QRANGE = 24.0   # octaves below the block absmax representable
+# AdamW's update takes a leaf's rows this many elements at a time
+CHUNK_ELEMS = 1 << 26
 
 
 # ------------------------------------------------------------------ trees --
@@ -53,14 +61,16 @@ def tree_map(fn, tree, *rest):
 
 def tree_unflatten(like, leaves) -> Any:
     """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(tree):
-        if isinstance(tree, dict):
-            return {key: build(tree[key]) for key in sorted(tree)}
-        return next(it)
 
-    return build(like)
+def _unflatten(tree, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would hold ``leaves`` (a step's grads) until
+    # the cyclic collector runs
+    if isinstance(tree, dict):
+        return {key: _unflatten(tree[key], it) for key in sorted(tree)}
+    return next(it)
 
 
 # ------------------------------------------------------------ quantization --
@@ -102,7 +112,15 @@ class QTensor(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
+    # ``update(grads, state, params) -> (state, metrics)``, in place
     update: Callable[..., Any]
+
+
+def _row_chunks(t: torch.Tensor, rows_per: int):
+    """``t`` viewed (never copied: written through) as ``(rows, last)``, in
+    chunks of ``rows_per`` rows."""
+    flat = t.view(-1, t.shape[-1]) if t.ndim else t.view(1, 1)
+    return flat.split(rows_per)
 
 
 def _device_of(tree) -> torch.device:
@@ -130,7 +148,8 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4, *,
                 "m": tree_map(zeros_like_state, params),
                 "v": tree_map(zeros_like_state, params)}
 
-    def update(grads, state, params):
+    def prepare(grads, state):
+        """-> (step, clip, bias corrections, lr, grad norm)."""
         step = state["step"] + 1
         # global grad-norm clip
         gsq = sum(torch.sum(torch.square(g.float()))
@@ -139,35 +158,51 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4, *,
         clip = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0) if grad_clip else 1.0
         t = step.float()
-        bc1 = 1.0 - b1 ** t
-        bc2 = 1.0 - b2 ** t
-        lr_t = lr_at(step)
+        return step, clip, 1.0 - b1 ** t, 1.0 - b2 ** t, lr_at(step), gnorm
 
-        def upd(g, m, v, p):
-            g = g.float() * clip
-            if quantized:
-                mf = dequantize_i8(m.codes, m.scale, g.shape)
-                vf = dequantize_i8(v.codes, v.scale, g.shape)
-                mf = b1 * mf + (1.0 - b1) * g
-                vf = b2 * vf + (1.0 - b2) * g * g
-            else:                       # in place, the same arithmetic
-                mf = m.mul_(b1).add_((1.0 - b1) * g)
-                vf = v.mul_(b2).add_((1.0 - b2) * g * g)
-            u = -(lr_t * (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
-                  + lr_t * weight_decay * p.float() * float(p.ndim >= 2))
-            if quantized:
-                return (u.to(p.dtype), QTensor(*quantize_i8(mf)),
-                        QTensor(*quantize_i8(vf)))
-            return u.to(p.dtype), mf, vf
+    def upd(g, m, v, p, decay, clip, bc1, bc2, lr_t):
+        """Rows of one leaf: -> (update in p's dtype, new m, new v); fp32
+        m and v are updated in place."""
+        g = g.float() * clip
+        if quantized:
+            mf = dequantize_i8(m.codes, m.scale, g.shape)
+            vf = dequantize_i8(v.codes, v.scale, g.shape)
+            mf = b1 * mf + (1.0 - b1) * g
+            vf = b2 * vf + (1.0 - b2) * g * g
+        else:                       # in place, the same arithmetic
+            mf = m.mul_(b1).add_((1.0 - b1) * g)
+            vf = v.mul_(b2).add_((1.0 - b2) * g * g)
+        u = -(lr_t * (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+              + lr_t * weight_decay * p.float() * decay)
+        if quantized:
+            return (u.to(p.dtype), QTensor(*quantize_i8(mf)),
+                    QTensor(*quantize_i8(vf)))
+        return u.to(p.dtype), mf, vf
 
-        out = [upd(g, m, v, p) for g, m, v, p in zip(
-            tree_leaves(grads), tree_leaves(state["m"]),
-            tree_leaves(state["v"]), tree_leaves(params))]
-        updates = tree_unflatten(grads, [o[0] for o in out])
-        new_state = {"step": step,
-                     "m": tree_unflatten(grads, [o[1] for o in out]),
-                     "v": tree_unflatten(grads, [o[2] for o in out])}
-        return updates, new_state, {"grad_norm": gnorm, "lr": lr_t}
+    def update(grads, state, params):
+        step, clip, bc1, bc2, lr_t, gnorm = prepare(grads, state)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            decay = float(p.ndim >= 2)
+            rows = max(1, CHUNK_ELEMS // max(1, p.shape[-1] if p.ndim
+                                                 else 1))
+            parts = [_row_chunks(t, rows) for t in (g, p)]
+            moments = [([_row_chunks(q.codes, rows),
+                         _row_chunks(q.scale, rows)] if quantized
+                        else [_row_chunks(q, rows)]) for q in (m, v)]
+            for i, (gc, pc) in enumerate(zip(*parts)):
+                if quantized:
+                    mc = QTensor(moments[0][0][i], moments[0][1][i])
+                    vc = QTensor(moments[1][0][i], moments[1][1][i])
+                else:
+                    mc, vc = moments[0][0][i], moments[1][0][i]
+                u, mf, vf = upd(gc, mc, vc, pc, decay, clip, bc1, bc2, lr_t)
+                pc.add_(u)
+                if quantized:
+                    for dst, src in zip((*mc, *vc), (*mf, *vf)):
+                        dst.copy_(src)
+        state["step"] = step
+        return state, {"grad_norm": gnorm, "lr": lr_t}
 
     return Optimizer(init=init, update=update)
 
@@ -182,14 +217,15 @@ def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
         return {"step": step}
 
     def update(grads, state, params):
-        step = state["step"] + 1
-        if momentum:
-            m = tree_map(lambda mm, g: momentum * mm + g.float(),
-                         state["m"], grads)
-            upd = tree_map(lambda mm, p: (-lr * mm).to(p.dtype), m, params)
-            return upd, {"step": step, "m": m}, {}
-        upd = tree_map(lambda g, p: (-lr * g).to(p.dtype), grads, params)
-        return upd, {"step": step}, {}
+        state["step"] = state["step"] + 1
+        moments = (tree_leaves(state["m"]) if momentum
+                   else [None] * len(tree_leaves(params)))
+        for g, m, p in zip(tree_leaves(grads), moments, tree_leaves(params)):
+            d = g.float()
+            if momentum:
+                d = m.mul_(momentum).add_(d)
+            p.add_((-lr * d).to(p.dtype))
+        return state, {}
 
     return Optimizer(init=init, update=update)
 

@@ -8,8 +8,10 @@ over the parameter leaves, and ``remat`` runs each layer under
 
 Difference from the reference: the step updates the parameters in place,
 under ``torch.no_grad()`` (``p.add_(u)``, in the parameter's dtype, as the
-reference's ``(p + u).astype(p.dtype)``), and returns the same tree; it
-marks every parameter ``requires_grad``.  The reference is functional.
+reference's ``(p + u).astype(p.dtype)``, by the optimizer's in-place
+``update``, which also overwrites the moments), and returns the same tree;
+it marks every parameter ``requires_grad``.  The reference is
+functional.
 """
 from __future__ import annotations
 
@@ -62,10 +64,8 @@ def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
             parts = {key: torch.stack([p[key] for p in parts_all]).mean()
                      for key in parts_all[0]}
         with torch.no_grad():
-            updates, opt_state, om = optimizer.update(
+            opt_state, om = optimizer.update(
                 tree_unflatten(params, grads), opt_state, params)
-            for p, u in zip(leaves, tree_leaves(updates)):
-                p.add_(u)
         return params, opt_state, {"loss": loss, **parts, **om}
 
     return train_step

@@ -42,8 +42,8 @@ from repro_torch.kernels.shift_conv import launch_plan, shift_conv2d
 from repro_torch.kernels.spdmm import spdmm, spdmm_rows
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import (knn_adversarial, tree_to,  # noqa: E402
-                        vip_masked_graph, window_mask)
+from chip_smoke import (attn_calls, knn_adversarial,  # noqa: E402
+                        tree_to, vip_masked_graph, window_mask)
 
 RTOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -916,24 +916,108 @@ def test_cuda_flash_attention_with_its_own_v_head_dim_matches_plain(
 
 @pytest.mark.cuda
 def test_cuda_flash_bwd_refuses_dqk_apart_from_dv(cuda):
-    """The backward kernel takes one head dim up to 128: MLA's (192, 128),
-    and DV != D at any size, raise naming the next slice, launching
-    nothing (the plain version takes them on CPU tensors)."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+    """The backward takes the forward's head-dim pairs (``MAX_D_BWD``, the
+    library's ``repro_flash_bwd_takes``), MLA's (192, 128) and DV != D
+    within them; a q·k or v head dim past every pair raises ``ValueError``
+    naming the pairs, launching nothing (the plain version takes any pair
+    on CPU tensors)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (MAX_D_BWD,
+                                                     flash_attention_bwd)
+    lib = _build.library()
+    assert all(bool(lib.repro_flash_bwd_takes(d, dv))
+               == takes(d, dv, MAX_D_BWD)
+               for d in range(0, 260, 4) for dv in range(0, 260, 4))
     before = flash_attention_bwd.launches
-    for d, dv in ((192, 128), (64, 32), (192, 192)):
+    for d, dv in ((192, 136), (200, 128), (192, 192)):
         q, k, v = (t(a).to(cuda, torch.bfloat16)
                    for a in flash_inputs(1, 4, 4, 16, 16, d, dv=dv))
-        if dv <= 128:
-            out, lse = flash_attention_fwd(q, k, v, return_lse=True)
-        else:
-            out = torch.zeros((1, 4, 16, dv), device=cuda,
-                              dtype=torch.bfloat16)
-            lse = torch.zeros((1, 4, 16), device=cuda)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out = torch.zeros((1, 4, 16, dv), device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros((1, 4, 16), device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
             flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
     assert flash_attention_bwd.launches == before
+
+
+# The backward with v's head dim apart from q's: deepseek-v3's training
+# shape (batch 8 x 128 tokens, 128 heads of (192, 128)) and a 2048-token
+# prompt, a continuation, rows with no live key, non-causal at a ragged
+# length, GQA; then DV != D under (64, 64) and (128, 128) (MLA's smoke
+# config's (24, 16)) and zamba2's D = 80 under DP = 128
+FLASH_BWD_DV = [(8, 128, 128, 128, 128, 192, 128, True),
+                (1, 128, 128, 2048, 2048, 192, 128, True),
+                (1, 16, 16, 64, 256, 192, 128, True),
+                (2, 8, 8, 80, 48, 192, 128, True),
+                (1, 8, 8, 100, 100, 192, 128, False),
+                (2, 8, 2, 77, 130, 192, 128, True),
+                (2, 4, 4, 37, 37, 24, 16, True),
+                (1, 4, 2, 77, 100, 64, 128, True),
+                (1, 32, 32, 128, 128, 80, 80, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_DV, ids=str)
+def test_cuda_flash_bwd_with_its_own_v_head_dim_matches_plain(cuda, case,
+                                                              dtype):
+    """dq, dk, dv at (D, DV) pairs apart (MLA's (192, 128) among them), with
+    v and the grads' v side read as MLA holds them: v a strided view of the
+    decompressed kv ``(B, S, H, nope + DV)`` and k's nope part beside it;
+    within RTOL (fp32) or BF16_RTOL (bf16) of ``attention_bwd_ref``, a
+    second call bit for bit, dv laid out as ``torch.empty_like(v)``."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    b, hq, hkv, sq, sk, d, dv, causal = case
+    rng = np.random.default_rng(sq + d)
+    q = t(rng.standard_normal((b, sq, hq, d)).astype(np.float32)).to(
+        cuda, dtype).transpose(1, 2)
+    kv = t(rng.standard_normal((b, sk, hkv, d + dv)).astype(np.float32)).to(
+        cuda, dtype)
+    k, v = (x.transpose(1, 2) for x in (kv[..., :d], kv[..., d:]))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    dout = t(rng.standard_normal(out.shape).astype(np.float32)).to(cuda,
+                                                                   dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert got[2].stride() == torch.empty_like(v).stride()
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    rtol = RTOL if dtype == torch.float32 else BF16_RTOL
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g).all() and torch.equal(g, a)
+        close(g.float().cpu(), w.float().cpu(), rtol=rtol)
+    if causal and sq > sk:
+        assert (got[0][:, :, :sq - sk] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_wide_dot_keeps_the_fp32_product(cuda):
+    """``layers.dot`` of bf16 operands on the card (cuBLAS, fp32 out):
+    within 1e-5 of max| of the widened fp32 product (the sums' order), a
+    2-D weight and a stack of experts; its grads (the fp32 cotangent in two
+    bf16 parts) within one bf16 step (2^-8 of max|want|) of the widened
+    product's grads, which round the same fp32 sums once."""
+    from repro_torch.models.layers import dot
+    rng = np.random.default_rng(0)
+    for xs, ws in (((4, 96, 512), (512, 384)), ((80, 256), (4, 256, 192))):
+        x, w = (t(rng.standard_normal(s).astype(np.float32)).to(
+            cuda, torch.bfloat16).requires_grad_(True) for s in (xs, ws))
+        got = dot(x, w)
+        x32, w32 = (a.detach().float().requires_grad_(True) for a in (x, w))
+        want = torch.matmul(x32, w32)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        close(got.detach().cpu(), want.detach().cpu(), rtol=1e-5)
+        g = t(rng.standard_normal(want.shape).astype(np.float32)).to(cuda)
+        dx, dw = torch.autograd.grad(got, (x, w), g)
+        wx, ww = torch.autograd.grad(want, (x32, w32), g)
+        for a, b in ((dx, wx), (dw, ww)):
+            assert a.dtype == torch.bfloat16
+            close(a.float().cpu(), b.to(torch.bfloat16).float().cpu(),
+                  rtol=2.0 ** -8)
 
 
 @pytest.mark.cuda
@@ -1540,13 +1624,16 @@ def test_cuda_flash_fn_copies_a_misaligned_bf16_dout(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-0.6b", "zamba2-2.7b",
+                                  "xlstm-350m", "deepseek-v3-671b",
+                                  "grok-1-314b"])
 def test_cuda_train_step_kernel_path_matches_plain(cuda, arch):
     """One fp32 ``lm_loss`` + grads of the smoke config on the card: the
     kernel path (``impl="chunked"``, forward and backward kernels) against
     the plain path (``"naive"``, autograd through plain attention): loss
     within 1e-6 relative, every grad leaf within 1e-4 of its max|plain|;
-    the backward kernel launches once a layer."""
+    the backward kernel launches once an attention call (a layer, or a
+    zamba2 shared-block application; none for xlstm)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models.transformer import init_lm, lm_loss
@@ -1564,7 +1651,7 @@ def test_cuda_train_step_kernel_path_matches_plain(cuda, arch):
         results[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
         torch.cuda.synchronize()
         assert flash_attention_bwd.launches - before == (
-            cfg.n_layers if impl == "chunked" else 0)
+            attn_calls(cfg) if impl == "chunked" else 0)
     (l_k, g_k), (l_p, g_p) = results["chunked"], results["naive"]
     assert abs(l_k - l_p) <= 1e-6 * abs(l_p)
     for a, b in zip(g_k, g_p):

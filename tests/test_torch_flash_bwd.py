@@ -43,14 +43,16 @@ CASES = [(2, 4, 2, 40, 40, 32, True), (1, 8, 2, 48, 48, 64, False),
          (1, 4, 4, 1, 33, 64, True), (1, 6, 2, 20, 36, 48, False)]
 
 
-def bf16_inputs(shape, seed=0):
-    """q, k, v, dout as bf16 torch tensors from a numpy seed."""
+def bf16_inputs(shape, seed=0, dv=None):
+    """q, k, v, dout as bf16 torch tensors from a numpy seed (v and dout
+    with head dim ``dv``, default D)."""
     b, hq, hkv, sq, sk, d, _ = shape
+    dv = dv or d
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
             .to(torch.bfloat16)
-            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
-                      (b, hq, sq, d))]
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv),
+                      (b, hq, sq, dv))]
 
 
 def bf16_parts(x: torch.Tensor, parts: int) -> torch.Tensor:
@@ -84,9 +86,9 @@ def emulate(q, k, v, out, lse, dout, *, causal, scale=None, parts=PARTS):
     dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", dsb, qf)
     dv = torch.einsum("bhqk,bhqd->bhkd", pb, gf)
-    fold = (b, hkv, group, sk, d)
-    return (dq.to(q.dtype), dk.reshape(fold).sum(2).to(k.dtype),
-            dv.reshape(fold).sum(2).to(v.dtype))
+    fold = (b, hkv, group, sk)
+    return (dq.to(q.dtype), dk.reshape(*fold, d).sum(2).to(k.dtype),
+            dv.reshape(*fold, v.shape[3]).sum(2).to(v.dtype))
 
 
 def rel(got, want) -> float:
@@ -113,6 +115,39 @@ def test_two_bf16_parts_hold_the_bar_against_plain_and_jax(case):
     sq, sk = case[3], case[4]
     if causal and sq > sk:
         assert (got[0][:, :, :sq - sk] == 0).all()
+        return
+    f32 = [t.float().numpy() for t in (q, k, v, dout)]
+    _, _, jax_grads = jax_vjp(*f32, causal)
+    for g, w in zip(got, jax_grads):
+        assert rel(g, w) <= BF16_RTOL
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, DV): MLA's (192, 128) causal, with GQA,
+# a continuation and rows with no live key, non-causal; DV != D under
+# (64, 64)
+DV_CASES = [(1, 4, 4, 40, 40, 192, True, 128),
+            (2, 4, 2, 24, 56, 192, True, 128),
+            (1, 4, 4, 40, 24, 192, True, 128),
+            (1, 2, 2, 33, 33, 192, False, 128),
+            (2, 4, 4, 37, 37, 24, True, 16)]
+
+
+@pytest.mark.parametrize("case", DV_CASES, ids=str)
+def test_two_bf16_parts_hold_the_bar_with_vs_own_head_dim(case):
+    """The same arithmetic with v's head dim apart from q's (the kernel's
+    (192, 128) instantiation): within 2^-7 of max|plain| and of the
+    reference's vjp."""
+    *shape, dv = case
+    causal = shape[6]
+    q, k, v, dout = bf16_inputs(shape, seed=3, dv=dv)
+    out, lse = ref.attention_lse_ref(q, k, v, causal=causal)
+    got = emulate(q, k, v, out, lse, dout, causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert rel(g, w) <= BF16_RTOL
+    if causal and shape[3] > shape[4]:
+        assert (got[0][:, :, :shape[3] - shape[4]] == 0).all()
         return
     f32 = [t.float().numpy() for t in (q, k, v, dout)]
     _, _, jax_grads = jax_vjp(*f32, causal)

@@ -21,7 +21,8 @@ import torch
 from repro.models import attention as rattn
 from repro.models.attention import flash_attention_xla
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (MAX_D, FlashAttentionFn,
+from repro_torch.kernels.flash_attention import (MAX_D, MAX_D_BWD,
+                                                 FlashAttentionFn,
                                                  _out_like, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd, takes)
@@ -199,13 +200,47 @@ def test_flash_wrapper_with_dv_matches_flash_attention_xla(case):
 
 
 def test_the_kernel_takes_mlas_head_dims_and_no_larger():
-    """``MAX_D``'s pairs: (128, 128) and (192, 128); the bwd's one head
-    dim up to 128 (checked on the card only)."""
+    """``MAX_D``'s pairs: (128, 128) and (192, 128), and the backward's
+    ``MAX_D_BWD`` the same pairs (the library's ``repro_flash_takes`` and
+    ``repro_flash_bwd_takes`` are checked against them on the card)."""
     assert MAX_D == ((128, 128), (192, 128))
-    assert takes(192, 128) and takes(128, 128) and takes(80, 80)
-    assert takes(24, 16) and takes(64, 128) and takes(136, 64)
-    assert not takes(192, 136) and not takes(200, 64)
-    assert not takes(0, 64) and not takes(64, 0)
+    assert MAX_D_BWD == MAX_D
+    for pairs in (MAX_D, MAX_D_BWD):
+        assert takes(192, 128, pairs) and takes(128, 128, pairs)
+        assert takes(80, 80, pairs) and takes(24, 16, pairs)
+        assert takes(64, 128, pairs) and takes(136, 64, pairs)
+        assert not takes(192, 136, pairs) and not takes(200, 64, pairs)
+        assert not takes(0, 64, pairs) and not takes(64, 0, pairs)
+
+
+# (B, Hq, Hkv, Sq, Sk, D, DV, causal): MLA's (192, 128), causal and not,
+# GQA, a continuation, rows with no live key
+BWD_DV_CASES = [(2, 4, 4, 24, 24, 192, 128, True),
+                (1, 4, 2, 16, 40, 192, 128, True),
+                (1, 2, 2, 30, 12, 192, 128, True),
+                (1, 4, 4, 17, 17, 192, 128, False)]
+
+
+@pytest.mark.parametrize("case", BWD_DV_CASES, ids=str)
+def test_attention_bwd_ref_at_mlas_head_dims_matches_jax_vjp(case):
+    """The backward's plain version (what the kernel is held to on the
+    card), called directly at (192, 128) with the forward's out and LSE:
+    dq, dk, dv within 1e-5 of each max| of ``jax.vjp`` of
+    ``flash_attention_xla``, on the live rows (the reference's mask value
+    gives rows with no live key a mean of v, the port 0 and zero grads)."""
+    *_, sq, sk, d, dv, causal = case
+    q, k, v, dout = dv_inputs(case, seed=4)
+    tq, tk, tv, tdout = map(torch.from_numpy, (q, k, v, dout))
+    dead = max(0, sq - sk) if causal else 0
+    tdout[:, :, :dead] = 0
+    _, _, want = xla(q, k, v, tdout.numpy(), causal)
+    out, lse = ref.attention_lse_ref(tq, tk, tv, causal=causal)
+    got = ref.attention_bwd_ref(tq, tk, tv, out, lse, tdout, causal=causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name
+        if name == "dq":
+            g, w = g[:, :, dead:], w[:, :, dead:]
+        close(g, w, rtol=1e-5)
 
 
 def test_the_output_keeps_qs_layout_with_its_own_head_dim():

@@ -25,11 +25,21 @@ configs:
     steps match the other package's own run within ``PARAM_RTOL``;
   * a resumed run of the port's launcher equals a straight run bit for
     bit.
+The AdamW steps and the checkpoints across packages run on the dense pair
+and on the four FAMILIES (zamba2, xLSTM, deepseek-v3's MLA + MoE, grok-1's
+GQA + MoE), whose parameters are compared in AdamW's unit and whose
+grad-borne quantities at their grads' accuracy (``LR_BAND``,
+``FLIP_SHARE``, ``GRAD_ACCURACY``: the dense pair's tolerances above do
+not change).  AdamW's in-place update gives the same bits whether a leaf's
+rows go in one chunk or in several.
 The file also mirrors each case of ``tests/test_train.py`` on the port.
 """
+import functools
+import gc
 import json
 import os
 import signal
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -51,16 +61,20 @@ from repro.train.optim import quantize_i8 as ref_quantize
 from repro_torch import configs
 from repro_torch.data import TokenPipeline, synthetic_embeds
 from repro_torch.launch.train import main, train
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import init_lm, lm_loss
 from repro_torch.models.weights import (from_reference,
                                         opt_state_from_reference,
                                         opt_state_to_reference, to_reference)
 from repro_torch.train import (CheckpointManager, adamw, build_train_step,
                                sgd)
 from repro_torch.train.optim import (QTensor, cosine_schedule,
-                                     dequantize_i8, quantize_i8, tree_leaves)
+                                     dequantize_i8, quantize_i8, tree_leaves,
+                                     tree_unflatten)
 
 ARCHS = ["qwen3-0.6b", "llama3.2-1b"]
+# the families trained on the card since the dense pair: the recurrent
+# (zamba2's Mamba2 + shared attention, xLSTM), MLA + MoE, GQA + MoE
+FAMILIES = ["zamba2-2.7b", "xlstm-350m", "deepseek-v3-671b", "grok-1-314b"]
 CPU = torch.device("cpu")
 PARAM_RTOL = 1e-5
 MOMENT_RTOL = 1e-4
@@ -72,6 +86,29 @@ SMALL_CODE = 43          # |code| of 2^-16 of the block absmax: (24-16)·126/24+
 # after four steps) and the worst entry (1.8e-4 of max|ref| measured)
 INT8_WITHIN = 0.99
 INT8_WORST = 1e-3
+# The FAMILIES' parameters are compared in AdamW's own unit (``params_close``
+# with ``lr_sum``).  AdamW scales each entry's step to about lr whatever its
+# leaf's scale, so a grad near 0 whose fp32 sums differ between the packages
+# moves its entry by a share of lr, however small the leaf: the zero-
+# initialised conv biases of zamba2 and xLSTM hold nothing but such steps,
+# and there PARAM_RTOL of max|ref| is far below one fp32 ulp of a step.  So
+# each entry must sit within PARAM_RTOL of max|ref| plus LR_BAND of the
+# steps' summed lr (up to 4.7% measured on the smoke configs), but for at
+# most FLIP_SHARE of all entries: grads whose sign the two packages do not
+# agree on (xLSTM's first step: 12 of 284952 entries, each within twice the
+# lr, the most a sign can move a first step) and, with int8 moments run
+# free, a second moment that rounds to code 0 in one package only, which
+# moves its entry by lr·m/eps (deepseek-v3: 1 of 220240, 37 lr).
+LR_BAND = 0.1
+FLIP_SHARE = 1e-4
+# How far an arch's fp32 grads sit from exact, where that is above the other
+# tolerances: the sLSTM's exponential gates leave xLSTM's grads 2.6e-4 (the
+# reference's, against its own float64 ones) to 4.4e-4 (the port's) of
+# their leaf's max from exact at batch 4 x 32.  Its grad norm (4.9e-5
+# apart measured), fp32 moments (5.9e-4) and int8 moments' scales are held
+# to this, and their codes equal on 1 - 20x this (1.2% of codes differ at
+# the first step; a code is 14% wide).
+GRAD_ACCURACY = {"xlstm-350m": 1e-3}
 
 
 def close(got, want, rtol):
@@ -102,24 +139,43 @@ def port_batch(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def ref_setup(arch, quantized, peak):
+    """The reference's (cfg, params, opt, jitted step), built once per
+    arguments in a worker: its trees are immutable, and the tests of one
+    (arch, moments) share the step's compilation."""
+    cfg = rconfigs.get_smoke(arch)
+    ropt = ref_adamw(ref_cosine(peak, warmup=2, total=10),
+                     quantized=quantized)
+    return (cfg, ref_init(jax.random.PRNGKey(0), cfg), ropt,
+            jax.jit(ref_build_train_step(cfg, ropt)))
+
+
 def setup(arch, quantized, *, peak=3e-4):
     """-> reference (cfg, params, opt, jitted step) and port (cfg, params,
     opt, step), from the same weights and schedule."""
-    cfg = rconfigs.get_smoke(arch)
-    rp = ref_init(jax.random.PRNGKey(0), cfg)
+    cfg, rp, ropt, rstep = ref_setup(arch, quantized, peak)
     pcfg = configs.get_smoke(arch)
     pp = from_reference(pcfg, jax.tree.map(np.asarray, rp), device=CPU)
-    ropt = ref_adamw(ref_cosine(peak, warmup=2, total=10),
-                     quantized=quantized)
     popt = adamw(cosine_schedule(peak, warmup=2, total=10),
                  quantized=quantized)
-    return ((cfg, rp, ropt, jax.jit(ref_build_train_step(cfg, ropt))),
+    return ((cfg, rp, ropt, rstep),
             (pcfg, pp, popt, build_train_step(pcfg, popt)))
 
 
-def assert_moments_match(ours, theirs):
+def assert_moments_match(ours, theirs, acc=None):
     """fp32 moments within MOMENT_RTOL; int8 codes equal on CODES_EQUAL of
-    the entries and at most one code apart, scales within 1e-6."""
+    the entries and at most one code apart, scales within SCALE_RTOL.  With
+    ``acc`` (``GRAD_ACCURACY``): moments and scales within ``acc`` where
+    that is larger, codes equal on ``1 - 20·acc`` of each leaf, and at
+    most ``acc`` of all entries more than one code apart (a grad whose
+    sign the packages disagree on gives its first moment the other
+    sign)."""
+    moment_rtol, scale_rtol = MOMENT_RTOL, SCALE_RTOL
+    codes_equal, apart, total = CODES_EQUAL, 0, 0
+    if acc is not None:
+        moment_rtol, scale_rtol = max(moment_rtol, acc), max(scale_rtol, acc)
+        codes_equal = 1 - 20 * acc
     flat = jax.tree_util.tree_flatten(
         theirs, is_leaf=lambda x: isinstance(x, RefQTensor))[0]
     mine = tree_leaves(ours)
@@ -129,22 +185,40 @@ def assert_moments_match(ours, theirs):
             got, want = o.codes.numpy().astype(int), np.asarray(t.codes,
                                                                  int)
             assert got.shape == want.shape
-            assert (got == want).mean() >= CODES_EQUAL
+            assert (got == want).mean() >= codes_equal
             # one code apart, but for entries under 2^-16 of their
             # block's absmax (|code| <= SMALL_CODE), where the moments' own
             # last-bit differences (about 2^-20 of the leaf's largest
             # entry) are several code steps
             small = (np.abs(got) <= SMALL_CODE) & (np.abs(want) <= SMALL_CODE)
-            assert ((np.abs(got - want) <= 1) | small).all()
-            close(o.scale, t.scale, SCALE_RTOL)
+            apart += int(((np.abs(got - want) > 1) & ~small).sum())
+            total += got.size
+            close(o.scale, t.scale, scale_rtol)
         else:
-            close(o, t, MOMENT_RTOL)
+            close(o, t, moment_rtol)
+    assert apart <= (acc or 0.0) * total, (apart, total)
 
 
-def params_close(ours, theirs, quantized):
+def params_close(ours, theirs, quantized, lr_sum=None):
     """Each leaf within PARAM_RTOL of its max|ref|; after free-running
-    int8 steps, INT8_WITHIN of the entries so and all within INT8_WORST."""
+    int8 steps, INT8_WITHIN of the entries so and all within INT8_WORST.
+    With ``lr_sum`` (the FAMILIES; the summed lr of the steps the two
+    packages took apart): every entry within PARAM_RTOL of its leaf's
+    max|ref| plus LR_BAND · ``lr_sum``, but for at most FLIP_SHARE of all
+    entries, which with fp32 moments stay within twice ``lr_sum``."""
     mine = dict(jax.tree_util.tree_flatten_with_path(ours)[0])
+    if lr_sum is not None:
+        outside, total = 0, 0
+        for path, want in jax.tree_util.tree_flatten_with_path(theirs)[0]:
+            want = np.asarray(want)
+            err = np.abs(mine[path].detach().numpy() - want)
+            base = PARAM_RTOL * np.abs(want).max()
+            outside += int((err > base + LR_BAND * lr_sum).sum())
+            total += err.size
+            if not quantized:
+                assert err.max() <= base + 2 * lr_sum, path
+        assert outside <= FLIP_SHARE * total, (outside, total)
+        return
     for path, want in jax.tree_util.tree_flatten_with_path(theirs)[0]:
         if not quantized:
             close(mine[path], want, PARAM_RTOL)
@@ -189,10 +263,8 @@ def test_quantized_adam_tracks_fp32():
     for _ in range(10):
         g = {"w": torch.from_numpy(
             rng.standard_normal((64, 512)).astype(np.float32))}
-        uf, sf, _ = opt_f.update(g, sf, pf)
-        uq, sq, _ = opt_q.update(g, sq, pq)
-        pf["w"] += uf["w"]
-        pq["w"] += uq["w"]
+        sf, _ = opt_f.update(g, sf, pf)
+        sq, _ = opt_q.update(g, sq, pq)
     rel = float((pf["w"] - pq["w"]).norm() / (pf["w"] - w0).norm())
     assert rel < 0.10, rel
     assert isinstance(sq["m"]["w"], QTensor)
@@ -218,9 +290,13 @@ def test_cosine_schedule_matches_the_reference():
 
 # -------------------------------------------------------------- train step --
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_three_adamw_steps_match_the_reference(arch, quantized):
+    """Each step from the reference's state of that step; the FAMILIES'
+    parameters in AdamW's unit and xLSTM's grad-borne quantities at its
+    grads' accuracy (the module's note)."""
     (cfg, rp, ropt, rstep), (pcfg, _, popt, pstep) = setup(arch, quantized)
+    acc = GRAD_ACCURACY.get(arch)
     rs = ropt.init(rp)
     for i in range(3):
         batch = ref_batch(cfg, i)
@@ -233,11 +309,77 @@ def test_three_adamw_steps_match_the_reference(arch, quantized):
         assert abs(pm["loss"].item() - float(rm["loss"])) \
             <= LOSS_RTOL * abs(float(rm["loss"]))
         close(pm["lr"], rm["lr"], 1e-7)
-        close(pm["grad_norm"], rm["grad_norm"], 1e-5)
+        close(pm["grad_norm"], rm["grad_norm"], max(1e-5, acc or 0.0))
         assert int(ps["step"]) == int(rs["step"]) == i + 1
-        params_close(pp, rp, False)
-        assert_moments_match(ps["m"], rs["m"])
-        assert_moments_match(ps["v"], rs["v"])
+        params_close(pp, rp, False,
+                     float(rm["lr"]) if arch in FAMILIES else None)
+        assert_moments_match(ps["m"], rs["m"], acc)
+        assert_moments_match(ps["v"], rs["v"], acc)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_adamw_update_is_the_same_in_row_chunks(monkeypatch, quantized,
+                                                dtype):
+    """The in-place update, a leaf's rows a chunk at a time (CHUNK_ELEMS
+    cut to 700 elements: several chunks a leaf, a row of 1000 alone), gives
+    the parameters and moments of one chunk a leaf bit for bit over three
+    steps."""
+    from repro_torch.train import optim
+    gen = torch.Generator().manual_seed(0)
+
+    def tree():
+        return {"a": torch.randn((3, 5, 300), generator=gen).to(dtype),
+                "b": torch.randn(7, generator=gen).to(dtype),
+                "c": {"d": torch.randn((4, 1000), generator=gen).to(dtype)}}
+
+    params = tree()
+    twin = jax.tree.map(torch.clone, params)
+    opt = adamw(cosine_schedule(1e-3, warmup=1, total=5),
+                quantized=quantized)
+    state, twin_state = opt.init(params), opt.init(twin)
+    for _ in range(3):
+        grads = tree()
+        state, metrics = opt.update(grads, state, params)
+        with monkeypatch.context() as m:
+            m.setattr(optim, "CHUNK_ELEMS", 700)
+            twin_state, twin_metrics = opt.update(grads, twin_state, twin)
+        assert torch.equal(metrics["grad_norm"], twin_metrics["grad_norm"])
+    assert int(state["step"]) == int(twin_state["step"]) == 3
+    for a, b in zip(tree_leaves(params), tree_leaves(twin)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves({"m": state["m"], "v": state["v"]}),
+                    tree_leaves({"m": twin_state["m"],
+                                 "v": twin_state["v"]})):
+        assert all(torch.equal(x, y) for x, y in zip(
+            *((a, b) if isinstance(a, QTensor) else ((a,), (b,)))))
+
+
+def test_a_step_frees_its_grads_without_the_cyclic_collector():
+    """With the cyclic garbage collector off, nothing of a step's grads
+    outlives the optimizer's update: ``tree_unflatten`` holds no reference
+    cycle (a nested self-recursive helper kept the grads until a
+    collection: on the card a whole grad tree a step, until memory ran
+    out)."""
+    cfg = configs.get_smoke("llama3.2-1b")
+    opt = adamw(cosine_schedule(3e-4, warmup=2, total=10))
+    params = init_lm(0, cfg, device=CPU)
+    state = opt.init(params)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    batch = port_batch(ref_batch(rconfigs.get_smoke("llama3.2-1b"), 0))
+    grads = torch.autograd.grad(lm_loss(params, cfg, batch)[0], leaves)
+    refs = [weakref.ref(g) for g in grads]
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.no_grad():
+            opt.update(tree_unflatten(params, grads), state, params)
+        del grads
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_three_free_adamw_steps_match_the_reference():
@@ -417,12 +559,13 @@ def test_checkpoint_uses_the_reference_format(tmp_path):
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
-def test_reference_checkpoint_restores_into_the_port(tmp_path, quantized):
+@pytest.mark.parametrize("arch", ["llama3.2-1b"] + FAMILIES)
+def test_reference_checkpoint_restores_into_the_port(tmp_path, arch,
+                                                     quantized):
     """The reference trains two steps and saves; the port restores (bit for
     bit) and trains two more, matching the reference's own four steps
     (``params_close``)."""
-    (cfg, rp, ropt, rstep), (pcfg, pp, popt, pstep) = setup(
-        "llama3.2-1b", quantized)
+    (cfg, rp, ropt, rstep), (pcfg, pp, popt, pstep) = setup(arch, quantized)
     batches = [ref_batch(cfg, i) for i in range(4)]
     rs = ropt.init(rp)
     for i in range(2):
@@ -440,21 +583,25 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path, quantized):
     for a, b in zip(tree_leaves(opt_state), tree_leaves(moments)):
         assert all(torch.equal(x, y) for x, y in zip(
             *((a, b) if isinstance(a, QTensor) else ((a,), (b,)))))
+    lr_sum = 0.0
     for i in range(2, 4):
-        rp, rs, _ = rstep(rp, rs, {k: jnp.asarray(v)
-                                   for k, v in batches[i].items()})
+        rp, rs, rm = rstep(rp, rs, {k: jnp.asarray(v)
+                                    for k, v in batches[i].items()})
         params, opt_state, _ = pstep(params, opt_state,
                                      port_batch(batches[i]))
-    params_close(params, rp, quantized)
+        lr_sum += float(rm["lr"])
+    params_close(params, rp, quantized,
+                 lr_sum if arch in FAMILIES else None)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
-def test_port_checkpoint_restores_into_the_reference(tmp_path, quantized):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + FAMILIES)
+def test_port_checkpoint_restores_into_the_reference(tmp_path, arch,
+                                                     quantized):
     """The port trains two steps and saves; the reference restores (bit for
     bit) and trains two more, matching the port's own four steps
     (``params_close``)."""
-    (cfg, rp, ropt, rstep), (pcfg, pp, popt, pstep) = setup(
-        "qwen3-0.6b", quantized)
+    (cfg, rp, ropt, rstep), (pcfg, pp, popt, pstep) = setup(arch, quantized)
     batches = [ref_batch(cfg, i) for i in range(4)]
     ps = popt.init(pp)
     for i in range(2):
@@ -470,11 +617,13 @@ def test_port_checkpoint_restores_into_the_reference(tmp_path, quantized):
                     jax.tree.leaves({"params": want_p, "opt": want_s})):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     rp, rs = state["params"], state["opt"]
+    lr_sum = 0.0
     for i in range(2, 4):
-        rp, rs, _ = rstep(rp, rs, {k: jnp.asarray(v)
-                                   for k, v in batches[i].items()})
+        rp, rs, rm = rstep(rp, rs, {k: jnp.asarray(v)
+                                    for k, v in batches[i].items()})
         pp, ps, _ = pstep(pp, ps, port_batch(batches[i]))
-    params_close(pp, rp, quantized)
+        lr_sum += float(rm["lr"])
+    params_close(pp, rp, quantized, lr_sum if arch in FAMILIES else None)
 
 
 def test_weights_and_opt_state_carry_both_ways():
