@@ -5,22 +5,31 @@ Port of ``src/repro/models/attention.py``: ``naive_attention``,
 ``_pos_vec``, ``gqa_decode``, and MLA (DeepSeek's multi-head latent
 attention): ``init_mla``, ``_mla_qkr``, ``mla_forward`` and ``mla_decode``.
 Activations keep the reference's
-``(B, S, H, hd)`` layout.  Two of the reference's implementations of the
-attention core are ported:
+``(B, S, H, hd)`` layout.  The reference's four implementations of the
+attention core (``impl``):
 
-  naive    full ``(Sq, Sk)`` scores in plain PyTorch — the oracle, and the
-           decode path (per-row lengths), as the reference runs it in XLA.
-  chunked  the reference's default, its XLA twin of the Pallas flash
-           kernel; here the hand-written CUDA kernel
-           (``kernels/flash_attention.py``), which reads q, k and v as
-           permuted views.  On CPU tensors it runs its plain version.
-           When grad is enabled and an input needs it, it runs through
-           ``FlashAttentionFn``, the port of the reference's
-           ``flash_attention_xla`` custom_vjp: the forward kernel saves the
-           LSE and the backward kernel recomputes the scores.
+  naive         full ``(Sq, Sk)`` scores in plain PyTorch — the oracle, and
+                the decode path (per-row lengths), as the reference runs it
+                in XLA.
+  chunked       the reference's default, its XLA twin of the Pallas flash
+                kernel; here the hand-written CUDA kernel
+                (``kernels/flash_attention.py``), which reads q, k and v as
+                permuted views.  On CPU tensors it runs its plain version.
+                When grad is enabled and an input needs it, it runs through
+                ``FlashAttentionFn``, the port of the reference's
+                ``flash_attention_xla`` custom_vjp: the forward kernel saves
+                the LSE and the backward kernel recomputes the scores.
+  chunked_scan  ``chunked_attention``: the online softmax over key chunks
+                of 512, in plain PyTorch (the reference's ``lax.scan``, a
+                loop here); differentiable by autograd.
+  tri           ``tri_attention``: causal prefill over the chunks at or
+                below the diagonal only, in plain PyTorch; an inference
+                path, as in the reference (not reverse-differentiable
+                there), so it raises under autograd.
 
-``tri`` and ``chunked_scan`` compute the same function and are not ported
-(ROADMAP queue 1 item 10).
+No Pallas kernel stands behind ``chunked_scan`` or ``tri`` in the
+reference: both are XLA realizations of the same function, ported as
+plain PyTorch.
 
 MLA projects q through a rank-``q_lora`` bottleneck and k, v through a
 shared rank-``kv_lora`` latent ``ckv`` plus one rope key ``kr`` shared by
@@ -90,14 +99,115 @@ def flash_chunked_attention(q, k, v, *, causal: bool, offset: int = 0,
     return out.transpose(1, 2)
 
 
-ATTN_IMPLS = {"naive": naive_attention, "chunked": flash_chunked_attention}
+def _online_step(qs, kb, vb, keep, m, l, acc, scores, context):
+    """One key chunk of the online softmax: scores ``einsum(scores, qs,
+    kb)`` masked to ``NEG`` outside ``keep``, the running max ``m``, sum
+    ``l`` and output ``acc`` rescaled and updated."""
+    s = torch.einsum(scores, qs, wide(kb))
+    if keep is not None:
+        s = torch.where(keep, s, NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(context, p, wide(vb))
+    return m_new, l, acc
+
+
+def chunked_attention(q, k, v, *, causal: bool, offset: int = 0,
+                      scale: float | None = None, chunk: int = 512):
+    """Online softmax over key chunks of ``min(chunk, Sk)`` (``Sk`` a
+    multiple of it), at all H heads (k and v repeated over each group, as
+    the reference's ``chunked_attention`` does); fp32 (``wide``), rows
+    whose sum is 0 divided by 1.  Differentiable by autograd."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = scale or 1.0 / math.sqrt(hd)
+    chunk = min(chunk, Sk)
+    if Sk % chunk:
+        raise ValueError(f"chunked_scan: Sk = {Sk} is not a multiple of "
+                         f"its chunk {chunk}")
+    dv = v.shape[-1]
+    qf = wide(q) * scale
+    if group > 1:
+        k = k.repeat_interleave(group, 2)
+        v = v.repeat_interleave(group, 2)
+    qpos = torch.arange(Sq, device=q.device) + offset
+    acc_t = qf.dtype
+    m = torch.full((B, H, Sq), -math.inf, dtype=acc_t, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=acc_t, device=q.device)
+    acc = torch.zeros((B, H, Sq, dv), dtype=acc_t, device=q.device)
+    for c0 in range(0, Sk, chunk):
+        keep = None
+        if causal:
+            kpos = c0 + torch.arange(chunk, device=q.device)
+            keep = kpos[None, :] <= qpos[:, None]
+        m, l, acc = _online_step(qf, k[:, c0:c0 + chunk],
+                                 v[:, c0:c0 + chunk], keep, m, l, acc,
+                                 "bqhd,bkhd->bhqk", "bhqk,bkhd->bhqd")
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def tri_attention(q, k, v, *, causal: bool = True, offset: int = 0,
+                  scale: float | None = None, chunk: int = 512):
+    """Causal prefill in query chunks of ``min(chunk, Sq, Sk)`` (dividing
+    both), each visiting only the key chunks at or below its diagonal
+    (``(qi·chunk + chunk - 1 + offset) // chunk + 1`` of them, at most
+    all): about half the products of a full pass at long prompts.  GQA
+    groups stay grouped; fp32 (``wide``), rows whose sum is 0 divided by
+    1.  Causal only (``causal`` is the cores' signature).  Inference only,
+    as the reference's (``fori_loop`` over a dynamic bound, not
+    reverse-differentiable): raises under autograd."""
+    if not causal:
+        raise ValueError("tri attention is causal only")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("tri attention is an inference path (the "
+                           "reference's is not reverse-differentiable): "
+                           "train with impl='chunked' or 'chunked_scan'")
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = scale or 1.0 / math.sqrt(hd)
+    chunk = min(chunk, Sq, Sk)
+    if Sq % chunk or Sk % chunk:
+        raise ValueError(f"tri: Sq = {Sq} and Sk = {Sk} must be multiples "
+                         f"of their chunk {chunk}")
+    nkc = Sk // chunk
+    dv = v.shape[-1]
+    qf = (wide(q) * scale).reshape(B, Sq, Hkv, group, hd)
+    acc_t, dev = qf.dtype, q.device
+    outs = []
+    for q0 in range(0, Sq, chunk):
+        qb = qf[:, q0:q0 + chunk]
+        qpos = q0 + torch.arange(chunk, device=dev) + offset
+        m = torch.full((B, Hkv, group, chunk), -math.inf, dtype=acc_t,
+                       device=dev)
+        l = torch.zeros((B, Hkv, group, chunk), dtype=acc_t, device=dev)
+        acc = torch.zeros((B, Hkv, group, chunk, dv), dtype=acc_t,
+                          device=dev)
+        diag = min((q0 + chunk - 1 + offset) // chunk + 1, nkc)
+        for ci in range(diag):
+            kpos = ci * chunk + torch.arange(chunk, device=dev)
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            m, l, acc = _online_step(qb, k[:, sl], v[:, sl],
+                                     kpos[None, :] <= qpos[:, None], m, l,
+                                     acc, "bqhgd,bkhd->bhgqk",
+                                     "bhgqk,bkhd->bhgqd")
+        out = acc / torch.where(l == 0, 1.0, l)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, chunk, H, dv))
+    return torch.cat(outs, 1).to(q.dtype)
+
+
+ATTN_IMPLS = {"naive": naive_attention, "chunked": flash_chunked_attention,
+              "chunked_scan": chunked_attention, "tri": tri_attention}
 
 
 def attention_impl(impl: str):
     if impl not in ATTN_IMPLS:
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported (ROADMAP queue 1 item "
-            f"10); the port has {', '.join(ATTN_IMPLS)}")
+        raise ValueError(f"unknown attention impl {impl!r}; the port has "
+                         f"{', '.join(ATTN_IMPLS)}")
     return ATTN_IMPLS[impl]
 
 
@@ -222,7 +332,8 @@ def mla_attend(params, x, qn, qr, ckv, kr, cfg, *, impl="chunked",
 
 def mla_forward(params, x, positions, cfg, *, impl="chunked", offset=0):
     """Training / prefill MLA: decompress per-head k and v, then standard
-    attention (``impl``: ``chunked``, the flash kernel, or ``naive``)."""
+    attention (``impl``: ``chunked``, the flash kernel; ``naive``,
+    ``chunked_scan`` or ``tri``, plain PyTorch)."""
     qn, qr, ckv, kr = _mla_qkr(params, x, positions, cfg)
     return mla_attend(params, x, qn, qr, ckv, kr, cfg, impl=impl,
                       offset=offset)

@@ -1,12 +1,12 @@
 """Shared LM building blocks: norms, RoPE, dense MLP, init.
 
 Port of ``src/repro/models/layers.py`` (``dot``, ``rms_norm``,
-``head_rms_norm``, ``rope``, ``mlp_apply``, ``causal_mask``,
-``cross_entropy``, ``init_linear``, ``init_mlp``).  Parameters are plain
-nested dicts of tensors, stacked per stage on a leading layer axis as in
-the reference (``transformer._init_stage`` stacks them, in place of the
-reference's ``stack_params``).  Norms and the MLP's gate run in
-fp32 and cast back.
+``head_rms_norm``, ``rope``, ``sinusoidal_pos``, ``mlp_apply``,
+``causal_mask``, ``cross_entropy``, ``init_linear``, ``init_mlp``).
+Parameters are plain nested dicts of tensors, stacked per stage on a
+leading layer axis as in the reference (``transformer._init_stage``
+stacks them, in place of the reference's ``stack_params``).  Norms and
+the MLP's gate run in fp32 and cast back.
 
 ``dot`` returns fp32, as the reference's ``preferred_element_type``
 does (float64 operands stay float64: ``wide``, the compute dtype of
@@ -145,6 +145,28 @@ def rope(x, positions, theta: float = 10_000.0):
     x1, x2 = wide(x[..., :half]), wide(x[..., half:])
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
+    """The sinusoidal position table ``(..., d_model)`` of integer
+    ``positions`` ``(...)``: the sin half, then the cos half, at
+    frequencies ``1e-4 ** (i / half)``, in ``dtype`` (fp32 as the
+    reference computes it; float64 for a float64 model).  The fp32
+    frequencies are the fp32 power rounded once from float64: the
+    reference's at musicgen's widths, where ``torch.pow`` in fp32 is an
+    ulp off at some ``i`` (an ulp of a frequency moves the angle at
+    position 2048 by up to 1.2e-4)."""
+    half = d_model // 2
+    dev = positions.device
+    if dtype == torch.float64:
+        exps = torch.arange(half, dtype=dtype, device=dev) / half
+        freqs = torch.pow(1e-4, exps)
+    else:
+        exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+        base = float(torch.tensor(1e-4, dtype=torch.float32))
+        freqs = torch.pow(base, exps.double()).to(dtype)
+    ang = positions[..., None].to(dtype) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
 def mlp_apply(params, x, act: str = "swiglu"):

@@ -1,8 +1,9 @@
 """Decoder-only LM assembled from a block pattern.
 
-Port of ``src/repro/models/transformer.py`` (``build_stages``, ``init_lm``,
-``_attn_block`` with the ``mlp`` variant, ``_rec_block``, ``lm_forward``,
-``lm_loss``, ``init_caches``, ``lm_decode_step``, ``_decode_stage``,
+Port of ``src/repro/models/transformer.py`` (``_embed``, ``build_stages``,
+``init_lm``, ``_attn_block`` with the ``mlp`` variant, ``_rec_block``,
+``lm_forward``, ``lm_loss``, ``init_caches``, ``lm_decode_step``,
+``_decode_stage``,
 ``lm_prefill``; the reference's ``_forward_shared``, ``_decode_shared``
 and ``_prefill_shared`` walk one schedule, ``_super_steps`` here).  Block
 kinds: attention (GQA or MLA) with an MLP or a mixture of experts (the
@@ -14,17 +15,21 @@ every ``shared_attn_every`` backbone blocks, super-step ``idx``).
 Parameters and caches keep the reference's tree: each stage's layers are
 stacked on a leading axis; ``lax.scan`` over a stage becomes a Python loop
 over its layers.  MLA caches hold the latent ``ckv`` and the rope key
-``kr`` per position, GQA's K and V.  Input embeddings fed from outside
-(``embed_inputs=False``) and sinusoidal positions raise
-``NotImplementedError`` (ROADMAP queue 1 item 10); ``lm_forward`` and
-``lm_prefill`` therefore take tokens only, and positions ``0..S-1``.
-The MoE blocks' load-balancing losses sum into ``lm_forward``'s aux.
+``kr`` per position, GQA's K and V.  ``lm_forward``, ``lm_prefill`` and
+``lm_loss`` take token ids or embeddings fed from outside (``embeds``
+``(b, S, d_model)``, cast to the embedding table's dtype: the frontend
+stubs of chameleon's image patches and musicgen's audio frames,
+``embed_inputs=False``); sinusoidal positions (musicgen) are added to the
+input rows in fp32 and rounded once, in a prefill at ``0..S-1`` and in a
+decode step at each row's own length.  The MoE blocks' load-balancing
+losses sum into ``lm_forward``'s aux.
 
 ``impl`` picks the attention core (``chunked``: the flash kernel;
-``naive``), ``rec_impl`` the recurrences' form in a forward or a prefill
-(``chunked`` or ``seq``); a decode step runs them as ``seq``, one token,
-as the reference does.  Recurrent states are fp32 caches (the conv tails
-in the model dtype).
+``naive``, ``chunked_scan`` or ``tri``: plain PyTorch,
+``models/attention.py``), ``rec_impl`` the recurrences' form in a
+forward or a prefill (``chunked`` or ``seq``); a decode step runs them as
+``seq``, one token, as the reference does.  Recurrent states are fp32
+caches (the conv tails in the model dtype).
 
 ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
 reference wraps each scanned block in ``jax.checkpoint``).  A ``mesh``
@@ -32,10 +37,12 @@ reference wraps each scanned block in ``jax.checkpoint``).  A ``mesh``
 6).
 
 Differences from the reference: ``impl`` is an argument only (no
-``REPRO_ATTN_IMPL`` override); ``lm_prefill`` projects q, k and v once and
-feeds both the attention and the cache from that projection (the
-reference projects twice, to the same values) and defaults to ``chunked``,
-the flash kernel (the reference's default ``tri`` is not ported); decode
+``REPRO_ATTN_IMPL`` override); ``lm_forward`` takes no ``positions`` (they
+are ``0..S-1``, the reference's default); ``lm_prefill`` projects q, k
+and v once and feeds both the attention and the cache from that
+projection (the reference projects twice, to the same values) and
+defaults to ``chunked``, the flash kernel (the reference's default is
+``tri``, its plain prefill schedule); decode
 and prefill write the caches in place (K/V rows and recurrent states
 alike) and decode returns the same dict.  ``init_lm`` draws each layer in
 turn and writes it into stacked leaves allocated once (``_init_stage``),
@@ -47,13 +54,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
-from repro_torch.models.attention import (_mla_qkr, gqa_attend, gqa_decode,
-                                          gqa_project, init_gqa, init_mla,
-                                          mla_attend, mla_decode)
+from repro_torch.models.attention import (_mla_qkr, _pos_vec, gqa_attend,
+                                          gqa_decode, gqa_project, init_gqa,
+                                          init_mla, mla_attend, mla_decode)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, dot, dtype_of,
                                        init_linear, init_mlp, mlp_apply,
-                                       normal, rms_norm, unbind_params)
+                                       normal, rms_norm, sinusoidal_pos,
+                                       unbind_params, wide)
 from repro_torch.models.moe import init_moe, moe_apply
 
 REC_KINDS = ("mamba2", "mlstm", "slstm")
@@ -62,6 +70,28 @@ _INIT_REC = {"mamba2": ssm.init_mamba2, "mlstm": ssm.init_mlstm,
 _REC_STATE = {"mamba2": ssm.mamba2_init_state,
               "mlstm": ssm.mlstm_init_state,
               "slstm": ssm.slstm_init_state}
+
+
+def _embed(params, cfg, tokens, embeds, positions):
+    """The input rows: the embedding table's rows of ``tokens``, or
+    ``embeds`` cast to its dtype; sinusoidal positions added in fp32
+    (``wide``) and rounded once to that dtype."""
+    x = params["embed"][tokens] if embeds is None \
+        else embeds.to(params["embed"].dtype)
+    if cfg.pos_emb == "sinusoidal":
+        xf = wide(x)
+        x = (xf + sinusoidal_pos(positions, cfg.d_model, xf.dtype)).to(
+            x.dtype)
+    return x
+
+
+def _inputs(tokens, embeds):
+    """``(b, S, device)`` of whichever input is given; exactly one must
+    be."""
+    if (tokens is None) == (embeds is None):
+        raise ValueError("give tokens or embeds, not both or neither")
+    t = tokens if embeds is None else embeds
+    return t.shape[0], t.shape[1], t.device
 
 
 # ==================================================================== plan ==
@@ -89,24 +119,20 @@ def build_stages(cfg: ModelConfig):
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every stage is an attention block (GQA or MLA) with an
     MLP or a mixture of experts, or a recurrent block (mamba2, mlstm,
-    slstm), with or without shared blocks, on token inputs and rope (or
-    no) positions."""
+    slstm), with or without shared blocks: the reference's block
+    kinds."""
     what = []
-    if not cfg.embed_inputs:
-        what.append("embed_inputs=False")
-    if cfg.pos_emb == "sinusoidal":
-        what.append("pos_emb=sinusoidal")
     if cfg.attn_type not in ("gqa", "mla"):
         what.append(f"attn_type={cfg.attn_type}")
     for kind, _, _ in build_stages(cfg):
         if kind != "attn" and kind not in REC_KINDS:
             what.append(kind)
     if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(set(what)))} not ported "
-            f"(ROADMAP queue 1 item 10); the port runs GQA and MLA "
-            f"attention with an MLP or MoE, mamba2, mlstm and slstm "
-            f"blocks, and shared blocks")
+        raise ValueError(
+            f"{cfg.name}: {', '.join(sorted(set(what)))} is not a block "
+            f"of the reference; the port runs GQA and MLA attention with "
+            f"an MLP or MoE, mamba2, mlstm and slstm blocks, and shared "
+            f"blocks")
 
 
 def _dense_ff(cfg):
@@ -276,18 +302,18 @@ def _block_out(p, x, positions, cfg, kind, impl, rec_impl):
     return _rec_block(p, x, cfg, kind, impl=rec_impl)[0], 0.0
 
 
-def lm_forward(params, cfg: ModelConfig, tokens, *, impl="chunked",
-               rec_impl="chunked", remat=False):
-    """Full-sequence forward over tokens ``(b, S)``.  Returns ``(logits
-    (b, S, V) fp32, aux)``; aux is the MoE blocks' load-balancing losses
-    summed over the layers (fp32), 0.0 for a model without experts.
-    ``remat``: each layer (and each shared block) runs under
-    ``torch.utils.checkpoint`` (its activations recomputed in the
-    backward, its input saved)."""
+def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
+               impl="chunked", rec_impl="chunked", remat=False):
+    """Full-sequence forward over tokens ``(b, S)`` or embeddings ``(b, S,
+    d_model)``.  Returns ``(logits (b, S, V) fp32, aux)``; aux is the MoE
+    blocks' load-balancing losses summed over the layers (fp32), 0.0 for a
+    model without experts.  ``remat``: each layer (and each shared block)
+    runs under ``torch.utils.checkpoint`` (its activations recomputed in
+    the backward, its input saved)."""
     check_supported(cfg)
-    b, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
-    x = params["embed"][tokens]
+    b, S, dev = _inputs(tokens, embeds)
+    positions = torch.arange(S, device=dev)[None].expand(b, S)
+    x = _embed(params, cfg, tokens, embeds, positions)
     aux = 0.0
 
     def run(p, x, kind):
@@ -322,16 +348,13 @@ def check_single_device(mesh) -> None:
 # ==================================================================== loss ==
 def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
             rec_impl="chunked", remat=False, aux_weight=1e-2):
-    """Next-token loss of ``batch = {"tokens", "labels"}`` (labels ``-1``
-    ignored): ``(loss, {"ce", "aux"})`` with ``loss = ce + aux_weight ·
-    aux``.  The reference's mesh axes (``dp_axes``, ``model_axis``) have no
-    counterpart on one device."""
+    """Next-token loss of ``batch = {"tokens" or "embeds", "labels"}``
+    (labels ``-1`` ignored): ``(loss, {"ce", "aux"})`` with ``loss = ce +
+    aux_weight · aux``.  The reference's mesh axes (``dp_axes``,
+    ``model_axis``) have no counterpart on one device."""
     check_single_device(mesh)
-    if batch.get("embeds") is not None:
-        raise NotImplementedError("embeddings fed from outside (batch "
-                                  "\"embeds\") are not ported (ROADMAP "
-                                  "queue 1 item 10)")
-    logits, aux = lm_forward(params, cfg, batch["tokens"], impl=impl,
+    logits, aux = lm_forward(params, cfg, batch.get("tokens"),
+                             batch.get("embeds"), impl=impl,
                              rec_impl=rec_impl, remat=remat)
     ce = cross_entropy(logits, batch["labels"])
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
@@ -392,10 +415,11 @@ def _store(stage_cache, li, state) -> None:
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length):
     """One decode step.  tokens ``(b,)``; length int or ``(b,)`` (current
-    context size).  Writes the caches in place; returns ``(logits (b, V),
-    caches)``."""
+    context size, each row's position).  Writes the caches in place;
+    returns ``(logits (b, V), caches)``."""
     check_supported(cfg)
-    x = params["embed"][tokens[:, None]]                        # (b, 1, d)
+    positions = _pos_vec(length, tokens.shape[0], tokens.device)
+    x = _embed(params, cfg, tokens[:, None], None, positions)   # (b, 1, d)
     if cfg.shared_attn_every:
         for idx, kind, layers, shared in _super_steps(params, cfg):
             for li, p in layers:
@@ -432,10 +456,11 @@ def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
     return x + _ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), cfg)[0]
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
-               impl="chunked", rec_impl="chunked", last_index=None):
-    """Prefill: forward over the prompt tokens ``(b, S)``, filling fresh
-    decode caches.
+def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
+               max_len: int, impl="chunked", rec_impl="chunked",
+               last_index=None):
+    """Prefill: forward over the prompt, tokens ``(b, S)`` or embeddings
+    ``(b, S, d_model)``, filling fresh decode caches.
 
     Returns ``(last_logits (b, V), caches, length)``.  Cache layout as
     ``init_caches``; K/V (MLA: ckv/kr) are written at positions ``[0,
@@ -447,10 +472,9 @@ def lm_prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
     length); ``length`` is then ``last_index + 1``, else ``S``.
     """
     check_supported(cfg)
-    b, S = tokens.shape
-    dev = tokens.device
+    b, S, dev = _inputs(tokens, embeds)
     positions = torch.arange(S, device=dev)[None].expand(b, S)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, embeds, positions)
     caches = init_caches(cfg, b, max_len, params["embed"].dtype,
                          device=dev)
 

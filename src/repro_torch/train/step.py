@@ -21,12 +21,34 @@ from repro_torch.models.transformer import check_single_device, lm_loss
 from repro_torch.train.optim import tree_leaves, tree_unflatten
 
 
+def unread_leaf(params, cfg, batch):
+    """The leaf that ``lm_loss`` does not read on ``batch``: the embedding
+    table when the batch carries ``"embeds"`` and the head is a leaf of its
+    own; else None."""
+    if "embeds" in batch and not cfg.tie_embeddings:
+        return params["embed"]
+    return None
+
+
+def leaf_grads(loss, leaves, unread=None):
+    """``torch.autograd.grad(loss, leaves)``, where the leaf ``unread`` is
+    left out of the call and gets zeros, as ``jax.grad`` gives it.  Any
+    other leaf that the loss does not reach raises."""
+    got = iter(torch.autograd.grad(
+        loss, [p for p in leaves if p is not unread]))
+    return [torch.zeros_like(p) if p is unread else next(got)
+            for p in leaves]
+
+
 def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
                      microbatches: int = 1, impl="chunked", aux_weight=1e-2):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``batch`` = ``{"tokens", "labels"}`` with a leading
-    global-batch dim; with ``microbatches > 1`` it is split on dim 0 and the
-    grads are accumulated in fp32, then divided by the count.  ``metrics``:
+    metrics)``.  ``batch`` = ``{"tokens" or "embeds", "labels"}`` with a
+    leading global-batch dim (``"embeds"``: ``(b, S, d_model)`` fed from
+    outside, for ``embed_inputs=False`` archs, whose untied table then
+    gets zero grads: ``leaf_grads``); with ``microbatches > 1``
+    it is split on dim 0 and the grads are accumulated in fp32, then
+    divided by the count.  ``metrics``:
     ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d tensors on the
     parameters' device; ``lr`` as the optimizer gives it).  A ``mesh``
     raises ``NotImplementedError``; the reference's mesh axes have no
@@ -36,7 +58,7 @@ def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
     def loss_and_grads(params, leaves, batch):
         loss, parts = lm_loss(params, cfg, batch, impl=impl, remat=remat,
                               aux_weight=aux_weight)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = leaf_grads(loss, leaves, unread_leaf(params, cfg, batch))
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 grads)
 

@@ -184,7 +184,11 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.frontend, repro_torch.gnncv.torch_tasks, "
             "repro_torch.gnncv.gnn_zoo, repro_torch.kernels.ops, "
             "repro_torch.train, repro_torch.data, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, "
+            "repro_torch.configs.qwen2_72b, "
+            "repro_torch.configs.codeqwen1_5_7b, "
+            "repro_torch.configs.chameleon_34b, "
+            "repro_torch.configs.musicgen_medium\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -187,6 +187,22 @@ FLASH_BWD = [(8, 32, 8, 128, 128, 64, True), (1, 16, 8, 2048, 2048, 128, True),
              (2, 4, 1, 150, 90, 128, True), (1, 8, 8, 1, 200, 128, True)]
 
 
+# The last four dense archs' attention: group 1 (MHA) under (128, 128) at
+# codeqwen1.5-7b's 32/32 heads and under (64, 64) at musicgen-medium's
+# 24/24, and qwen2-72b's and chameleon-34b's 64/8 heads of 128, at a served
+# bucket and 2048 tokens; the backward at the training shapes (batch 8 x
+# 128) and 64/8 at 256 tokens
+FLASH_DENSE = [(1, 32, 32, 48, 48, 128, True),
+               (1, 32, 32, 2048, 2048, 128, True),
+               (1, 24, 24, 32, 32, 64, True),
+               (1, 24, 24, 2048, 2048, 64, True),
+               (1, 64, 8, 16, 16, 128, True),
+               (1, 64, 8, 2048, 2048, 128, True)]
+FLASH_DENSE_BWD = [(8, 24, 24, 128, 128, 64, True),
+                   (8, 32, 32, 128, 128, 128, True),
+                   (1, 64, 8, 256, 256, 128, True)]
+
+
 def flash_inputs(b, hq, hkv, sq, sk, d, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
@@ -837,7 +853,8 @@ def test_cuda_gnn_zoo_runs_through_the_kernels(cuda, model,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("case", FLASH_CASES + FLASH_SERVED, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_SERVED + FLASH_DENSE,
+                         ids=str)
 def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     b, hq, hkv, sq, sk, d, causal = case
     q, k, v = (t(a).to(cuda, dtype) for a in flash_inputs(*case[:6]))
@@ -1047,6 +1064,76 @@ def test_cuda_moe_smoke_serve_runs_through_the_kernel(cuda):
             logits, aux = lm_forward(params, cfg, toks[None], impl="naive")
             assert aux.item() > 0
             assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["tri", "chunked_scan"])
+@pytest.mark.parametrize("shape", [(2, 64, 8, 2, 32, 16),
+                                   (1, 2048, 32, 32, 128, 512)], ids=str)
+def test_cuda_plain_attention_cores_match_naive(cuda, shape, impl):
+    """The plain ``tri`` and ``chunked_scan`` cores on the card in fp32
+    (several chunks; codeqwen1.5-7b's heads at 2048 tokens), causal,
+    within RTOL of the naive core; a continuation (Sq < Sk) too."""
+    from repro_torch.models.attention import ATTN_IMPLS, naive_attention
+    b, s, hq, hkv, d, chunk = shape
+    rng = np.random.default_rng(s)
+    q, k, v = (t(rng.standard_normal(sh).astype(np.float32)).to(cuda)
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    core = ATTN_IMPLS[impl]
+    with torch.no_grad():
+        for qs, off in ((q, 0), (q[:, s // 2:], s // 2)):
+            got = core(qs, k, v, causal=True, offset=off)
+            want = naive_attention(qs, k, v, causal=True, offset=off)
+            assert got.shape == want.shape and got.device == q.device
+            close(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-72b", "codeqwen1.5-7b",
+                                  "chameleon-34b", "musicgen-medium"])
+def test_cuda_dense_smoke_serve_runs_through_the_kernel(cuda, arch):
+    """The last four dense archs' fp32 smoke configs on the card: every
+    served prefill launches the kernel once a layer and the tokens equal
+    greedy decoding of the plain path's full forward; chameleon's and
+    musicgen's prefill from embeddings through the kernel within 1e-4 of
+    the plain path's, and a decode step from it at each row's length."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic_embeds
+    from repro_torch.models.transformer import (init_lm, lm_decode_step,
+                                                lm_forward, lm_prefill)
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get_smoke(arch)
+    params = init_lm(0, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 9, 20)]
+    eng = ServeEngine(cfg, params, slots=2, max_len=64)
+    before = flash_attention.launches
+    reqs = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == len(prompts) * cfg.n_layers
+    for r in reqs:
+        toks = torch.as_tensor(np.concatenate([r.prompt, r.out[:-1]]),
+                               device=cuda)
+        logits, _ = lm_forward(params, cfg, toks[None], impl="naive")
+        assert r.out == logits[0, len(r.prompt) - 1:].argmax(-1).tolist()
+    if cfg.embed_inputs:
+        return
+    x = synthetic_embeds(3, 2, 16, cfg.d_model, device=cuda)
+    last = torch.tensor([9, 15], device=cuda)
+    runs = []
+    for impl in ("chunked", "naive"):
+        before = flash_attention.launches
+        logits, cache, length = lm_prefill(params, cfg, embeds=x, max_len=32,
+                                           impl=impl, last_index=last)
+        launched = flash_attention.launches - before
+        step, _ = lm_decode_step(params, cfg, logits.argmax(-1), cache,
+                                 length)
+        runs.append((logits, step, launched))
+    (lk, sk, nk), (lp, sp, npl) = runs
+    assert (nk, npl) == (cfg.n_layers, 0)
+    close(lk.cpu(), lp.cpu(), rtol=1e-4)
+    close(sk.cpu(), sp.cpu(), rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -1482,7 +1569,7 @@ def bwd_operands(case, dtype, dev, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("case", FLASH_BWD, ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD + FLASH_DENSE_BWD, ids=str)
 def test_cuda_flash_bwd_matches_plain(cuda, case, dtype):
     """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on
     the same q, k, v, out, lse and dout: within RTOL of each max|plain| in

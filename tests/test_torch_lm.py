@@ -8,9 +8,13 @@ arithmetic, summed in another order), and the port's ``ServeEngine`` must
 emit exactly the reference engine's tokens on the request sets of
 ``tests/test_serve.py`` (a shorter set for the recurrent archs, whose
 reference engine compiles a prefill per exact prompt length).  The dense
-GQA archs (``ARCHS``) and the recurrent family (``REC_ARCHS``: zamba2's
-Mamba2 backbone with shared GQA blocks, xLSTM's mLSTM and sLSTM) go
-through the same tests wherever a test applies to both (``ALL``).
+GQA archs (``ARCHS``: qwen2 and codeqwen with their qkv biases, drawn
+non-zero from a seed in both packages, as the reference's ``init_gqa``
+draws them as zeros; chameleon with qk-norm and musicgen with sinusoidal
+positions and the gelu MLP, both fed token ids here and embeddings in
+``tests/test_torch_embeds.py``) and the recurrent family (``REC_ARCHS``:
+zamba2's Mamba2 backbone with shared GQA blocks, xLSTM's mLSTM and sLSTM)
+go through the same tests wherever a test applies to both (``ALL``).
 """
 import dataclasses
 import subprocess
@@ -45,7 +49,8 @@ from repro_torch.models.weights import (from_reference, param_dtypes,
                                         param_shapes)
 from repro_torch.serve import ServeEngine
 
-ARCHS = ["qwen3-0.6b", "llama3.2-1b"]
+ARCHS = ["qwen3-0.6b", "llama3.2-1b", "qwen2-72b", "codeqwen1.5-7b",
+         "chameleon-34b", "musicgen-medium"]
 REC_ARCHS = ["zamba2-2.7b", "xlstm-350m"]
 ALL = ARCHS + REC_ARCHS
 RTOL = 1e-5
@@ -61,10 +66,31 @@ def close(got, want, rtol=RTOL):
     assert err <= rtol * max(np.abs(want).max(), 1e-30), err
 
 
+def with_qkv_biases(cfg, rp, seed=0):
+    """The reference's params with every attention stage's ``bq``, ``bk``
+    and ``bv`` drawn from a numpy seed (std 0.5), where the config has
+    them: its ``init_gqa`` makes them zeros, which would leave the bias
+    add untested."""
+    if not cfg.qkv_bias:
+        return rp
+    rng = np.random.default_rng(seed + 100)
+    rp = dict(rp)
+    for key, stage in rp.items():
+        if isinstance(stage, dict) and "attn" in stage \
+                and "bq" in stage["attn"]:
+            attn = {n: (jnp.asarray((rng.standard_normal(a.shape) * 0.5)
+                                    .astype(np.float32)).astype(a.dtype)
+                        if n in ("bq", "bk", "bv") else a)
+                    for n, a in stage["attn"].items()}
+            rp[key] = {**stage, "attn": attn}
+    return rp
+
+
 def both(arch, seed=0):
-    """-> (cfg, reference params, port cfg, port params on the CPU)."""
+    """-> (cfg, reference params, port cfg, port params on the CPU); qkv
+    biases non-zero (``with_qkv_biases``)."""
     cfg = rconfigs.get_smoke(arch)
-    rp = ref_init(jax.random.PRNGKey(seed), cfg)
+    rp = with_qkv_biases(cfg, ref_init(jax.random.PRNGKey(seed), cfg), seed)
     pcfg = configs.get_smoke(arch)
     return cfg, rp, pcfg, from_reference(
         pcfg, jax.tree.map(np.asarray, rp), device=CPU)
@@ -83,11 +109,12 @@ def test_configs_equal_the_reference(arch):
         assert ours.params_count() == theirs.params_count()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-72b", "chameleon-34b",
-                                  "musicgen-medium", "codeqwen1.5-7b"])
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get(arch)
+def test_every_reference_arch_is_ported():
+    assert configs.PORTED == configs.ARCHS == rconfigs.ARCHS
+    for arch in rconfigs.ARCHS:
+        assert configs.get(arch).name == rconfigs.get(arch).name
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("gpt-2")
 
 
 @pytest.mark.parametrize("arch", ALL)
@@ -474,10 +501,21 @@ def test_cross_entropy_and_causal_mask_match_the_reference():
 
 
 def test_lm_loss_refuses_a_mesh_and_outside_embeddings():
+    """A mesh is refused (item 6).  Embeddings fed from outside are taken
+    now (their parity with the reference: ``tests/test_torch_embeds.py``):
+    the embedding table's own rows of the tokens, fed as ``embeds``, give
+    the tokens' loss bit for bit, and a batch with both inputs or neither
+    is refused."""
     _, _, pcfg, pp = both("llama3.2-1b")
     batch = {k: torch.as_tensor(v)
              for k, v in train_batch(pcfg.vocab, (1, 8)).items()}
     with pytest.raises(NotImplementedError, match="item 6"):
         lm_loss(pp, pcfg, batch, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        lm_loss(pp, pcfg, {**batch, "embeds": torch.zeros(1, 8, 64)})
+    rows = pp["embed"][batch["tokens"]]
+    want, _ = lm_loss(pp, pcfg, batch)
+    got, _ = lm_loss(pp, pcfg, {"embeds": rows, "labels": batch["labels"]})
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="not both or neither"):
+        lm_loss(pp, pcfg, {**batch, "embeds": rows})
+    with pytest.raises(ValueError, match="not both or neither"):
+        lm_loss(pp, pcfg, {"labels": batch["labels"]})

@@ -59,6 +59,7 @@ from repro.train.optim import cosine_schedule as ref_cosine
 from repro.train.optim import dequantize_i8 as ref_dequantize
 from repro.train.optim import quantize_i8 as ref_quantize
 from repro_torch import configs
+from test_torch_lm import with_qkv_biases
 from repro_torch.data import TokenPipeline, synthetic_embeds
 from repro_torch.launch.train import main, train
 from repro_torch.models.transformer import init_lm, lm_loss
@@ -71,7 +72,11 @@ from repro_torch.train.optim import (QTensor, cosine_schedule,
                                      dequantize_i8, quantize_i8, tree_leaves,
                                      tree_unflatten)
 
-ARCHS = ["qwen3-0.6b", "llama3.2-1b"]
+# the dense GQA archs: qwen2 and codeqwen with their qkv biases non-zero
+# (``test_torch_lm.with_qkv_biases``), chameleon and musicgen trained from
+# embeddings fed from outside (``ref_batch``)
+ARCHS = ["qwen3-0.6b", "llama3.2-1b", "qwen2-72b", "codeqwen1.5-7b",
+         "chameleon-34b", "musicgen-medium"]
 # the families trained on the card since the dense pair: the recurrent
 # (zamba2's Mamba2 + shared attention, xLSTM), MLA + MoE, GQA + MoE
 FAMILIES = ["zamba2-2.7b", "xlstm-350m", "deepseek-v3-671b", "grok-1-314b"]
@@ -131,8 +136,17 @@ def ref_tree(tree):
 
 
 def ref_batch(cfg, step, batch=4, seq=32, seed=1):
+    """The reference pipeline's batch ``step``; for an arch fed embeddings
+    from outside (``embed_inputs=False``) its labels beside standard
+    normal embeddings from a numpy seed of ``(seed, step)``, in place of
+    the tokens."""
     b = RefPipeline(cfg.vocab, seq, batch, seed=seed).batch(step)
-    return {k: np.array(v) for k, v in b.items()}
+    out = {k: np.array(v) for k, v in b.items()}
+    if not cfg.embed_inputs:
+        del out["tokens"]
+        out["embeds"] = np.random.default_rng([seed, step]).standard_normal(
+            (batch, seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def port_batch(batch):
@@ -147,8 +161,8 @@ def ref_setup(arch, quantized, peak):
     cfg = rconfigs.get_smoke(arch)
     ropt = ref_adamw(ref_cosine(peak, warmup=2, total=10),
                      quantized=quantized)
-    return (cfg, ref_init(jax.random.PRNGKey(0), cfg), ropt,
-            jax.jit(ref_build_train_step(cfg, ropt)))
+    return (cfg, with_qkv_biases(cfg, ref_init(jax.random.PRNGKey(0), cfg)),
+            ropt, jax.jit(ref_build_train_step(cfg, ropt)))
 
 
 def setup(arch, quantized, *, peak=3e-4):
@@ -447,6 +461,19 @@ def test_grad_accum_matches_the_reference():
     mine = dict(jax.tree_util.tree_flatten_with_path(pp)[0])
     for path, want in jax.tree_util.tree_flatten_with_path(rp)[0]:
         close(mine[path], want, PARAM_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "musicgen-medium"])
+def test_train_step_raises_for_a_leaf_the_loss_does_not_reach(arch):
+    """Only the table under ``"embeds"`` is given zeros: any other leaf
+    that has come loose from the loss makes the step raise."""
+    cfg = configs.get_smoke(arch)
+    params = init_lm(0, cfg, device=CPU)
+    params["loose"] = torch.zeros(3)
+    batch = port_batch(ref_batch(cfg, 0))
+    step = build_train_step(cfg, adamw())
+    with pytest.raises(RuntimeError, match="not have been used"):
+        step(params, adamw().init(params), batch)
 
 
 def test_train_step_refuses_a_mesh():
