@@ -4,7 +4,9 @@
     python3 chip_smoke.py --conv-sweep    # shift-conv's tiles and splits
     python3 chip_smoke.py --ddmm-sweep    # DDMM's column tiles and splits
     python3 chip_smoke.py --lattice       # Step 4b on the card alone
-    python3 chip_smoke.py --serve         # the serving phase alone
+    python3 chip_smoke.py --serve         # the serving phase and the
+                                          # request times alone
+    python3 chip_smoke.py --sharded       # batch-sharded serving alone
     python3 chip_smoke.py --frontend      # the tracing frontend alone
     python3 chip_smoke.py --gnn           # the GNN phase alone
     python3 chip_smoke.py --train         # the training phase alone
@@ -76,7 +78,17 @@ recorded; open-loop Poisson streams under the SLO scheduler below and
 past the knee (req/s, goodput, deadline misses, sojourn p50/p99 over the
 served and over every arrival, the adaptive depth, the device's idle
 share); and b6-dyn over graph buckets, held as the paths are.  A served
-batch must launch nothing from the host.  Then the GNN phase
+batch must launch nothing from the host.  Then batch-sharded serving
+(``sharded_phase``, alone under ``--sharded``): b4, b6-dyn and b3-r50 at
+full width through ``gcv.serve(..., devices=[...])`` over every card, or
+``[cuda:0, cuda:0]`` (two replicas) on a one-card host: the warmup's
+captures (one per replica per bucket, each recording its replica's eager
+batched launches), 16 mixed requests equal to the batch-1 graph outputs
+bit for bit with no host launch, the runner cache frozen, pads per
+device summing to the pads, the resident bytes one replica's times the
+replicas; the replicas' served req/s beside a one-device engine's; and
+``devices=`` one above the cards present warning and degrading.  Then
+the GNN phase
 (``gnn_phase``, alone under ``--gnn``): g1 GCN, g2 GraphSAGE and g3 GAT of
 ``gnncv/gnn_zoo.py`` on cora, citeseer, pubmed and flickr at their
 published sizes (the reference's ``GraphSpec``s, seed 0), each compiled
@@ -174,7 +186,9 @@ against the kernel; then musicgen-medium whole (from ``{"embeds",
 "labels"}``) and codeqwen1.5-7b at 4 layers trained as the families are
 (``DENSE_TRAIN``).
 Timing that holds no kernel against its plain version runs under its
-phase's flag only, not in the full run: the 2048-token prefills' host
+phase's flag only, not in the full run: the GNN-CV paths' eager request
+times of both plans and their request profiles (``request_times``)
+under ``--serve``, the 2048-token prefills' host
 times and profiles of ``--rec`` (``rec_scan_times``; xlstm's 2048-token
 prefill whole), ``--moe`` and ``--dense`` (``lm_profiles``), the
 families' and the dense archs' profiled steps under ``--train-families``
@@ -288,6 +302,12 @@ DYN_BUCKETS = (512, 1024)
 DYN_POINTS = (400, 1024)
 DYN_REQUESTS = 16
 GNNCV_KERNELS = ("shift_conv2d", "spdmm", "ddmm", "knn", "sddmm")
+# Batch-sharded serving: these paths over every card, or two replicas on
+# cuda:0 where there is one; SHARDED_REQUESTS mixed requests held bit for
+# bit, then SHARDED_ROUNDS rounds of them timed on each engine.
+SHARDED_TASKS = ("b4", "b6-dyn", "b3-r50")
+SHARDED_REQUESTS = 16
+SHARDED_ROUNDS = 8
 # The GNN phase: g1-g3 of ``gnncv/gnn_zoo.py`` on the Table IX graphs at
 # their published sizes (cora 2708 nodes / 10556 edges / 1433 features /
 # 7 classes, citeseer 3327 / 9104 / 3703 / 6, pubmed 19717 / 88648 / 500 /
@@ -2331,6 +2351,134 @@ def serving_phase(kernels, requests, card) -> None:
         f"{len(reqs)} clouds of {sizes.min()}-{sizes.max()} points, per "
         f"bucket over {len(runs)} run(s) {st}; each output == its "
         f"padded request's batch-1 run")
+
+
+def sharded_phase(kernels, requests, card) -> None:
+    """Batch-sharded serving (``gcv.serve(models, devices=[...])``,
+    ``kernels="cuda"``, ``max_batch=SERVE_MAX_BATCH``) of
+    ``SHARDED_TASKS`` at full width over every card, or ``[cuda:0,
+    cuda:0]`` on a one-card host: two replicas, each with its weights,
+    graphs and stream.  Checks that the warmup captures one graph per
+    replica per bucket, each recording the launches of its replica's
+    eager batched run (the captured counts set to 0 just before the warmup
+    and read just after); that ``SHARDED_REQUESTS`` mixed requests come
+    back equal to the batch-1 graph outputs bit for bit, with no kernel
+    launched from the host, the runner cache frozen, ``pad_per_device``
+    summing to ``padded``; that each model's ``resident_bytes`` is its
+    replicas times ``resident_bytes_per_device``; and that ``devices=``
+    one above the cards present warns and degrades.  Prints the replicas'
+    served req/s beside a one-device engine's over the same requests."""
+    import gc
+
+    from repro_torch import gcv
+    from repro_torch.core.runtime.cache import cache_stats
+    from repro_torch.launch.mesh import make_data_mesh
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n_cards)]
+               if n_cards > 1 else [torch.device("cuda", 0)] * 2)
+    mesh = make_data_mesh(devices)
+    ndev = mesh.size
+    tasks = SHARDED_TASKS
+    graphs = {t: task_graph(t) for t in tasks}
+    one = {t: gcv.compile(graphs[t], kernels="cuda") for t in tasks}
+    picks = [(tasks[k % len(tasks)], (k // len(tasks)) % REQUESTS)
+             for k in range(SHARDED_REQUESTS)]
+    singles = {}
+    for t, i in picks:
+        singles.setdefault(t, {})[i] = tuple(
+            o.cpu().numpy() for o in one[t].run(**requests[t][i]))
+
+    def zero() -> None:
+        for name in GNNCV_KERNELS:
+            kernels[name].launches = kernels[name].captured = 0
+
+    eng = gcv.serve(graphs, devices=devices, max_batch=SERVE_MAX_BATCH,
+                    kernels="cuda")
+    assert eng.stats()["devices"] == ndev and eng.buckets()[0] == ndev
+    want = {}
+    for t in tasks:
+        for b in eng.buckets():
+            rows = eager_bucket_launches(kernels, one[t],
+                                         requests[t][:b // ndev])
+            for name, n in rows.items():
+                want[name] = want.get(name, 0) + ndev * n
+    zero()
+    t_a = time.perf_counter()
+    eng.warmup()
+    t_warm = time.perf_counter() - t_a
+    got = {name: kernels[name].captured for name in GNNCV_KERNELS}
+    assert got == want, ("sharded warmup captures", got, want)
+    for t in tasks:
+        for b in eng.buckets():
+            run = eng.models[t].batched(b, jit=True)
+            assert run.mesh == mesh and [
+                r.trace_count() for r in run.replicas] == [1] * ndev, \
+                (t, b, [r.trace_count() for r in run.replicas])
+    resident = {}
+    for t in tasks:
+        st = eng.models[t].stats()
+        assert st["devices"] == ndev and st["resident_bytes"] == \
+            ndev * st["resident_bytes_per_device"], (t, st)
+        resident[t] = st["resident_bytes"]
+    log(f"sharded: {ndev} replicas on {[str(d) for d in mesh.devices]}, "
+        f"buckets {eng.buckets()}; warmup {t_warm:.2f} s captured one "
+        f"graph per replica per bucket ({len(tasks) * len(eng.buckets())} "
+        f"x {ndev}), recording {got} launches (each replica's eager "
+        f"batched launches); resident bytes per model {resident} = {ndev} "
+        f"x one replica's")
+
+    misses = cache_stats()["runner_misses"]
+
+    def drive(engine) -> list:
+        reqs = [(t, i, engine.submit(t, **requests[t][i]))
+                for t, i in picks]
+        assert engine.run() == len(reqs)
+        return reqs
+
+    zero()
+    reqs = drive(eng)
+    launched = {n: kernels[n].launches for n in GNNCV_KERNELS}
+    assert not any(launched.values()), ("sharded host launches", launched)
+    for t, i, req in reqs:
+        for a, b in zip(req.result, singles[t][i]):
+            assert np.isfinite(a).all() and np.array_equal(a, b), \
+                f"sharded: {t} request {i} != its batch-1 graph run"
+    st = eng.stats()
+    assert st["runner_misses"] == misses, "the sharded engine built a runner"
+    assert sum(st["pad_per_device"]) == st["padded"], st["pad_per_device"]
+    assert st["inflight_per_device"] == [0] * ndev
+    log(f"sharded: {len(reqs)} mixed requests of {list(tasks)} over "
+        f"{ndev} replicas == their batch-1 graph runs bit for bit; "
+        f"{st['steps']} dispatches, padded {st['padded']}, per device "
+        f"{st['pad_per_device']}; no host launch, runner cache frozen")
+
+    flat = gcv.serve(one, max_batch=SERVE_MAX_BATCH, warmup=True)
+    rates = {}
+    for label, engine in (("one device", flat), (f"{ndev} replicas", eng),
+                          ("one device", flat), (f"{ndev} replicas", eng)):
+        drive(engine)
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        for _ in range(SHARDED_ROUNDS):
+            drive(engine)
+        rates.setdefault(label, []).append(
+            SHARDED_ROUNDS * len(picks) / (time.perf_counter() - t_a))
+    log(f"sharded: served req/s (host clock, {SHARDED_ROUNDS} rounds of "
+        f"{len(picks)} mixed requests, FIFO, depth 2, in turns): "
+        + ", ".join(f"{k} {' / '.join(f'{r:.1f}' for r in v)}"
+                    for k, v in rates.items()) + f"  [{card}]")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        small = gcv.serve({"b4": graphs["b4"]}, devices=n_cards + 1,
+                          max_batch=SERVE_MAX_BATCH)
+    assert any("only" in str(w.message) for w in caught), caught
+    assert small.stats()["devices"] == n_cards
+    log(f"sharded: devices={n_cards + 1} on {n_cards} card(s) warned "
+        f"({caught[0].message}) and serves over {n_cards}")
+    del eng, flat, small, one, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def gnn_phase(kernels, requests, card, timed: bool) -> list[dict]:
@@ -4836,6 +4984,12 @@ def main() -> int:
         return finish()
 
     tasks = list(PER_REQUEST)
+    if "--sharded" in sys.argv[1:]:
+        reqs = {task: task_requests(task, *task_plans(task))
+                for task in SHARDED_TASKS}
+        sharded_phase(kernels, reqs, card)
+        stamp("sharded phase")
+        return finish()
     plans = {task: task_plans(task) for task in tasks}
     autotune_cache = ROOT / "build" / "autotune_smoke.json"
     autotune_cache.unlink(missing_ok=True)
@@ -4848,6 +5002,8 @@ def main() -> int:
             heldout_phase(card)
         if "--serve" in sys.argv[1:]:
             serving_phase(kernels, reqs, card)
+            for task in tasks:
+                request_times(task, *plans[task], reqs[task], card)
         return finish()
     if "--gnn" in sys.argv[1:]:
         reqs = {task: task_requests(task, *plans[task]) for task in tasks}
@@ -4901,6 +5057,8 @@ def main() -> int:
     stamp("lattice phase")
     serving_phase(kernels, requests, card)
     stamp("serving phase")
+    sharded_phase(kernels, requests, card)
+    stamp("sharded phase")
     launches["lm-serve"] = lm_serve(lm_cfg, kernels)
     lm_params = init_lm(0, lm_cfg, device="cuda")
     eng, lm_reqs = lm_engine_run(lm_cfg, lm_params, kernels, card)
@@ -4924,8 +5082,6 @@ def main() -> int:
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []
-    for task in tasks:
-        request_times(task, *plans[task], requests[task], card)
     lm_profiles(lm_cfg, lm_params, eng, card)
     for task in tasks:
         rows += kernel_rows(task, cases[task], launches[task],

@@ -39,9 +39,26 @@ it:
 graph, a batched one per op and eagerly.  On the CPU there are no graphs:
 ``jit`` has no effect and ``aot_compile()`` returns None.  On the card a
 graph runner captures or raises; it never carries on eagerly.
+
+A runner makes its device current while it runs (the kernels launch on
+the current device, ``kernels/_build.stream_of``), and captures each
+graph with that device current, on a stream of its own, from a memory
+pool of its own.
+
+**Batch sharding** — ``build_runner(plan, batch=N, mesh=mesh)`` over a 1-D
+``("data",)`` mesh (``launch/mesh.py``) is the reference's SPMD runner
+(``P("data")`` on the inputs and outputs, the weights replicated): each
+mesh entry holds a replica of the weights and a batch runner of ``N //
+mesh.size`` rows on a stream of its own, and the stacked batch is split
+into contiguous blocks, block ``i`` to entry ``i``.  Every replica is
+launched before any is waited on; the outputs keep the batch runner's
+shapes and row order, on the mesh's first device.  Each replica's rows
+run as a batch runner's rows run, so they equal the one-device runner's
+bit for bit wherever its batches equal its samples (on the card).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -52,6 +69,7 @@ from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.runtime import run_op
 from repro_torch.core.runtime.context import batched_execution
 from repro_torch.core.runtime.residency import collect_params
+from repro_torch.launch.mesh import as_data_mesh
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,6 +111,27 @@ def _as_tensor(value, device: torch.device) -> torch.Tensor:
     return _host_tensor(value).to(device)
 
 
+def _on(device: torch.device):
+    """Make ``device`` current for the block where it names one card."""
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device a runner over ``mesh`` lives on: the mesh's first entry,
+    which ``device`` must name when it is given."""
+    first = torch.device(mesh.devices.flat[0])
+    if device is not None:
+        want = torch.device(device)
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device()
+                                if torch.cuda.is_available() else 0)
+        assert want == first, \
+            f"device={want} must be the mesh's first entry {first} (or None)"
+    return first
+
+
 class _Graph:
     """One captured request: its static inputs, the graph, its static
     outputs."""
@@ -118,6 +157,13 @@ def build_runner(plan: ExecutionPlan, *, device=None,
     graph cannot capture: ``jit=None`` then resolves to eager, and
     ``jit=True`` raises on the card.
 
+    ``mesh`` (a 1-D ``("data",)`` mesh) shards the batch axis over the
+    mesh's entries (module docstring).  It needs ``batch`` divisible by
+    the mesh's size and runs as graphs (``jit=False`` is refused, as the
+    reference's sharded runner needs whole-program jit); ``device`` must
+    be None or the mesh's first entry.  A one-entry mesh is the plain
+    runner on that entry.
+
     The returned ``run`` carries:
 
       ``run.resident``      the ``ResidentParams`` (None without residency)
@@ -125,11 +171,24 @@ def build_runner(plan: ExecutionPlan, *, device=None,
       ``run.trace_count()`` how many graphs were captured
       ``run.input_specs()`` name -> (shape, dtype), the batch axis included
       ``run.device``, ``run.jit`` (runs as CUDA graphs)
+      ``run.mesh``          the mesh the batch axis is sharded over (None
+                            for one device), ``run.replicas`` its entries'
+                            runners
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= shards the batch axis over several cards (ROADMAP queue "
-            "1 item 6); the port runs on one")
+        mesh = as_data_mesh(mesh)
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh_device(mesh, device), None
+    if mesh is not None:
+        assert batch is not None, \
+            "mesh= shards the batch axis; build with batch=N"
+        assert batch % mesh.size == 0, \
+            f"batch {batch} must be divisible by the mesh's " \
+            f"{mesh.size} devices (the serving engine's bucket rule)"
+        assert jit is not False, \
+            "sharded runners execute through whole-program jit; " \
+            "mesh= is incompatible with jit=False"
+        device, jit = mesh_device(mesh, device), True
     device = resolve_device(device)
     if jit is None:
         jit = batch is None and residency
@@ -138,13 +197,25 @@ def build_runner(plan: ExecutionPlan, *, device=None,
         raise ValueError("a CUDA-graph runner reads its weights by address; "
                          "residency=False stages them per call, which a "
                          "graph cannot capture: pass jit=False")
+    if mesh is not None:
+        return _mesh_runner(plan, mesh, batch, graphs, free_dead, residency)
     with obs.span("build_runner", cat="runtime", plan=plan.name,
                   batch=batch, jit=graphs, residency=residency,
-                  device=str(device)) as sp:
+                  device=str(device), devices=1) as sp:
         resident = collect_params(plan, device) if residency else None
         if resident is not None:
             sp.set(resident_bytes=resident.nbytes())
-    state = {"graphs": {}, "captures": 0,
+    return _device_runner(plan, device, batch, graphs, free_dead, residency,
+                          resident)
+
+
+def _device_runner(plan: ExecutionPlan, device: torch.device,
+                   batch: int | None, graphs: bool, free_dead: bool,
+                   residency: bool, resident, stream=None):
+    """One device's runner over ``resident`` (a store on ``device``, or
+    None without residency).  ``stream``: the stream its graphs are
+    captured on (a new one of its own when None)."""
+    state = {"graphs": {}, "captures": 0, "stream": stream,
              "version": resident.version if resident is not None else 0}
 
     def walk(env: dict) -> tuple:
@@ -158,32 +229,24 @@ def build_runner(plan: ExecutionPlan, *, device=None,
                         env.pop(name, None)
             return tuple(env[o] for o in plan.outputs)
 
-    def stage(inputs: dict) -> dict:
-        missing = [k for k in plan.input_names if k not in inputs]
-        assert not missing, f"missing inputs: {missing}"
-        env = {k: _host_tensor(inputs[k]) for k in plan.input_names}
-        if batch is not None:
-            for k, v in env.items():
-                assert tuple(v.shape[:1]) == (batch,), \
-                    f"input {k!r}: expected leading batch axis {batch}, " \
-                    f"got shape {tuple(v.shape)}"
-        return env
-
     def capture(env: dict) -> _Graph:
         with obs.span("capture", cat="runtime", plan=plan.name,
-                      batch=batch):
+                      batch=batch), torch.cuda.device(device):
             static = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
                       for k, v in env.items()}
             for k, v in env.items():
                 static[k].copy_(v)
-            side = torch.cuda.Stream(device)
+            if state["stream"] is None:
+                state["stream"] = torch.cuda.Stream(device)
+            side = state["stream"]
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
                 walk(dict(static))
-            torch.cuda.current_stream(device).wait_stream(side)
+            # the graph gets a memory pool of its own (pool=None)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side):
                 outputs = walk(dict(static))
+            torch.cuda.current_stream(device).wait_stream(side)
             state["captures"] += 1
             return _Graph(static, graph, outputs)
 
@@ -198,18 +261,6 @@ def build_runner(plan: ExecutionPlan, *, device=None,
             g = state["graphs"][sig] = capture(env)
         return g
 
-    def input_specs() -> dict:
-        shapes = plan.meta.get("input_shapes", {})
-        spec = {}
-        for name in plan.input_names:
-            shape = shapes.get(name)
-            assert shape is not None, \
-                f"no recorded input shape for {name!r}; cannot capture"
-            if batch is not None:
-                shape = (batch, *shape)
-            spec[name] = (tuple(shape), torch.float32)
-        return spec
-
     def aot_compile():
         """Capture the request now, from the plan's recorded input shapes
         (zeros) — the serving warmup hook.  Returns the captured
@@ -218,28 +269,128 @@ def build_runner(plan: ExecutionPlan, *, device=None,
         if not graphs:
             return None
         with obs.span("aot_compile", cat="runtime", plan=plan.name,
-                      batch=batch):
+                      batch=batch), _on(device):
             zeros = {n: torch.zeros(s, dtype=d, device=device)
-                     for n, (s, d) in input_specs().items()}
+                     for n, (s, d) in _input_specs(plan, batch).items()}
             return graph_for(zeros).graph
 
     def run(**inputs):
-        env = stage(inputs)
-        if not graphs:
-            return walk({k: v.to(device, non_blocking=_pinned(v, device))
-                         for k, v in env.items()})
-        g = graph_for(env)
-        for k, v in env.items():
-            g.inputs[k].copy_(v, non_blocking=_pinned(v, device))
-        g.graph.replay()
-        return tuple(o.clone() for o in g.outputs)
+        env = _stage(plan, batch, inputs)
+        with _on(device):
+            if not graphs:
+                return walk({k: v.to(device,
+                                     non_blocking=_pinned(v, device))
+                             for k, v in env.items()})
+            g = graph_for(env)
+            for k, v in env.items():
+                g.inputs[k].copy_(v, non_blocking=_pinned(v, device))
+            g.graph.replay()
+            return tuple(o.clone() for o in g.outputs)
 
     run.resident = resident
     run.aot_compile = aot_compile
     run.trace_count = lambda: state["captures"]
-    run.input_specs = input_specs
+    run.input_specs = lambda: _input_specs(plan, batch)
     run.device = device
     run.jit = graphs
+    run.mesh = None
+    run.replicas = [run]
+    return run
+
+
+def _stage(plan: ExecutionPlan, batch: int | None, inputs: dict) -> dict:
+    """The plan's inputs as tensors where they lie (``_host_tensor``),
+    checked for presence and, batched, for the leading batch axis."""
+    missing = [k for k in plan.input_names if k not in inputs]
+    assert not missing, f"missing inputs: {missing}"
+    env = {k: _host_tensor(inputs[k]) for k in plan.input_names}
+    if batch is not None:
+        for k, v in env.items():
+            assert tuple(v.shape[:1]) == (batch,), \
+                f"input {k!r}: expected leading batch axis {batch}, " \
+                f"got shape {tuple(v.shape)}"
+    return env
+
+
+def _input_specs(plan: ExecutionPlan, batch: int | None) -> dict:
+    shapes = plan.meta.get("input_shapes", {})
+    spec = {}
+    for name in plan.input_names:
+        shape = shapes.get(name)
+        assert shape is not None, \
+            f"no recorded input shape for {name!r}; cannot capture"
+        if batch is not None:
+            shape = (batch, *shape)
+        spec[name] = (tuple(shape), torch.float32)
+    return spec
+
+
+def _mesh_runner(plan: ExecutionPlan, mesh, batch: int, on_card: bool,
+                 free_dead: bool, residency: bool):
+    """The batch-sharded runner over ``mesh`` (module docstring);
+    ``on_card``: its replicas run as CUDA graphs."""
+    devices = [torch.device(d) for d in mesh.devices.flat]
+    assert len({d.type for d in devices}) == 1, \
+        f"a mesh's entries must be of one device type, got {mesh}"
+    first, per = devices[0], batch // mesh.size
+    with obs.span("build_runner", cat="runtime", plan=plan.name,
+                  batch=batch, jit=on_card, residency=residency,
+                  device=str(first), devices=mesh.size) as sp:
+        resident = (collect_params(plan, first, mesh=mesh) if residency
+                    else None)
+        if resident is not None:
+            sp.set(resident_bytes=resident.nbytes())
+    stores = resident.stores() if resident is not None \
+        else [None] * len(devices)
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+               for d in devices]
+    replicas = [_device_runner(plan, d, per, on_card, free_dead,
+                               residency, store, stream)
+                for d, store, stream in zip(devices, stores, streams)]
+
+    def blocks(env: dict):
+        for i in range(len(replicas)):
+            yield {k: v[i * per:(i + 1) * per] for k, v in env.items()}
+
+    def run(**inputs):
+        env = _stage(plan, batch, inputs)
+        if not on_card:
+            parts = [rep(**block) for rep, block in zip(replicas,
+                                                        blocks(env))]
+            return tuple(torch.cat(outs) for outs in zip(*parts))
+        cur = torch.cuda.current_stream(first)
+        parts = []
+        for rep, dev, stream, block in zip(replicas, devices, streams,
+                                           blocks(env)):
+            with torch.cuda.device(dev):
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                for v in block.values():
+                    if v.is_cuda:
+                        v.record_stream(stream)
+                with torch.cuda.stream(stream):
+                    parts.append(tuple(o.to(first, non_blocking=True)
+                                       for o in rep(**block)))
+        for stream in streams:
+            cur.wait_stream(stream)
+        for outs in parts:
+            for o in outs:
+                o.record_stream(cur)
+        return tuple(torch.cat(outs) for outs in zip(*parts))
+
+    def aot_compile():
+        """Capture every replica's request now; the replicas' graphs, or
+        None on the CPU."""
+        got = tuple(rep.aot_compile() for rep in replicas)
+        return got if on_card else None
+
+    run.resident = resident
+    run.aot_compile = aot_compile
+    run.trace_count = lambda: sum(rep.trace_count() for rep in replicas)
+    run.input_specs = lambda: _input_specs(plan, batch)
+    run.device = first
+    run.jit = on_card
+    run.mesh = mesh
+    run.replicas = replicas
     return run
 
 

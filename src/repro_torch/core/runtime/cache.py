@@ -58,26 +58,35 @@ def cached_runner(graph: Graph,
                   options: CompileOptions = CompileOptions(), *,
                   device=None, batch: int | None = None,
                   jit: bool | None = None, free_dead: bool = True,
-                  residency: bool = True):
-    """Runner for ``graph``, one per (options, device, batch, jit, ...).
+                  residency: bool = True, mesh=None):
+    """Runner for ``graph``, one per (options, device, batch, jit, ...,
+    mesh).
 
     Kernel realizations are compile-time plan state (``options.kernels``
     via Step 4b), so two kernel modes are two plans, and under ``auto``
     and ``measured`` each device type selects its own plan.  ``device`` is
-    resolved first (``None`` is the card), so ``None`` and ``"cuda"`` share
-    an entry.  ``jit=None`` lets ``build_runner`` resolve it (a CUDA graph
-    per sample, eager per op batched).  A graph runner keeps its captures,
-    so the runner cache is what amortizes capturing."""
-    from repro_torch.core.executor import build_runner, resolve_device
-    device = resolve_device(device)
-    key = (options, device, batch, jit, free_dead, residency)
+    resolved first (``None`` is the card, or the first entry of
+    ``mesh``), so ``None`` and ``"cuda"`` share an entry.  ``jit=None``
+    lets ``build_runner`` resolve it (a CUDA graph per sample, eager per op
+    batched).  A graph runner keeps its captures, so the runner cache is
+    what amortizes capturing.
+
+    ``mesh`` (batch-axis sharding) is part of the key: the same graph
+    served over two meshes is two runners with two replicated weight
+    stores.  A mesh hashes by its device grid and axis names, so two equal
+    meshes share one entry."""
+    from repro_torch.core.executor import (build_runner, mesh_device,
+                                           resolve_device)
+    device = (mesh_device(mesh, device) if mesh is not None
+              else resolve_device(device))
+    key = (options, device, batch, jit, free_dead, residency, mesh)
     per_graph = _RUNNERS.setdefault(graph, {})
     if key not in per_graph:
         _stat("runner_misses").inc()
         per_graph[key] = build_runner(
             cached_plan(graph, options, backend=device.type), device=device,
             batch=batch, jit=jit,
-            free_dead=free_dead, residency=residency)
+            free_dead=free_dead, residency=residency, mesh=mesh)
     else:
         _stat("runner_hits").inc()
     return per_graph[key]

@@ -26,6 +26,12 @@ sorted edges adds each row in a fixed order, the same on every run, where
 ``index_add_``'s atomics added in a different order every run on the
 card.  Row orders live in ``derived``, beside ``arrays``: they are not plan
 arrays, and ``nbytes()`` counts what the reference's store counts.
+
+Over a device mesh (``collect_params(plan, device, mesh=)``, the
+batch-sharded path) the store keeps one full copy per mesh entry, the
+reference's replicated ``NamedSharding(mesh, P())``: each replica its own
+buffers on its own device, folded the same way.  ``replicas`` counts them,
+``nbytes()`` is their total and ``swap`` writes every replica.
 """
 from __future__ import annotations
 
@@ -115,6 +121,9 @@ class ResidentParams:
                  segment-id array (``host_row_order``), for the COO sums.
     ``version``  bumped whenever a slot moves to another buffer; a runner
                  whose CUDA graphs read the old addresses re-captures.
+    ``mirrors``  the other mesh entries' replicas of a store collected over
+                 a mesh (each a ``ResidentParams`` on its entry's device,
+                 with the same slots); empty for one device.
     """
 
     arrays: dict[str, torch.Tensor]
@@ -127,6 +136,16 @@ class ResidentParams:
     version: int = 0
     # No runner bakes weights into a program (see the module docstring).
     trace_constants: bool = False
+    mirrors: list = dataclasses.field(default_factory=list)
+
+    @property
+    def replicas(self) -> int:
+        """How many devices hold a full copy (the mesh size, or 1)."""
+        return 1 + len(self.mirrors)
+
+    def stores(self) -> list["ResidentParams"]:
+        """Every replica, this one (the mesh's first entry) first."""
+        return [self, *self.mirrors]
 
     def has(self, op: MatOp, slot: str) -> bool:
         return (op.name, slot) in self.slots
@@ -138,10 +157,16 @@ class ResidentParams:
         return self.derived[(self.slots[(op.name, slot)], n)]
 
     def nbytes(self) -> int:
+        """Resident bytes over every replica."""
         return sum(t.numel() * t.element_size()
-                   for t in self.arrays.values())
+                   for r in self.stores() for t in r.arrays.values())
 
     def swap(self, op_name: str, slot: str, value) -> None:
+        """Replace one weight in every replica (``_swap_one``)."""
+        for r in self.stores():
+            r._swap_one(op_name, slot, value)
+
+    def _swap_one(self, op_name: str, slot: str, value) -> None:
         """Replace one weight.  The common case writes into the existing
         buffer, so every runner — a captured graph included — reads the new
         value at its next call, with no re-capture.
@@ -185,7 +210,7 @@ class ResidentParams:
                     buf.copy_(torch.from_numpy(a))
 
 
-def collect_params(plan: ExecutionPlan, device) -> ResidentParams:
+def collect_params(plan: ExecutionPlan, device, mesh=None) -> ResidentParams:
     """One pass over the plan: upload every live compile-time array once.
 
     Dedup is two-level, as the reference's: first by host-array identity
@@ -194,14 +219,36 @@ def collect_params(plan: ExecutionPlan, device) -> ResidentParams:
     identical bytes fold into one buffer even when they are distinct host
     objects (Step 4's per-op ELL pairs, repeated zero biases).  The folded
     bytes are reported in ``value_dedup_bytes``.  The fold is a storage
-    optimization, never a semantic merge: ``swap`` un-aliases first."""
+    optimization, never a semantic merge: ``swap`` un-aliases first.
+
+    ``mesh`` (a 1-D data mesh) uploads one replica per entry, the first on
+    ``device`` (the mesh's first entry) and the others in ``mirrors``:
+    one upload per device, so each replica's runner reads its weights
+    where it runs.  Two entries naming one device get two copies."""
     device = torch.device(device)
     with obs.span("residency.upload", cat="runtime", plan=plan.name,
-                  device=str(device)) as sp:
+                  device=str(device),
+                  devices=(mesh.size if mesh is not None else 1)) as sp:
         res = _collect_params(plan, device)
+        if mesh is not None:
+            res.mirrors = [_replica(res, torch.device(d))
+                           for d in list(mesh.devices.flat)[1:]]
         sp.set(bytes=res.nbytes(), slots=len(res.slots),
                value_dedup_bytes=res.value_dedup_bytes)
         return res
+
+
+def _replica(res: ResidentParams, device: torch.device) -> ResidentParams:
+    """A copy of ``res``'s buffers on ``device`` (new buffers even on
+    ``res``'s own device), with its slot map."""
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        return t.to(device, copy=True)
+    return ResidentParams(
+        {ref: copy(t) for ref, t in res.arrays.items()}, dict(res.slots),
+        device, value_dedup_bytes=res.value_dedup_bytes,
+        origins=dict(res.origins or {}),
+        derived={k: tuple(copy(t) for t in v)
+                 for k, v in res.derived.items()})
 
 
 def _collect_params(plan: ExecutionPlan, device) -> ResidentParams:

@@ -35,8 +35,9 @@ Where the port differs from the reference:
     predicted or measured cost, so nothing is hidden;
   * a callable is a torch function or an ``nn.Module`` in eval mode,
     traced by ``repro_torch.frontend`` (``make_fx`` on fake tensors);
-  * more than one device raises ``NotImplementedError`` (ROADMAP queue 1
-    item 6).
+  * ``devices=`` / ``mesh=`` name ``torch.device``s (``launch/mesh.py``);
+    an explicit sequence may repeat one device, each entry a replica of
+    its own, which is how one host stands in for several.
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.compiler import CompileOptions
-from repro_torch.core.executor import (build_runner, random_inputs,
-                                       resolve_device, stack_inputs)
+from repro_torch.core.executor import (build_runner, mesh_device,
+                                       random_inputs, resolve_device,
+                                       stack_inputs)
 from repro_torch.core.ir import Graph
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.runtime.cache import (BACKEND_MODES, cache_stats,
@@ -78,16 +80,29 @@ def _resolve_options(options, overrides) -> CompileOptions:
     return options
 
 
-def _one_device(devices, mesh) -> None:
-    """``devices=``/``mesh=`` of one device are the single-card path; more
-    raise until sharded serving is ported."""
-    n = mesh.size if mesh is not None else (
-        devices if isinstance(devices, int) or devices is None
-        else len(devices))
-    if n not in (None, 1):
-        raise NotImplementedError(
-            f"{n} devices: batch-axis sharding over several cards is ROADMAP "
-            f"queue 1 item 6; the port runs on one")
+def _resolve_mesh(devices, mesh, device=None):
+    """``devices=``/``mesh=``/``device=`` -> ``(device, mesh)``: the
+    device the model lives on and a 1-D data mesh, or None for the
+    single-device path (a one-entry mesh included).
+
+    With a mesh, ``device`` is its first entry and must be None or name
+    it.  An int counts cards (``make_data_mesh``): on a host with none it
+    degrades to the CPU, which then runs only where ``device="cpu"`` asks
+    for it — ``device=None`` still means the card and raises."""
+    if mesh is not None:
+        assert devices is None, "pass devices= or mesh=, not both"
+        from repro_torch.launch.mesh import as_data_mesh
+        mesh = as_data_mesh(mesh)
+    elif devices is not None:
+        from repro_torch.launch.mesh import make_data_mesh
+        mesh = make_data_mesh(devices)
+    if mesh is None:
+        return resolve_device(device), None
+    if device is None and isinstance(devices, int) \
+            and mesh.devices.flat[0].type != "cuda":
+        resolve_device(None)           # no card: raises
+    first = mesh_device(mesh, device)
+    return resolve_device(first), (mesh if mesh.size > 1 else None)
 
 
 @contextlib.contextmanager
@@ -122,13 +137,18 @@ class CompiledModel:
 
     def __init__(self, plan: ExecutionPlan, *, graph: Graph | None = None,
                  options: CompileOptions, device: torch.device,
-                 residency: bool = True, batch: int | None = None):
+                 residency: bool = True, batch: int | None = None,
+                 mesh=None):
         self.plan = plan
         self.graph = graph
         self.options = options
         self.device = device
         self.residency = residency
         self.batch = batch                   # default batch for .run()
+        # 1-D data mesh for batch-axis sharding (gcv.compile(devices=));
+        # None = one device.  Batched runners shard their leading axis over
+        # it; per-sample runners run on ``device``, its first entry.
+        self.mesh = mesh
         self._runners: dict[tuple, Callable] = {}
         self._private = graph is None
         self._swaps: dict[tuple[str, str], Any] = {}
@@ -139,18 +159,34 @@ class CompiledModel:
         """The runner for ``batch`` (``run(**inputs)`` with ``aot_compile``,
         ``resident`` and ``trace_count`` attached).  ``jit=None`` keeps
         ``build_runner``'s default: a CUDA graph per sample, eager per op
-        batched."""
+        batched.
+
+        On a model compiled with ``devices=``/``mesh=``, batched runners
+        shard the batch axis over the mesh (``jit`` resolves to True: the
+        replicas run as graphs) and ``batch`` must be divisible by the
+        device count; per-sample runners run on the mesh's first device."""
+        mesh = self.mesh if batch is not None else None
+        if mesh is not None:
+            if jit is None:
+                jit = True
+            assert jit, \
+                "a mesh-sharded batched runner executes through " \
+                "whole-program jit; jit=False is single-device only"
+            assert batch % mesh.size == 0, \
+                f"batch {batch} must be divisible by the mesh's " \
+                f"{mesh.size} devices (buckets stay powers of two and " \
+                f"divisible by the device count)"
         key = (batch, jit)
         if not self._private:
             run = cached_runner(self.graph, self.options, device=self.device,
                                 batch=batch, jit=jit,
-                                residency=self.residency)
+                                residency=self.residency, mesh=mesh)
             self._runners[key] = run
             return run
         run = self._runners.get(key)
         if run is None:
             run = build_runner(self.plan, device=self.device, batch=batch,
-                               jit=jit, residency=self.residency)
+                               jit=jit, residency=self.residency, mesh=mesh)
             self._apply_swaps(run)
             self._runners[key] = run
         return run
@@ -267,13 +303,26 @@ class CompiledModel:
         """One dict over the whole lifecycle: plan shape, primitive and
         kernel mix, memory planning, residency footprint (with the bytes
         folded by content dedup), runner and capture state, and the process
-        plan/runner cache counters."""
-        resident = next((r.resident for r in self._runners.values()
-                         if r.resident is not None), None)
-        if resident is None and self.residency:
+        plan/runner cache counters.  ``resident_bytes`` is the total over
+        the replicas of a ``devices=N`` model ("one upload per device"),
+        ``resident_bytes_per_device`` one device's footprint."""
+        stores = [r.resident for r in self._runners.values()
+                  if r.resident is not None]
+        # prefer the store whose replication matches the model's mesh (a
+        # devices=N model may also hold a per-sample one-device runner)
+        want = self.mesh.size if self.mesh is not None else 1
+        resident = next((s for s in stores if s.replicas == want),
+                        stores[0] if stores else None)
+        per_device = total = None
+        if resident is not None:
+            total = resident.nbytes()
+            per_device = total // resident.replicas
+        elif self.residency:
             if self._sizing is None:      # hash once, not per stats() call
                 self._sizing = collect_params(self.plan, "cpu")
             resident = self._sizing
+            per_device = resident.nbytes()
+            total = per_device * want
         out = {
             "name": self.plan.name,
             "frontend": self.plan.meta.get("frontend"),
@@ -288,10 +337,11 @@ class CompiledModel:
             "default_batch": self.batch,
             "swapped_slots": len(self._swaps),
             "device": str(self.device),
-            "devices": 1,
+            "devices": want,
         }
         if resident is not None:
-            out["resident_bytes"] = resident.nbytes()
+            out["resident_bytes"] = total
+            out["resident_bytes_per_device"] = per_device
             out["value_deduped_bytes"] = resident.value_dedup_bytes
         out["cache"] = cache_stats()
         return out
@@ -307,7 +357,8 @@ class CompiledModel:
         return (f"CompiledModel({self.plan.name!r}, "
                 f"frontend={self.plan.meta.get('frontend')!r}, "
                 f"ops={len(self.plan.ops)}, batch={self.batch}, "
-                f"device={str(self.device)!r})")
+                f"device={str(self.device)!r}, "
+                f"devices={self.mesh.size if self.mesh else 1})")
 
 
 def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
@@ -341,6 +392,18 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
     model) or ``"measured"`` (timed on ``device`` through the autotune
     cache at ``autotune_cache=``).  ``telemetry=True`` records one span per
     compiler pass and is a distinct plan-cache key.
+
+    ``devices=``/``mesh=`` turn on batch-axis data parallelism:
+    ``devices`` is an int (the first N cards), a device sequence (which
+    may repeat a device: each entry is a replica), ``mesh`` a pre-built
+    1-D ``("data",)`` mesh (``launch.mesh.make_data_mesh``).  Every
+    ``.batched(n)`` runner then shards its leading axis over the mesh
+    (``n`` divisible by the device count), each entry with a replica of
+    the resident weights, a CUDA graph per bucket and a stream of its
+    own; ``device`` is the mesh's first entry (None, or naming it).  A
+    one-device mesh is the single-device runner.  An int above the cards
+    present degrades with a ``UserWarning`` (``stats()["devices"]`` says
+    how many were taken).
     """
     assert isinstance(model, (ExecutionPlan, Graph)) or callable(model), \
         f"cannot compile {type(model).__name__}: expected a torch " \
@@ -350,8 +413,7 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
         "compiling a callable requires example_inputs (a tensor or array " \
         "per named input)"
     opts = _resolve_options(options, option_overrides)
-    _one_device(devices, mesh)
-    dev = resolve_device(device)
+    dev, dmesh = _resolve_mesh(devices, mesh, device)
     if isinstance(model, ExecutionPlan):
         assert example_inputs is None, \
             "an ExecutionPlan is already compiled; example_inputs are " \
@@ -366,14 +428,14 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
                            autotune_cache=opts.autotune_cache,
                            backend=dev.type)
         return CompiledModel(model, graph=None, options=opts, device=dev,
-                             residency=residency, batch=batch)
+                             residency=residency, batch=batch, mesh=dmesh)
     if isinstance(model, Graph):
         assert example_inputs is None, \
             "a layer Graph declares its own inputs; example_inputs are " \
             "only for tracing a callable"
         return CompiledModel(cached_plan(model, opts, backend=dev.type),
                              graph=model, options=opts, device=dev,
-                             residency=residency, batch=batch)
+                             residency=residency, batch=batch, mesh=dmesh)
     shapes = _example_shapes(example_inputs)
     strip = example_batched
     if strip is None:
@@ -410,7 +472,7 @@ def compile(model, example_inputs: Mapping[str, Any] | None = None, *,
         or type(model).__name__)
     return CompiledModel(cached_plan(graph, opts, backend=dev.type),
                          graph=graph, options=opts, device=dev,
-                         residency=residency, batch=batch)
+                         residency=residency, batch=batch, mesh=dmesh)
 
 
 def serve(models: Mapping[str, Any], *,
@@ -452,8 +514,13 @@ def serve(models: Mapping[str, Any], *,
     padded nodes inert) and raises ``ValueError`` for requests over the
     largest bucket.
 
-    ``devices=``/``mesh=`` of one device are this single-card engine;
-    more raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
+    ``devices=``/``mesh=`` serve over a device mesh (``compile``'s
+    meaning): every bucketed runner shards its batch axis over the 1-D
+    data mesh, buckets stay powers of two but never drop below the device
+    count, requests are placed round-robin over the devices, and the
+    engine keeps its in-flight queues, pad counts and trace tracks per
+    device.  ``gcv.serve(models, devices=N)`` is the whole change; a
+    one-device mesh is exactly the one-device engine.
     """
     from repro_torch.serve.gnncv import GNNCVServeEngine
     opts = _resolve_options(options, option_overrides)

@@ -139,11 +139,26 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def on_current_device(name: str, t) -> int:
+    """``t``'s card, which must be the current device: a launcher
+    launches on the current device's context, so a tensor on another card
+    would be read from the wrong one.  Raises otherwise; the caller makes
+    the device current (``torch.cuda.device``), as the runners do."""
+    dev, cur = t.get_device(), torch.cuda.current_device()
+    if dev != cur:
+        raise RuntimeError(
+            f"{name}: operands on cuda:{dev} but cuda:{cur} is the current "
+            f"device, where the kernel would launch; make cuda:{dev} "
+            f"current (torch.cuda.device) before the call")
+    return dev
+
+
+def stream_of(t, name: str) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device, as a C pointer: the raw
-    handle, without building a ``torch.cuda.Stream`` object each call."""
-    return ctypes.c_void_p(
-        torch._C._cuda_getCurrentRawStream(t.get_device()))
+    handle, without building a ``torch.cuda.Stream`` object each call.
+    ``t``'s device must be current (``on_current_device``)."""
+    dev = on_current_device(name, t)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev))
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -151,8 +166,8 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def require_cuda(name: str, *tensors, dtypes) -> None:
-    """Validate what a launcher takes: one CUDA device, the given dtypes,
-    contiguous memory."""
+    """Validate what a launcher takes: one CUDA device, the current one,
+    the given dtypes, contiguous memory."""
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
         if t is None:
@@ -166,6 +181,7 @@ def require_cuda(name: str, *tensors, dtypes) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
         if t.numel() >= 2**31:
             raise ValueError(f"{name}: operand too large for int32 indexing")
+    on_current_device(name, tensors[0])
 
 
 def counted(fn) -> None:

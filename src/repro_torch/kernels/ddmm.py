@@ -165,7 +165,7 @@ def ddmm(x: torch.Tensor, y: torch.Tensor, *, bias=None, residual=None,
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         _params(M, K, N, layout[1], layout[0], ACT_CODES[act]),
-        torch._C._cuda_getCurrentRawStream(x.device.index))
+        _build.stream_of(x, "ddmm"))
     if err:
         _build.check(err, "ddmm")
     _build.counted(ddmm)

@@ -165,7 +165,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.library().repro_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, DV,
-        int(causal), ctypes.c_float(scale), *strides, _build.stream_of(q))
+        int(causal), ctypes.c_float(scale), *strides,
+        _build.stream_of(q, "flash_attention"))
     _build.check(err, "flash_attention")
     _build.counted(flash_attention)
     return (out, lse) if return_lse else out
@@ -223,7 +224,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, dk, dv,
                                   delta)),
         DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, DV, int(causal),
-        ctypes.c_float(scale), strides, _build.stream_of(q))
+        ctypes.c_float(scale), strides,
+        _build.stream_of(q, "flash_attention_bwd"))
     _build.check(err, "flash_attention_bwd")
     _build.counted(flash_attention_bwd)
     return dq, dk, dv

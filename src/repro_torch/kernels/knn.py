@@ -52,7 +52,7 @@ def knn(x: torch.Tensor, k: int, *, mask: torch.Tensor | None = None,
                if nbytes else None)
     err = lib.repro_knn(_build.ptr(x), _build.ptr(mask), _build.ptr(out),
                         _build.ptr(scratch), n, f, k, int(self_loops),
-                        _build.stream_of(x))
+                        _build.stream_of(x, "knn"))
     _build.check(err, "knn")
     _build.counted(knn)
     return out

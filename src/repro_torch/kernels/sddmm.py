@@ -117,7 +117,8 @@ def sddmm(x: torch.Tensor, y: torch.Tensor,
     kt_per, split = _plan(K)
     err = _build.library().repro_sddmm(
         _build.ptr(x), _build.ptr(y), _build.ptr(mask), _build.ptr(out), M,
-        K, N, layout[1], int(layout[0]), kt_per, split, _build.stream_of(x))
+        K, N, layout[1], int(layout[0]), kt_per, split,
+        _build.stream_of(x, "sddmm"))
     _build.check(err, "sddmm")
     _build.counted(sddmm)
     return out

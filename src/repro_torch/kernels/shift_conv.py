@@ -155,7 +155,7 @@ def shift_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1,
     buf = x.new_empty(buf_shape)
     err = _build.library().repro_shift_conv2d(
         x.data_ptr(), w.data_ptr(), buf.data_ptr(), params,
-        _build.stream_of(x))
+        _build.stream_of(x, "shift_conv2d"))
     _build.check(err, "shift_conv2d")
     _build.counted(shift_conv2d)
     return buf.select(0, 0)

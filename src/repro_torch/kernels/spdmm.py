@@ -55,7 +55,7 @@ def spdmm(idx: torch.Tensor, val: torch.Tensor,
     lib = _build.library()
     err = lib.repro_ell_spdmm(_build.ptr(idx), _build.ptr(val),
                               _build.ptr(y), _build.ptr(out), S1, L, S2, N,
-                              _build.stream_of(y))
+                              _build.stream_of(y, "spdmm"))
     _build.check(err, "spdmm")
     _build.counted(spdmm)
     return out
@@ -87,7 +87,8 @@ def spdmm_rows(idx: torch.Tensor, val: torch.Tensor,
     out = torch.empty((R, S1), device=x2.device, dtype=torch.float32)
     err = _build.library().repro_ell_spdmm_rows(
         idx.data_ptr(), val.data_ptr(), x2.data_ptr(), out.data_ptr(), R, S1,
-        L, S2, rows, _build.stream_of(x2))
+        L, S2, rows,
+        _build.stream_of(x2, "spdmm_rows"))
     _build.check(err, "spdmm_rows")
     _build.counted(spdmm_rows)
     return out

@@ -1,6 +1,6 @@
 """Micro-batching request engine for the GNN-CV task family.
 
-Port of ``src/repro/serve/gnncv.py`` for one device.  The LM
+Port of ``src/repro/serve/gnncv.py``.  The LM
 ``ServeEngine`` batches homogeneous decode steps over slots; GNN-CV
 inference is the opposite shape of problem — each request is one
 whole-program execution of a *heterogeneous* task, so the batching axis is
@@ -37,7 +37,20 @@ requests-per-compiled-plan, not tokens-per-slot:
     one plan per node count (virtual tasks ``task@g{size}``); ``submit``
     zero-pads each request's node-indexed inputs to the smallest bucket
     that fits and rejects one above the largest with a ``ValueError`` at
-    admission.
+    admission;
+  * with ``devices=``/``mesh=`` the engine serves over a 1-D ``data``
+    mesh: every bucketed runner shards its batch axis over the mesh's
+    entries (each with a replica of the weights, its graphs and a stream
+    of its own; ``core/executor.py``), buckets stay powers of two but
+    never drop below the device count, and positions are placed
+    round-robin (position j on device j % ndev) so pad waste spreads
+    evenly — ``stats()['pad_per_device']`` accounts for it per device.
+    Each batch takes a block of rows on every device, so the per-device
+    in-flight queues advance in lockstep and ``pipeline_depth`` bounds
+    each device's queue.  The engine's serving stream lives on the mesh's
+    first device; each replica's stream waits on it before its copies and
+    replay, and it waits on every replica before the outputs come back.
+    A one-device mesh is exactly the one-device engine.
 
 On the CPU (``device="cpu"``) a dispatch runs its batch to the end before
 it returns (the plain versions run eagerly), so every batch is ready when
@@ -61,7 +74,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.compiler import CompileOptions
-from repro_torch.core.executor import resolve_device, stack_inputs
+from repro_torch.core.executor import stack_inputs
 from repro_torch.core.ir import Graph
 from repro_torch.core.plan import ExecutionPlan
 
@@ -93,6 +106,12 @@ class _BatchInfo:
     bucket: int
     pad: int
     t_dispatch: float
+    devices: int = 1
+    # row placement under sharding: padded position j sits at stacked row
+    # rows[j]; empty tuple = identity (one device)
+    rows: tuple = ()
+    shard_n: tuple = ()                # real requests per device
+    pad_per_dev: tuple = ()            # pad rows per device
 
 
 @dataclasses.dataclass
@@ -121,9 +140,12 @@ class GNNCVServeEngine:
     maps task name -> a ``CompiledModel``, a layer ``Graph`` or an
     ``ExecutionPlan``.  Everything not already compiled goes through
     ``gcv.compile`` with this engine's options on its ``device`` (None:
-    the card, raising without one); pre-compiled models keep their own
-    options and must live on that device.  ``devices=``/``mesh=`` above
-    one device raise ``NotImplementedError``; one device is this engine.
+    the card, raising without one) and mesh; pre-compiled models keep
+    their own options and must live on that device and have been compiled
+    over the *same* mesh — a model sharded differently from the engine's
+    dispatch placement would misattribute rows to devices.
+    ``devices=``/``mesh=`` select the batch-sharded path (module
+    docstring).
     """
 
     def __init__(self, models=None, *,
@@ -136,8 +158,9 @@ class GNNCVServeEngine:
         from repro_torch import gcv             # late: gcv builds engines
         from repro_torch.serve.scheduler import resolve_scheduler
         assert models, "GNNCVServeEngine needs at least one model"
-        gcv._one_device(devices, mesh)
-        self.device = resolve_device(device)
+        self.device, self.mesh = gcv._resolve_mesh(devices, mesh, device)
+        ndev = self.mesh.size if self.mesh is not None else 1
+        self._ndev = ndev
         models = dict(models)
         # graph_buckets maps a task name to the node counts it serves at;
         # the task's ``models`` entry is then a factory n_nodes -> model
@@ -163,6 +186,14 @@ class GNNCVServeEngine:
         self.options = options
         assert max_batch >= 1 and max_batch & (max_batch - 1) == 0, \
             f"max_batch must be a power of two, got {max_batch}"
+        # every bucket must shard evenly; divisors of a power of two are
+        # powers of two, so this also pins the device count to 1, 2, 4, ...
+        assert max_batch % ndev == 0, \
+            f"max_batch={max_batch} must be divisible by the device " \
+            f"count ({ndev}) so every bucket shards evenly"
+        assert jit or ndev == 1, \
+            "multi-device serving shards through jitted programs — " \
+            "jit=False is single-device only"
         assert pipeline_depth >= 1, \
             f"pipeline_depth must be >= 1, got {pipeline_depth}"
         assert slo_ms is None or slo_ms > 0, \
@@ -190,18 +221,27 @@ class GNNCVServeEngine:
                 assert model.device == self.device, \
                     f"task {task!r}: pre-compiled for {model.device}, the " \
                     f"engine serves on {self.device}"
+                assert model.mesh == self.mesh, \
+                    f"task {task!r}: pre-compiled model mesh " \
+                    f"{model.mesh} does not match the engine's " \
+                    f"{self.mesh} — compile it with the same devices=/" \
+                    f"mesh=, or hand the engine its graph/plan instead"
                 self.models[task] = model
             else:
                 fn, example = model if isinstance(model, tuple) \
                     else (model, None)
                 self.models[task] = gcv.compile(
                     fn, example, options=options, residency=residency,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
         self.plans = {t: m.plan for t, m in self.models.items()}
         self.queues: dict[str, deque] = {t: deque() for t in self.models}
         self._rid = itertools.count()
         self._inflight: deque[tuple[list[TaskRequest], _Pending,
                                     _BatchInfo]] = deque()
+        # per-device dispatch queues: every batch takes a block of rows on
+        # every device, so each deque mirrors the master _inflight and
+        # pipeline_depth bounds each device's queue (== the master's depth)
+        self._dev_inflight: list[deque] = [deque() for _ in range(ndev)]
         self._warmed: set[tuple[str, int]] = set()
         # the one serving stream: every replay and the copies around it
         self._stream = (torch.cuda.Stream(self.device)
@@ -214,6 +254,8 @@ class GNNCVServeEngine:
         self._c_completed = self.metrics.counter("completed")
         self._c_dispatches = self.metrics.counter("dispatches")
         self._c_padded = self.metrics.counter("padded")
+        self._c_pad_dev = [self.metrics.counter(f"padded.device{d}")
+                           for d in range(ndev)]
         # dispatches that returned before the card had finished their batch
         self._c_ahead = self.metrics.counter("dispatch_returned_ahead")
         self._h_sojourn = self.metrics.histogram("sojourn_ms")
@@ -374,6 +416,11 @@ class GNNCVServeEngine:
     def inflight(self) -> int:
         return sum(len(reqs) for reqs, _, _ in self._inflight)
 
+    def inflight_per_device(self) -> list[int]:
+        """In-flight batches per device track (lockstep: each batch takes
+        rows on every device, so these only differ transiently)."""
+        return [len(dq) for dq in self._dev_inflight]
+
     def stats(self) -> dict:
         """One read over the engine's metrics registry plus the process
         plan/runner-cache counters.  Always safe: before the first harvest
@@ -418,9 +465,9 @@ class GNNCVServeEngine:
                 "pending": self.pending(), "inflight": self.inflight(),
                 "tasks": len(self.models), "warmed": len(self._warmed),
                 "padded": self._c_padded.value,
-                "devices": 1,
-                "pad_per_device": [self._c_padded.value],
-                "inflight_per_device": [len(self._inflight)],
+                "devices": self._ndev,
+                "pad_per_device": [c.value for c in self._c_pad_dev],
+                "inflight_per_device": self.inflight_per_device(),
                 "scheduler": self.scheduler.name,
                 "slo_ms": self.slo_ms,
                 "pipeline_depth": self._depth,
@@ -442,15 +489,16 @@ class GNNCVServeEngine:
                 **cache_stats()}
 
     def _bucket(self, n: int, cap: int) -> int:
-        b = 1
+        b = self._ndev            # floor: at least one row per device
         while b < n and b < cap:
             b *= 2
         return min(b, cap)
 
     def buckets(self) -> list[int]:
-        """Every batch size the engine can dispatch: powers of two up to
+        """Every batch size the engine can dispatch: powers of two from
+        the device count (each device needs at least one row) up to
         ``max_batch``."""
-        out, b = [], 1
+        out, b = [], self._ndev
         while b <= self.max_batch:
             out.append(b)
             b *= 2
@@ -561,7 +609,14 @@ class GNNCVServeEngine:
         call, traced as a ``serve.schedule`` span).  On the card the batch
         is staged, copied, replayed and copied back on the serving stream
         behind the batches already in flight, and an event marks its end
-        (module docstring); the host returns as soon as it is enqueued."""
+        (module docstring); the host returns as soon as it is enqueued.
+
+        Under a mesh, requests are placed round-robin across the device
+        shards: padded position ``j`` lands on device ``j % ndev``, and
+        since the runner splits the stacked batch into contiguous blocks of
+        ``bucket // ndev`` rows, ``j``'s stacked row is ``(j % ndev) *
+        (bucket // ndev) + j // ndev``.  Pad positions (``take..bucket-1``)
+        thereby spread (near-)evenly across devices."""
         with obs.span("serve.schedule", cat="serve",
                       policy=self.scheduler.name, pending=self.pending(),
                       inflight=len(self._inflight),
@@ -581,11 +636,21 @@ class GNNCVServeEngine:
         reqs = [queue.popleft() for _ in range(take)]
         self._g_queue.set(self.pending())
         self.metrics.gauge(f"queue_depth.{task}").set(len(queue))
-        samples = [r.inputs for r in reqs] \
-            + [reqs[-1].inputs] * (bucket - take)
+        padded = reqs + [reqs[-1]] * (bucket - take)
+        ndev = self._ndev
+        rows = tuple((j % ndev) * (bucket // ndev) + j // ndev
+                     for j in range(bucket))      # identity when ndev == 1
+        samples: list = [None] * bucket
+        for j, r in enumerate(rows):
+            samples[r] = padded[j].inputs
+        shard_n = tuple(sum(1 for j in range(take) if j % ndev == d)
+                        for d in range(ndev))
+        pad_per_dev = tuple(sum(1 for j in range(take, bucket)
+                                if j % ndev == d) for d in range(ndev))
         t0 = obs.now()
         info = _BatchInfo(self._c_dispatches.value, task, bucket,
-                          bucket - take, t0)
+                          bucket - take, t0, devices=ndev, rows=rows,
+                          shard_n=shard_n, pad_per_dev=pad_per_dev)
         run = self._runner(task, bucket)
         if self._stream is None:
             outs = run(**self._stack(samples))
@@ -609,16 +674,27 @@ class GNNCVServeEngine:
                                slot)
         t1 = obs.now()
         if obs.enabled():
-            obs.complete("serve.dispatch", t0, t1, cat="serve", task=task,
-                         bucket=bucket, batch_id=info.batch_id, n=take,
-                         pad=info.pad, device=0)
+            # one retroactive dispatch span per device track (exactly one
+            # on a one-device engine): the global batch identity plus this
+            # shard's real-row/pad split
+            for d in range(ndev):
+                obs.complete("serve.dispatch", t0, t1, cat="serve",
+                             task=task, bucket=bucket,
+                             batch_id=info.batch_id, n=take, pad=info.pad,
+                             device=d, shard_n=shard_n[d],
+                             shard_pad=pad_per_dev[d])
         if self._t_first_dispatch is None:
             self._t_first_dispatch = info.t_dispatch
         for r in reqs:
             r.t_dispatch = info.t_dispatch
         self._inflight.append((reqs, pending, info))
+        for dq in self._dev_inflight:
+            dq.append(info)
         self._c_dispatches.inc()
         self._c_padded.inc(info.pad)
+        for d in range(ndev):
+            if pad_per_dev[d]:
+                self._c_pad_dev[d].inc(pad_per_dev[d])
         return len(reqs)
 
     def harvest(self) -> int:
@@ -630,22 +706,32 @@ class GNNCVServeEngine:
         if not self._inflight:
             return 0
         reqs, pending, info = self._inflight.popleft()
+        for dq in self._dev_inflight:
+            if dq:
+                dq.popleft()
         t0 = obs.now()
         if pending.event is not None:
             pending.event.synchronize()
         done = obs.now()
         traced = obs.enabled()
         if traced:
-            obs.complete("serve.harvest", t0, done, cat="serve",
-                         task=info.task, batch_id=info.batch_id,
-                         bucket=info.bucket, n=len(reqs), device=0)
+            # one retroactive harvest span per device track (exactly one on
+            # a one-device engine)
+            for d in range(info.devices):
+                obs.complete("serve.harvest", t0, done, cat="serve",
+                             task=info.task, batch_id=info.batch_id,
+                             bucket=info.bucket, n=len(reqs), device=d,
+                             shard_n=(info.shard_n[d] if info.shard_n
+                                      else len(reqs)))
         # measured service time of this (task, bucket) — the scheduler's
         # warm estimate (estimate_batch_seconds) reads its recent mean
         self.metrics.histogram(
             f"service_ms.{info.task}.b{info.bucket}").observe(
             (done - info.t_dispatch) * 1e3)
+        rows = info.rows
         for i, req in enumerate(reqs):
-            req.result = tuple(np.array(m[i]) for m in pending.outputs)
+            row = rows[i] if rows else i    # undo the shard placement
+            req.result = tuple(np.array(m[row]) for m in pending.outputs)
             req.done = True
             req.t_done = done
             sojourn_ms = (done - req.t_submit) * 1e3
@@ -664,7 +750,7 @@ class GNNCVServeEngine:
                 obs.complete("request", req.t_submit, done, cat="serve",
                              rid=req.rid, task=req.task,
                              batch_id=info.batch_id, bucket=info.bucket,
-                             pad=info.pad, device=0,
+                             pad=info.pad, device=i % info.devices,
                              queued_ms=round(
                                  (req.t_dispatch - req.t_submit) * 1e3, 3))
         if pending.slot is not None:
@@ -692,7 +778,8 @@ class GNNCVServeEngine:
             n = self.dispatch(draining=True)
             if n == 0 and not self._inflight:
                 break          # dispatch()==0 means every queue is empty
-            if n == 0 or len(self._inflight) >= self._depth:
+            if n == 0 or max(len(dq) for dq in self._dev_inflight) \
+                    >= self._depth:
                 served += self.harvest()
                 self._adapt_depth()
         while self._inflight:
@@ -721,13 +808,15 @@ class GNNCVServeEngine:
         while self._oldest_ready():
             harvested += self.harvest()
         dispatched = 0
-        while len(self._inflight) < self._depth:
+        while max(len(dq) for dq in self._dev_inflight) < self._depth:
             n = self.dispatch(draining=draining)
             if n == 0:
                 break
             dispatched += n
         if not dispatched and not harvested and self._inflight \
-                and (draining or len(self._inflight) >= self._depth):
+                and (draining or
+                     max(len(dq) for dq in self._dev_inflight)
+                     >= self._depth):
             harvested += self.harvest()
         self._adapt_depth()
         return dispatched, harvested

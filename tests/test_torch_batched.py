@@ -24,7 +24,7 @@ JAX reference, on the CPU.
   the reference's ``jax.ops.segment_sum`` within 1e-6 of max|out|.
 - Runner basics: ``jit=True`` on the CPU runs eagerly, ``aot_compile()``
   is None, a batched runner refuses a missing or wrong batch axis,
-  ``stack_inputs`` stacks on the host, ``mesh=`` names ROADMAP item 6.
+  ``stack_inputs`` stacks on the host, a malformed ``mesh=`` is refused.
 """
 import functools
 import os
@@ -57,6 +57,7 @@ from repro_torch.core.runtime.residency import (collect_params, ell_pair,
                                                 weight)
 from repro_torch.core.weights import load_weights
 from repro_torch.gnncv.tasks import build_dynamic_task, build_task
+from repro_torch.launch.mesh import Mesh, make_data_mesh
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_cuda import vip_masked_graph  # noqa: E402
@@ -469,9 +470,23 @@ def test_stack_inputs_stacks_on_the_host():
 
 
 def test_mesh_names_its_roadmap_item():
+    """Kept under its earlier name, from when ``mesh=`` raised for ROADMAP
+    item 6.  Now a mesh shards the batch (``tests/test_torch_sharded.py``):
+    a malformed one is refused, a one-entry mesh is the plain runner, and
+    a two-entry mesh runs two replicas of one row each."""
     plan = compile_graph(build_task("b4", small=True))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(AssertionError, match="Mesh"):
         build_runner(plan, device="cpu", batch=2, mesh=object())
+    grid = make_data_mesh(["cpu", "cpu"]).devices.reshape(1, 2)
+    with pytest.raises(AssertionError, match="1-D"):
+        build_runner(plan, device="cpu", batch=2,
+                     mesh=Mesh(grid, ("data", "model")))
+    one = build_runner(plan, batch=2, mesh=make_data_mesh(["cpu"]))
+    assert one.mesh is None and len(one.replicas) == 1
+    two = build_runner(plan, batch=2, mesh=make_data_mesh(["cpu"] * 2))
+    assert two.mesh.size == 2 and two.resident.replicas == 2
+    ins = stack_inputs([random_inputs(plan, seed=s) for s in range(2)])
+    assert two(**ins)[0].shape == one(**ins)[0].shape
 
 
 def test_residency_off_stages_per_call_and_matches():

@@ -1339,6 +1339,72 @@ def test_cuda_batch_equals_per_sample_runs_bit_for_bit(cuda, task):
                 assert torch.equal(out[i], singles[i][j]), (jit, i, j)
 
 
+def replica_mesh():
+    """Every card, or two replicas on cuda:0 where there is one."""
+    from repro_torch.launch.mesh import make_data_mesh
+    n = torch.cuda.device_count()
+    return make_data_mesh(n if n > 1 else [torch.device("cuda", 0)] * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", GRAPH_TASKS)
+def test_cuda_sharded_batch_equals_per_sample_runs_bit_for_bit(cuda, task):
+    """A batch split over the mesh's replicas (each a graph of its rows, on
+    its stream) equals the per-sample runs bit for bit, one capture per
+    replica."""
+    from repro_torch.core import build_runner
+    from repro_torch.core.executor import stack_inputs
+    plan = small_plan(task)
+    mesh = replica_mesh()
+    n = 2 * mesh.size
+    reqs = small_requests(task, plan, n)
+    one = build_runner(plan, jit=False)
+    singles = [one(**r) for r in reqs]
+    run = build_runner(plan, batch=n, mesh=mesh)
+    assert run.jit and run.mesh == mesh and run.resident.replicas == mesh.size
+    for _ in range(2):
+        for j, out in enumerate(run(**stack_inputs(reqs))):
+            assert out.device == mesh.devices[0]
+            for i in range(n):
+                assert torch.equal(out[i], singles[i][j]), (i, j)
+    assert [r.trace_count() for r in run.replicas] == [1] * mesh.size
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_serve_equals_batch_1_runs(cuda):
+    from repro_torch import gcv
+    from repro_torch.gnncv.tasks import build_task
+    graphs = {t: build_task(t, small=True) for t in ("b4", "b6")}
+    mesh = replica_mesh()
+    eng = gcv.serve(graphs, mesh=mesh, max_batch=8, warmup=True)
+    assert eng.stats()["warmed"] == len(graphs) * len(eng.buckets())
+    one = {t: gcv.compile(graphs[t]) for t in graphs}
+    reqs = []
+    for k in range(11):
+        t = ("b4", "b6")[k % 2]
+        ins = small_requests(t, one[t].plan, k // 2 + 1)[-1]
+        reqs.append(eng.submit(t, **ins))
+    assert eng.run() == len(reqs)
+    for r in reqs:
+        for got, want in zip(r.result, one[r.task].run(**r.inputs)):
+            assert np.array_equal(got, want.cpu().numpy()), r.task
+    st = eng.stats()
+    assert st["devices"] == mesh.size
+    assert sum(st["pad_per_device"]) == st["padded"]
+
+
+@pytest.mark.cuda
+def test_cuda_launch_on_a_card_not_current_raises(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    x = torch.randn(8, 8, device="cuda:1")
+    with torch.cuda.device(0), pytest.raises(RuntimeError,
+                                             match="current device"):
+        ddmm(x, x)
+    with torch.cuda.device(1):
+        assert torch.equal(ddmm(x, x), ddmm(x, x))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("task", ["b7", "b7-dyn"])
 def test_cuda_traced_vig_runs_through_the_kernels(cuda, task):

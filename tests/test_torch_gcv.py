@@ -31,6 +31,7 @@ from repro_torch.core.ir import Graph, GraphBuilder
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.runtime.cache import cache_stats, clear_caches
 from repro_torch.gnncv.tasks import build_task
+from repro_torch.launch.mesh import make_data_mesh
 
 OPTS = CompileOptions(target="fpga")
 REF_OPTS = RefOptions(target="fpga", kernels="pallas")
@@ -162,18 +163,31 @@ def test_kernels_default_to_cuda_and_auto_waits_for_item_3():
 
 
 def test_more_than_one_device_and_serve_wait_for_item_6():
-    """Kept under its earlier name.  Checks that above one device
-    compile and serve still raise, and that one device is the single-card
-    path, where ``serve`` now builds the engine."""
-    for kw in (dict(devices=2), dict(devices=["cuda:0", "cuda:1"])):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            gcv.compile(_graph("b6"), device=CPU, **kw)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            gcv.serve({"b6": _graph("b6")}, device=CPU, **kw)
-    assert gcv.compile(_graph("b6"), device=CPU, devices=1).stats()[
-        "devices"] == 1
-    eng = gcv.serve({"b6": _graph("b6")}, device=CPU, devices=1)
-    assert eng.stats()["devices"] == 1 and eng.device.type == "cpu"
+    """Kept under its earlier name, from when more than one device raised
+    for ROADMAP item 6.  Now ``devices=2`` on a host without a card warns
+    and degrades to its one device (the CPU, asked for by ``device=``),
+    ``device=None`` still means the card, a malformed ``mesh=`` and a
+    ``device=`` off the mesh are refused, and one device is the
+    single-device path (``tests/test_torch_sharded.py`` serves over
+    several)."""
+    for build in (lambda **kw: gcv.compile(_graph("b6"), **kw),
+                  lambda **kw: gcv.serve({"b6": _graph("b6")}, **kw)):
+        with pytest.warns(UserWarning, match="requested 2 devices but "
+                                             "only 1 exist"):
+            made = build(device=CPU, devices=2)
+        assert made.mesh is None and made.stats()["devices"] == 1
+        assert made.device == torch.device(CPU)
+        with pytest.warns(UserWarning), \
+                pytest.raises(RuntimeError, match="device='cpu'"):
+            build(devices=2)
+        with pytest.raises(AssertionError, match="Mesh"):
+            build(device=CPU, mesh=["cpu", "cpu"])
+        with pytest.raises(AssertionError, match="not both"):
+            build(device=CPU, devices=2, mesh=make_data_mesh([CPU] * 2))
+        with pytest.raises(AssertionError, match="first entry"):
+            build(device="meta", devices=[CPU] * 2)
+        one = build(device=CPU, devices=1)
+        assert one.stats()["devices"] == 1 and one.device.type == "cpu"
 
 
 def test_device_none_is_the_card(monkeypatch):
