@@ -17,6 +17,8 @@
                                           # trained alone
     python3 chip_smoke.py --dense         # chameleon-34b, codeqwen1.5-7b,
                                           # qwen2-72b, musicgen-medium
+    python3 chip_smoke.py --distributed   # four cards: the LM over a mesh
+                                          # at full size
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc``, holds each one against its plain-PyTorch version at every shape the
@@ -185,6 +187,15 @@ musicgen's prefill and greedy decode from embeddings fed from outside
 against the kernel; then musicgen-medium whole (from ``{"embeds",
 "labels"}``) and codeqwen1.5-7b at 4 layers trained as the families are
 (``DENSE_TRAIN``).
+Then the LM over a device mesh (``distributed_phase``): one NCCL rank a
+visible card (a (1, 1) mesh on one card), the sharded smoke steps of
+llama3.2-1b and deepseek-v3 (through ``moe_a2a``) held to the one-card
+step with flash's forward and backward launched in them, deepseek-v3's
+decode over the mesh and its MoE's gathered paths, a checkpoint restored
+onto the mesh; ``--distributed`` runs on four cards instead: llama3.2-1b
+at its published size over (2, 2) held to one card and trained 10 bf16
+steps, deepseek-v3's 3 dense and 1 MoE layer at its published width over
+(1, 4) trained 10 steps, ``pipeline_apply`` over 4 stages.
 Timing that holds no kernel against its plain version runs under its
 phase's flag only, not in the full run: the GNN-CV paths' eager request
 times of both plans and their request profiles (``request_times``)
@@ -4899,6 +4910,539 @@ def sweep_ddmm(lib, x, y, bias, res, act, chosen, card, ref, bk, max_split,
     return mine, best
 
 
+# ============================================ the LM over a device mesh ====
+# The distributed phase (item 6b): ranks spawned one per visible card
+# (``tools/ranks.py``: ``torch.multiprocessing`` spawn, NCCL, one rank a
+# card), each joining one group and binding meshes
+# (``launch.mesh.make_process_mesh``).  The kernels are built by this
+# process before any rank starts; the ranks load the built library.  In
+# the default run (one card: a (1, 1) mesh; NCCL takes no two ranks on one
+# card) the phase runs at smoke size (``dist_rank_smoke``): the sharded
+# train step of llama3.2-1b and of deepseek-v3 (MLA, its MoE through
+# ``moe_a2a``; 8 experts, top-2, capacity factor DIST_CAPACITY, which drops
+# nothing), each held to the port's own one-card step on the same card
+# (loss DIST_LOSS_RTOL relative, every parameter DIST_PARAM_ATOL, grad norm
+# DIST_GNORM_RTOL relative) with the flash forward and backward launched in
+# the sharded step (counts set to 0 just before it, read just after); a
+# deepseek-v3 ``lm_decode_step(mesh=)`` held to the one-card decode
+# (DIST_DECODE_RTOL of max|logits|), the decode's tokens also through
+# ``moe_apply(path="gathered")`` (``moe_gathered2d``, and ``moe_gathered``
+# under ``REPRO_MOE_1D``) against ``moe_dense``; and a checkpoint saved
+# from the mesh and restored onto it by ``restore(shardings=)``, bit for
+# bit.  ``--distributed`` (a four-card call) runs instead, at full size
+# (``dist_rank_full``): (a) llama3.2-1b at its published size over (2, 2),
+# one fp32 step held to the one-card step (rank 0's card), then
+# DIST_STEPS bf16 steps (the loss must fall by TRAIN_DROP; step p50 beside
+# rank 0's one-card bf16 step p50); (b) deepseek-v3 at its published width,
+# depth cut to DIST_DEEPSEEK_LAYERS (its 3 dense MLA layers and 1 MoE layer
+# of 256 experts), over (1, 4) (64 experts a card), bf16 weights and fp32
+# moments, batch TRAIN_BATCH x TRAIN_SEQ, DIST_STEPS steps (the loss must
+# fall), peak memory, explain()'s bytes a rank beside the ranks' own, and
+# the a2a's dropped (token, k) entries; (c) ``pipeline_apply`` over 4
+# stages on 4 cards at PIPE_SHAPES, fp32 with TF32 off, ys within
+# PIPE_FWD_ATOL of the sequential product and the grads within
+# PIPE_GRAD_ATOL.
+DIST_CAPACITY = 4.0
+DIST_LOSS_RTOL = 1e-4
+DIST_PARAM_ATOL = 1e-3
+DIST_GNORM_RTOL = 1e-5
+DIST_DECODE_RTOL = 1e-5
+DIST_STEPS = 10
+DIST_PROFILED = 2
+DIST_DEEPSEEK_LAYERS = 4
+DIST_TIMEOUT_S = 900
+PIPE_STAGES = 4
+PIPE_SHAPES = ((6, 2, 16), (6, 2, 2048))        # (n_micro, mb, d)
+PIPE_FWD_ATOL, PIPE_GRAD_ATOL = 1e-5, 1e-4
+
+
+def dist_mesh_shape(world: int) -> tuple[int, int]:
+    """(data, model) for a group of ``world`` ranks: (1, 1) on one card,
+    (world / 2, 2) on an even count."""
+    return (world // 2, 2) if world > 1 and world % 2 == 0 else (world, 1)
+
+
+def dist_kernels() -> dict:
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd}
+
+
+def dist_device() -> torch.device:
+    """This rank's card (made current when the rank joined its group)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def dist_setup() -> None:
+    """A rank's numerics: IEEE fp32 products for the parity checks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dist_whole(tree) -> dict:
+    """A tree's leaves, ``DTensor``s gathered whole (every rank taking
+    part), by path, on the rank's card."""
+    from repro_torch.distributed import collectives as col
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}" if path else k)
+            return
+        if col.is_dtensor(t):
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(
+                placements=[Replicate()] * t.device_mesh.ndim).to_local()
+        out[path] = t.detach()
+
+    walk(tree, "")
+    return out
+
+
+def dist_place(params, mesh):
+    """``params`` placed on ``mesh`` by the rule table; the shardings."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import mesh_axes
+    dp, model, _ = mesh_axes(mesh)
+    shard = sharding.shardings(sharding.param_specs(
+        params, mesh, fsdp=dp, model=model), mesh)
+    return sharding.device_put(params, shard), shard
+
+
+def dist_step_check(what, got, want) -> str:
+    """A sharded step's (metrics, params) against the one-card step's:
+    the loss, grad norm and every parameter within the bars."""
+    (gm, gp), (wm, wp) = got, want
+    loss = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+    gnorm = abs(gm["grad_norm"] - wm["grad_norm"]) / abs(wm["grad_norm"])
+    err = max(float((gp[k].float() - wp[k].float()).abs().max())
+              for k in wp)
+    line = (f"{what}: loss {gm['loss']:.6f} vs one card {wm['loss']:.6f} "
+            f"(rel {loss:.3e}, limit {DIST_LOSS_RTOL:g}); grad norm rel "
+            f"{gnorm:.3e} (limit {DIST_GNORM_RTOL:g}); params max|diff| "
+            f"{err:.3e} (limit {DIST_PARAM_ATOL:g})")
+    assert loss <= DIST_LOSS_RTOL and gnorm <= DIST_GNORM_RTOL \
+        and err < DIST_PARAM_ATOL, line
+    return line
+
+
+def dist_one_step(cfg, params, batch, mesh=None):
+    """One AdamW step (lr 1e-3) of ``params`` (placed on ``mesh`` when
+    given): (metrics as floats, the parameters after it, whole)."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.train import adamw, build_train_step
+    opt = adamw(1e-3)
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    params, _, m = build_train_step(cfg, opt, **kw)(params, opt.init(params),
+                                                     batch)
+    return {k: float(v) for k, v in m.items()}, dist_whole(params)
+
+
+def dist_smoke_cfg(arch: str):
+    """The smoke configs of the default run (deepseek-v3's with 8
+    experts, top-2 at DIST_CAPACITY)."""
+    from repro_torch import configs
+    cfg = configs.get_smoke(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=2, capacity_factor=DIST_CAPACITY))
+    return cfg
+
+
+def dist_rank_smoke(rank: int, world: int, ckpt_dir: str) -> dict:
+    """The default run's distributed phase, on one rank (see above)."""
+    import os
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_process_mesh, mesh_axes
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (init_caches, init_lm,
+                                                lm_decode_step)
+    from repro_torch.train import CheckpointManager, adamw
+    dist_setup()
+    kernels = dist_kernels()
+    shape = dist_mesh_shape(world)
+    mesh = make_process_mesh(shape, ("data", "model"))
+    dp, model, _ = mesh_axes(mesh)
+    lines = [f"distributed: {world} rank(s), NCCL, mesh {shape} "
+             f"('data', 'model') over {torch.cuda.device_count()} card(s)"]
+    launches = {}
+    for arch in ("llama3.2-1b", "deepseek-v3-671b"):
+        cfg = dist_smoke_cfg(arch)
+        batch = TokenPipeline(cfg.vocab, 32, 8, seed=1,
+                              device=mesh.device).batch(0)
+        want = dist_one_step(cfg, init_lm(0, cfg, device=mesh.device),
+                             batch)
+        placed, shard = dist_place(init_lm(0, cfg, device=mesh.device), mesh)
+        for fn in kernels.values():
+            fn.launches = 0
+        got = dist_one_step(cfg, placed, batch, mesh)
+        torch.cuda.synchronize()
+        launches[arch] = {n: fn.launches for n, fn in kernels.items()}
+        lines.append(dist_step_check(
+            f"{arch} smoke sharded step over {shape}", got, want)
+            + f"; launches {launches[arch]}")
+        assert all(launches[arch].values()), launches
+    # deepseek-v3's decode over the mesh, and the decode paths of its MoE
+    cfg = dist_smoke_cfg("deepseek-v3-671b")
+    params = init_lm(0, cfg, device=mesh.device)
+    placed, shard = dist_place(init_lm(0, cfg, device=mesh.device), mesh)
+    b = 4 * mesh.shape["data"]
+    caches = init_caches(cfg, b, 4, device=mesh.device, mesh=mesh,
+                         dp_axes=dp, model_axis=model)
+    one = init_caches(cfg, b, 4, device=mesh.device)
+    toks = torch.arange(b, device=mesh.device) * 7 % cfg.vocab
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(3):
+            lg, caches = lm_decode_step(placed, cfg, toks, caches, i,
+                                        mesh=mesh, dp_axes=dp,
+                                        model_axis=model)
+            want, one = lm_decode_step(params, cfg, toks, one, i)
+            lg = col.gather(lg, mesh, 0, dp)
+            worst = max(worst, float((lg - want).abs().max()
+                                     / want.abs().max()))
+            toks = want.argmax(-1)
+        # one MoE layer's weights, whole on every rank
+        layer = {k: ({kk: vv[0] for kk, vv in v.items()}
+                     if isinstance(v, dict) else v[0])
+                 for k, v in params["stage_1"]["moe"].items()}
+        x = torch.randn((b, 1, cfg.d_model), generator=torch.Generator(
+            mesh.device).manual_seed(3), device=mesh.device)
+        ref, _ = moe.moe_dense(layer, x, cfg)
+        gathered = {}
+        for name, one_d in (("gathered2d", False), ("gathered", True)):
+            if one_d:
+                os.environ["REPRO_MOE_1D"] = "1"
+            try:
+                y, _ = moe.moe_apply(layer, col.take_block(x, mesh, 0, dp),
+                                     cfg, mesh=mesh, dp_axes=dp,
+                                     model_axis=model, path="gathered")
+            finally:
+                os.environ.pop("REPRO_MOE_1D", None)
+            y = col.gather(y, mesh, 0, dp)
+            gathered[name] = float((y - ref).abs().max() / ref.abs().max())
+    lines.append(f"deepseek-v3 smoke lm_decode_step over {shape}: 3 steps, "
+                 f"logits within {worst:.3e} of max|one card| (limit "
+                 f"{DIST_DECODE_RTOL:g}); moe_apply(path='gathered') on the "
+                 f"decode's tokens vs moe_dense: {gathered}")
+    assert worst <= DIST_DECODE_RTOL and all(
+        e <= DIST_DECODE_RTOL for e in gathered.values()), lines[-1]
+    # a checkpoint saved from the mesh, restored onto it
+    opt = adamw(1e-3)
+    state = {"params": placed, "opt": opt.init(placed)}
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(1, state)
+    like = {"params": dist_place(init_lm(1, cfg, device=mesh.device),
+                                 mesh)[0]}
+    like["opt"] = opt.init(like["params"])
+    got = mgr.restore(1, like, shardings={"params": shard, "opt": {
+        "m": shard, "v": shard}})
+    a, b_ = dist_whole(state), dist_whole(got)
+    same = all(torch.equal(a[k], b_[k]) for k in a) and set(a) == set(b_)
+    lines.append(f"checkpoint saved from {shape} and restored by "
+                 f"restore(shardings=): {len(a)} leaves bit for bit: {same}")
+    assert same
+    return {"lines": lines, "launches": launches}
+
+
+def distributed_phase(card: str) -> None:
+    """The default run's distributed phase: one rank a visible card."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "tools"))
+    from ranks import run_ranks
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as ckpt:
+        res = run_ranks(dist_rank_smoke, world, ckpt, device_type="cuda",
+                        timeout_s=DIST_TIMEOUT_S)
+    for line in res[0]["lines"]:
+        log(f"{line}  [{card}]")
+
+
+def dist_train_steps(cfg, params, mesh, n: int, profiled: int = 0):
+    """``n`` bf16 steps of what ``launch.train.train`` builds (AdamW, the
+    cosine schedule from 3e-4, the launcher's pipeline) on ``params``
+    (placed on ``mesh``, or on one card): (losses, aux losses, step ms,
+    and with ``profiled`` the device events of that many more steps)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.train import adamw, build_train_step
+    from repro_torch.train.optim import cosine_schedule
+    opt = adamw(cosine_schedule(3e-4, warmup=min(20, n // 10 + 1), total=n))
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    step = build_train_step(cfg, opt, **kw)
+    state = [params, opt.init(params)]
+    dev = mesh.device if mesh is not None else dist_device()
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                         device=dev)
+    hist, aux, ms = [], [], []
+
+    def one(s):
+        state[0], state[1], m = step(state[0], state[1], pipe.batch(s))
+        return m
+
+    for s in range(n):
+        t0 = time.perf_counter()
+        m = one(s)
+        hist.append(m["loss"].item())
+        aux.append(m["aux"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    events = None
+    if profiled:
+        it = iter(range(n, n + profiled))
+        events = device_events(lambda: one(next(it)), profiled)
+    del state
+    return hist, aux, ms, events
+
+
+def dist_profile_line(events, n: int) -> str:
+    """Device busy, idle share, the NCCL kernels' time and the top
+    kernels of ``n`` profiled steps on this rank's card."""
+    busy, window = device_busy(events)
+    by = {}
+    for e in events:
+        name = kernel_base(e.name)
+        # the profiler also puts each collective's span ("nccl:...") on
+        # the device's timeline, beside its kernel: count the kernel
+        if not name.startswith("nccl:"):
+            by[name] = by.get(name, 0.0) + e.time_range.end \
+                - e.time_range.start
+    nccl = sum(t for k, t in by.items() if k.startswith("ncclDevKernel"))
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    return (f"profile of {n} steps, rank 0's card: busy {busy / n / 1e3:.4f}"
+            f" ms a step of {window / n / 1e3:.4f}, idle "
+            f"{1 - busy / window:.3f}; NCCL kernels {nccl / n / 1e3:.4f} ms "
+            f"a step; top: " + ", ".join(
+                f"{k[:48]} {t / n / 1e3:.4f}" for k, t in top))
+
+
+def dist_loss_line(what, hist, ms) -> str:
+    drop = hist[0] - hist[-1]
+    steps = ms[TRAIN_WARM:]
+    p50 = statistics.median(steps)
+    line = (f"{what}: loss {hist[0]:.4f} -> {hist[-1]:.4f} (fell "
+            f"{drop:.4f}, limit {TRAIN_DROP:g}) {[round(x, 4) for x in hist]};"
+            f" step p50 {p50:.4f} ms over {len(steps)} steps after "
+            f"{TRAIN_WARM} (host clock, synchronized), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.1f} tokens/s")
+    assert all(map(math.isfinite, hist)) and drop >= TRAIN_DROP, line
+    return line
+
+
+def dist_bandwidth(mesh, mb: int = 64, n: int = 5) -> str:
+    """The collectives' measured rates on ``mesh``: an fp32 all-reduce
+    and an all-gather of ``mb`` MiB over each axis, by CUDA events over
+    ``n`` calls after one warm-up (bus bandwidth, NCCL's convention:
+    2(k-1)/k of the bytes for an all-reduce, (k-1)/k for a gather)."""
+    import torch.distributed as dist
+    out = []
+    for axis in mesh.axis_names:
+        k = mesh.shape[axis]
+        if k == 1:
+            continue
+        group = mesh.group(axis)
+        x = torch.ones(mb * 2**18, device=mesh.device)
+        y = torch.empty(k * x.numel(), device=mesh.device)
+        for what, call, factor in (
+                ("all-reduce", lambda: dist.all_reduce(x, group=group),
+                 2 * (k - 1) / k),
+                ("all-gather", lambda: dist.all_gather_into_tensor(
+                    y, x, group=group), (k - 1))):
+            call()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(n):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / n
+            gbs = factor * mb * 2**20 / (ms * 1e-3) / 1e9
+            out.append(f"{what} of {mb} MiB over {axis!r} ({k} ranks) "
+                       f"{ms:.3f} ms, bus {gbs:.1f} GB/s")
+    return "collectives: " + "; ".join(out)
+
+
+def dist_rank_full(rank: int, world: int) -> list[str]:
+    """``--distributed``: (a), (b) and (c) above on this rank; rank 0's
+    lines."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.weights import param_dtypes, param_shapes
+    dist_setup()
+    kernels = dist_kernels()
+    lines = [f"--distributed: {world} ranks, NCCL, one a card"]
+    dev = dist_device()
+    # (a) llama3.2-1b at its published size over (2, 2)
+    mesh = make_process_mesh((2, 2), ("data", "model"))
+    line = dist_bandwidth(mesh)
+    if rank == 0:
+        lines.append(line)
+    full = configs.get("llama3.2-1b")
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    from repro_torch.data import TokenPipeline
+    batch = TokenPipeline(full.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                          device=dev).batch(0)
+    want = None
+    if rank == 0:
+        want = dist_one_step(cfg32, init_lm(0, cfg32, device=dev), batch)
+        free_cuda()
+    dist.barrier()
+    placed, _ = dist_place(init_lm(0, cfg32, device=dev), mesh)
+    free_cuda()
+    got = dist_one_step(cfg32, placed, batch, mesh)
+    if rank == 0:
+        lines.append(dist_step_check(
+            "llama3.2-1b published size, fp32 step over (2, 2), batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}", got, want))
+    del placed, got, want
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    placed, _ = dist_place(init_lm(0, full, device=dev), mesh)
+    for fn in kernels.values():
+        fn.launches = 0
+    hist, _, ms, _ = dist_train_steps(full, placed, mesh, DIST_STEPS)
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    free_cuda()
+    placed, _ = dist_place(init_lm(0, full, device=dev), mesh)
+    events = dist_train_steps(full, placed, mesh, 1, DIST_PROFILED)[3]
+    del placed
+    free_cuda()
+    if rank == 0:
+        lines.append(dist_loss_line(
+            f"llama3.2-1b bf16 over (2, 2), {DIST_STEPS} steps", hist, ms)
+            + f"; launches on rank 0 {counts}; peak {peak:.3f} GiB a rank; "
+            + dist_profile_line(events, DIST_PROFILED))
+        h1, _, ms1, ev1 = dist_train_steps(
+            full, init_lm(0, full, device=dev), None, DIST_STEPS,
+            DIST_PROFILED)
+        lines.append(dist_loss_line(
+            f"llama3.2-1b bf16 on one card, {DIST_STEPS} steps", h1, ms1)
+            + "; " + dist_profile_line(ev1, DIST_PROFILED))
+        free_cuda()
+    want_n = full.n_layers * DIST_STEPS
+    assert counts == {n: want_n for n in kernels}, counts
+    dist.barrier()
+    # (b) deepseek-v3 at its published width, depth cut, over (1, 4)
+    mesh = make_process_mesh((1, 4), ("data", "model"))
+    cfg = dataclasses.replace(configs.get("deepseek-v3-671b"),
+                              n_layers=DIST_DEEPSEEK_LAYERS)
+    placed, shard = dist_place(init_lm(0, cfg, device=dev), mesh)
+    free_cuda()
+    specs = sharding.param_specs(param_shapes(cfg), mesh)
+    stated = sum(row[3] for row in sharding.explain(
+        param_shapes(cfg), specs, mesh, param_dtypes(cfg)))
+    from repro_torch.train.optim import tree_leaves
+    held = sum(col.local(t).numel() * col.local(t).element_size()
+               for t in tree_leaves(placed))
+    drops, loads = [0, 0], []
+    a2a = moe.moe_a2a
+
+    def counted_a2a(*args, **kw):
+        stats = {}
+        out = a2a(*args, **{**kw, "stats": stats})
+        d = stats["dropped"]
+        n = torch.tensor([int(d.sum()), d.numel()], device=d.device)
+        dist.all_reduce(n)
+        load = stats["load"].clone()
+        dist.all_reduce(load)
+        drops[0] += int(n[0])
+        drops[1] += int(n[1])
+        loads.append(float(load.max()) / float(load.float().mean()))
+        return out
+
+    moe.moe_a2a = counted_a2a
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    try:
+        hist, aux, ms, events = dist_train_steps(cfg, placed, mesh,
+                                                 DIST_STEPS, DIST_PROFILED)
+    finally:
+        moe.moe_a2a = a2a
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    free_cuda()
+    if rank == 0:
+        n_exp = cfg.moe.n_experts // mesh.shape["model"]
+        lines.append(dist_loss_line(
+            f"deepseek-v3 published width, depth {DIST_DEEPSEEK_LAYERS} "
+            f"(3 dense MLA + 1 MoE of {cfg.moe.n_experts} experts, "
+            f"{n_exp} a card), bf16, fp32 moments, over (1, 4), batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}", hist, ms)
+            + f"; launches on rank 0 {counts}; peak {peak:.3f} GiB a rank "
+              f"(max_memory_allocated); parameters a rank: explain() "
+              f"{stated / 2**30:.3f} GiB, held {held / 2**30:.3f} GiB; "
+              f"a2a dropped {drops[0]} of {drops[1]} (token, k) entries "
+              f"over {DIST_STEPS + DIST_PROFILED} forwards (capacity factor "
+              f"{cfg.moe.capacity_factor}); the busiest expert's load over "
+              f"the mean: first forward {loads[0]:.2f}, last {loads[-1]:.2f}"
+              f"; aux {aux[0]:.4f} -> {aux[-1]:.4f}; "
+            + dist_profile_line(events, DIST_PROFILED))
+    assert stated == held, (stated, held)
+    assert counts == {n: cfg.n_layers * (DIST_STEPS + DIST_PROFILED)
+                      for n in kernels}, counts
+    dist.barrier()
+    # (c) pipeline_apply over 4 stages, one a card
+    mesh = make_process_mesh((PIPE_STAGES,), ("stage",))
+    for n_micro, mb, d in PIPE_SHAPES:
+        g = torch.Generator(dev).manual_seed(d)
+        W = torch.randn((PIPE_STAGES, d, d), generator=g, device=dev) \
+            * (1.2 / math.sqrt(d))
+        xs = torch.randn((n_micro, mb, d), generator=g, device=dev)
+        w = sharding.device_put(W, sharding.NamedSharding(
+            mesh, ("stage", None, None)))
+        col.local(w).requires_grad_(True)
+        ys = pipeline_apply(lambda p, x: torch.tanh(x @ p), w, xs,
+                            mesh=mesh, axis="stage")
+        ys.sum().backward()
+        grad = col.gather(col.local(w).grad, mesh, 0, "stage")
+        Wr = W.clone().requires_grad_(True)
+        r = xs
+        for i in range(PIPE_STAGES):
+            r = torch.tanh(r @ Wr[i])
+        r.sum().backward()
+        fwd = float((ys - r).detach().abs().max())
+        bwd = float((grad - Wr.grad).abs().max())
+        line = (f"pipeline_apply over {PIPE_STAGES} stages on {world} "
+                f"cards, n_micro {n_micro}, mb {mb}, d {d}, fp32: ys "
+                f"max|diff| {fwd:.3e} (limit {PIPE_FWD_ATOL:g}), grads "
+                f"{bwd:.3e} (limit {PIPE_GRAD_ATOL:g})")
+        assert fwd < PIPE_FWD_ATOL and bwd < PIPE_GRAD_ATOL, line
+        lines.append(line)
+    return lines
+
+
+def distributed_full_phase(card: str) -> None:
+    """``--distributed``: one rank a card, every card (four)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from ranks import run_ranks
+    world = torch.cuda.device_count()
+    assert world >= 4, f"--distributed needs 4 cards, found {world}"
+    res = run_ranks(dist_rank_full, 4, device_type="cuda",
+                    timeout_s=DIST_TIMEOUT_S)
+    for line in res[0]:
+        log(f"{line}  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4975,6 +5519,11 @@ def main() -> int:
         rows = train_phase(kernels, card)
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
+        return finish()
+    if "--distributed" in sys.argv[1:]:
+        distributed_full_phase(card)
+        stamp("distributed phase (four cards)")
+        log(f"card: {card}")
         return finish()
     if "--train-families" in sys.argv[1:]:
         rows = train_families_phase(kernels, card, True, [
@@ -5079,6 +5628,8 @@ def main() -> int:
     stamp("training families phase")
     dense_rows = dense_phase(kernels, card, timed=False)
     stamp("dense phase")
+    distributed_phase(card)
+    stamp("distributed phase")
 
     # ---- phase 4: timing -----------------------------------------------
     rows = []

@@ -25,16 +25,26 @@ port's nested dicts; a leaf is a shape tuple (``models.weights
 ``.shape`` (tensors; ``init_caches(..., device="meta")`` gives a cache
 tree without allocating).
 
-``shardings`` — binding specs to devices as DTensors over
-``torch.distributed`` — is ROADMAP queue 1 item 6's second half.
+``shardings`` binds a spec tree to a mesh bound to ``torch.distributed``
+(``launch.mesh.make_process_mesh``): a ``NamedSharding`` per leaf, whose
+``placements`` are the ``DTensor`` placements of the spec (``Shard(dim)``
+on each mesh dim a tensor dim is split over, ``Replicate()`` on the
+others).  ``device_put`` is the counterpart of ``jax.device_put(tree,
+shardings)``: every rank holds the full tensors and keeps its own block
+of each as a ``DTensor``, the block a spec of several axes cuts outer axis
+first, as the reference's layout does.  A dim ``_fit`` left unsharded is
+replicated, as the rule table says; ``explain()``'s bytes per device are
+the bytes of each rank's block.
 """
 from __future__ import annotations
 
 import math
 import re
 
+import torch
+
 __all__ = ["param_spec", "param_specs", "batch_specs", "cache_specs",
-           "shardings", "explain"]
+           "NamedSharding", "shardings", "device_put", "explain"]
 
 
 def P(*entries) -> tuple:
@@ -179,12 +189,79 @@ def cache_specs(cache_shapes, mesh, *, dp=("data",), model="model"):
     return _map_with_path(visit, cache_shapes)
 
 
+class NamedSharding:
+    """A spec bound to a process mesh: the port's
+    ``jax.sharding.NamedSharding``."""
+
+    def __init__(self, mesh, spec):
+        if getattr(mesh, "device_mesh", None) is None:
+            raise ValueError("shardings need a mesh bound to "
+                             "torch.distributed (launch.mesh"
+                             ".make_process_mesh)")
+        self.mesh, self.spec = mesh, tuple(spec)
+        names = mesh.axis_names
+        for entry in self.spec:
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if any(a not in names for a in axes):
+                raise ValueError(f"spec {self.spec} names an axis the mesh "
+                                 f"{names} lacks")
+            if list(axes) != sorted(axes, key=names.index):
+                raise ValueError(f"spec {self.spec}: a dim's axes must "
+                                 f"follow the mesh's order {names}")
+
+    @property
+    def placements(self) -> list:
+        from torch.distributed.tensor import Replicate, Shard
+        out = [Replicate() for _ in self.mesh.axis_names]
+        for dim, entry in enumerate(self.spec):
+            for a in (entry,) if isinstance(entry, str) else (entry or ()):
+                out[self.mesh.axis_names.index(a)] = Shard(dim)
+        return out
+
+    def block(self, full):
+        """This rank's block of the full tensor ``full`` (a view)."""
+        for dim, entry in enumerate(self.spec):
+            for a in (entry,) if isinstance(entry, str) else (entry or ()):
+                n = self.mesh.shape[a]
+                if full.shape[dim] % n:
+                    raise ValueError(f"dim {dim} of {tuple(full.shape)} "
+                                     f"does not divide over {a} ({n})")
+                size = full.shape[dim] // n
+                full = full.narrow(dim, self.mesh.axis_index(a) * size, size)
+        return full
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec}, axes={self.mesh.axis_names})"
+
+
 def shardings(spec_tree, mesh):
-    """Binding specs to devices (DTensors over ``torch.distributed``)."""
-    raise NotImplementedError(
-        "shardings(): placing the LM's tensors on a device mesh over "
-        "torch.distributed is ROADMAP queue 1 item 6's second half; the "
-        "port runs the LM on one device")
+    """A ``NamedSharding`` per spec of ``spec_tree`` over ``mesh``."""
+    return _map_with_path(lambda _, spec: NamedSharding(mesh, spec),
+                          spec_tree)
+
+
+def place(full, sharding: NamedSharding):
+    """One tensor as a ``DTensor`` holding this rank's block of it (a copy
+    of its own, on the rank's device)."""
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    block = sharding.block(full).to(mesh.device).clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(block, mesh.device_mesh, sharding.placements,
+                              run_check=False)
+
+
+def device_put(tree, sharding_tree):
+    """``jax.device_put(tree, shardings)``: each leaf of ``tree`` (the
+    full tensor, the same on every rank) placed by its sharding, a
+    ``DTensor`` of this rank's block; a leaf whose sharding is missing or
+    None is returned as it is."""
+    if isinstance(tree, dict):
+        return {k: device_put(v, (sharding_tree or {}).get(k))
+                for k, v in tree.items()}
+    if sharding_tree is None:
+        return tree
+    return place(tree, sharding_tree)
 
 
 def explain(shapes, specs, mesh, dtypes=None):

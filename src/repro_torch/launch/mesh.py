@@ -21,11 +21,18 @@ the CPU tests serve over ``["cpu"] * n``, and the card check over
 
 The batch-sharded GNN-CV path (``gcv.compile(devices=)`` /
 ``gcv.serve(devices=)``) runs over a 1-D ``("data",)`` mesh in one
-process.  Binding a mesh to ``torch.distributed.device_mesh`` for the LM's
-multi-process sharding is ROADMAP queue 1 item 6's second half.
+process.  The LM's sharded paths run one process (rank) per mesh entry:
+``init_process_group`` joins a rank to its group (NCCL on cuda, gloo on
+the CPU; a rank's card is made current first), and ``make_process_mesh``
+binds a ``Mesh`` to a ``torch.distributed.device_mesh.DeviceMesh`` with
+the same axis names, degrading as the builders above do when the group
+has fewer ranks than the shape asks.  Spawning the ranks is the caller's
+job (the reference is one controller and has no launcher to port); the
+tests and ``chip_smoke.py`` use ``tools/ranks.py``.
 """
 from __future__ import annotations
 
+import datetime
 import warnings
 
 import numpy as np
@@ -41,9 +48,14 @@ class Mesh:
     ``axis_names`` one name per grid axis, ``shape`` the ordered map axis
     -> size, ``size`` the number of entries.  Two meshes are equal when
     their grids and axis names are, so equal meshes share a runner-cache
-    entry (``core.runtime.cache``)."""
+    entry (``core.runtime.cache``).
 
-    def __init__(self, devices, axis_names):
+    A mesh from ``make_process_mesh`` is also bound to a ``DeviceMesh``
+    (``device_mesh``): entry ``i`` (row-major) is rank ``i``, and
+    ``group``, ``axis_index`` and ``axis_ranks`` name this rank's process
+    groups and place along each axis.  Other meshes have none."""
+
+    def __init__(self, devices, axis_names, *, device_mesh=None):
         src = np.asarray(devices, dtype=object)
         grid = np.empty(src.shape, dtype=object)
         for i, d in np.ndenumerate(src):
@@ -53,6 +65,7 @@ class Mesh:
         assert grid.ndim == len(self.axis_names), \
             f"a {grid.ndim}-D device grid needs {grid.ndim} axis names, " \
             f"got {self.axis_names}"
+        self.device_mesh = device_mesh
 
     @property
     def shape(self) -> dict[str, int]:
@@ -61,6 +74,43 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def _bound(self):
+        if self.device_mesh is None:
+            raise ValueError(
+                "this mesh is not bound to torch.distributed: build it with "
+                "launch.mesh.make_process_mesh on every rank")
+        return self.device_mesh
+
+    @property
+    def rank(self) -> int:
+        """This process's rank: its entry in the row-major grid."""
+        return int(self._bound().get_rank())
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices.flat[self.rank]
+
+    def group(self, axis: str):
+        """The process group of the ranks that share this rank's place on
+        every axis but ``axis``."""
+        return self._bound().get_group(axis)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return int(np.unravel_index(self.rank, self.devices.shape)[
+            self.axis_names.index(axis)])
+
+    def axis_ranks(self, axis: str) -> list[int]:
+        """The global ranks along ``axis`` through this rank, in order."""
+        where = list(np.unravel_index(self.rank, self.devices.shape))
+        k = self.axis_names.index(axis)
+        out = []
+        for i in range(self.devices.shape[k]):
+            where[k] = i
+            out.append(int(np.ravel_multi_index(where, self.devices.shape)))
+        return out
 
     def _key(self) -> tuple:
         return (self.devices.shape, self.axis_names,
@@ -185,3 +235,76 @@ def mesh_axes(mesh):
     model = "model" if "model" in names else names[-1]
     dp = tuple(n for n in names if n != model)
     return dp, model, dp
+
+
+# ------------------------------------------------------------ processes --
+# How long a rank waits in a collective before its group fails (NCCL's
+# watchdog, gloo's timeout): long enough for one rank's one-card
+# comparison step while the others wait at a barrier.
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def init_process_group(rank: int, world_size: int, init_method: str, *,
+                       device_type: str = "cuda") -> torch.device:
+    """Join this process to its group as ``rank`` of ``world_size``
+    (``init_method`` e.g. ``"tcp://localhost:<port>"``): NCCL on cuda,
+    where the rank's card (``rank`` mod the cards) is made current first
+    and the group binds to it; gloo on cpu.  Returns the rank's device.
+    A rank that cannot join raises; there is no one-process fallback."""
+    import torch.distributed as dist
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "nccl", init_method=init_method, world_size=world_size,
+            rank=rank, device_id=dev, timeout=GROUP_TIMEOUT)
+    elif device_type == "cpu":
+        dev = torch.device("cpu")
+        dist.init_process_group(
+            "gloo", init_method=init_method, world_size=world_size,
+            rank=rank, timeout=GROUP_TIMEOUT)
+    else:
+        raise ValueError(f"device_type must be cuda or cpu, got "
+                         f"{device_type!r}")
+    return dev
+
+
+def make_process_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
+    """A ``Mesh`` over the ranks of the initialized group, bound to a
+    ``DeviceMesh`` of the same shape and axis names (every rank calls it,
+    in the same order).  With fewer ranks than ``shape`` asks, the
+    largest fitting shape is built instead, with the builders' warning and
+    trace marker; the (fitted) shape must then use every rank.  On a
+    one-card host that is a ``(1, 1)`` mesh: NCCL takes one rank a card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    want = tuple(int(s) for s in shape)
+    if int(np.prod(want)) > world:
+        got = fit_shape(want, world)
+        warnings.warn(
+            f"mesh shape {want} needs {int(np.prod(want))} ranks but only "
+            f"{world} exist; degrading to {got} (axes {tuple(axes)})",
+            UserWarning, stacklevel=2)
+        obs.instant("mesh.degraded", cat="launch", requested=list(want),
+                    got=list(got), devices=world)
+        want = got
+    if int(np.prod(want)) != world:
+        raise ValueError(f"mesh shape {want} holds {int(np.prod(want))} "
+                         f"ranks, the group {world}")
+    backend = dist.get_backend()
+    device_type = "cuda" if backend == "nccl" else "cpu"
+    dm = init_device_mesh(device_type, want, mesh_dim_names=tuple(axes))
+    n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    grid = [torch.device("cuda", r % n_cards) if n_cards
+            else torch.device("cpu") for r in range(world)]
+    return Mesh(np.asarray(grid, dtype=object).reshape(want), tuple(axes),
+                device_mesh=dm)
+
+
+def destroy_process_group() -> None:
+    """Leave the group (each phase of a run ends with it, or the next
+    group's setup waits on the last one's)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -12,8 +12,16 @@ The step clock reads the loss with ``.item()``, which waits for the step,
 as the reference's ``float(metrics["loss"])`` does; the result adds each
 step's host milliseconds (``step_ms``) to the reference's keys.  Weights
 are random, drawn from ``seed`` on the device; the step is eager (the
-reference jits it).  Runs on ``cuda`` unless ``device="cpu"`` (``--device cpu``); a
-``mesh`` raises ``NotImplementedError`` (ROADMAP queue 1 item 6).
+reference jits it).  Runs on ``cuda`` unless ``device="cpu"``
+(``--device cpu``).
+
+``mesh=`` (every rank of a ``launch.mesh.make_process_mesh`` mesh calls
+``train`` alike): the reference's FSDP+TP step over ``dp = ("data",)``
+and ``"model"`` (``dp = ()`` without a mesh, as there), the weights drawn
+whole on each rank's device and placed by the rule table
+(``distributed.sharding``), the moments placed alike, checkpoints saved
+from the mesh and restored onto it (``restore(shardings=)``), whatever
+mesh wrote them; rank 0 alone prints.
 
 Usage:
   python -m repro_torch.launch.train --device cpu --steps 5
@@ -28,7 +36,8 @@ import time
 
 from repro_torch import configs
 from repro_torch.data import TokenPipeline
-from repro_torch.models.transformer import check_single_device, init_lm
+from repro_torch.distributed import sharding
+from repro_torch.models.transformer import check_mesh, init_lm
 from repro_torch.train import CheckpointManager, adamw, build_train_step
 from repro_torch.train.optim import cosine_schedule
 
@@ -38,26 +47,42 @@ def train(arch: str, *, steps: int = 100, smoke: bool = True,
           ckpt_every: int = 50, lr: float = 3e-4, microbatches: int = 1,
           seed: int = 0, log_every: int = 10, straggler_factor: float = 3.0,
           mesh=None, total_steps: int | None = None, device: str = "cuda"):
-    check_single_device(mesh)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    check_mesh(cfg, mesh)
+    dp, model_axis = ("data",), "model"
+    if mesh is None:
+        dp = ()
+    else:
+        device = mesh.device
+    loud = mesh is None or mesh.rank == 0
     total = total_steps or steps       # schedule horizon survives restarts
     pipe = TokenPipeline(cfg.vocab, seq_len, batch, seed=seed, device=device)
     opt = adamw(cosine_schedule(lr, warmup=min(20, total // 10 + 1),
                                 total=total))
-    step_fn = build_train_step(cfg, opt, microbatches=microbatches)
+    step_fn = build_train_step(cfg, opt, mesh=mesh, dp_axes=dp,
+                               model_axis=model_axis,
+                               microbatches=microbatches)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     params = init_lm(seed, cfg, device=device)
+    shard = None
+    if mesh is not None:
+        pshard = sharding.shardings(sharding.param_specs(
+            params, mesh, fsdp=dp, model=model_axis), mesh)
+        params = sharding.device_put(params, pshard)
+        shard = {"params": pshard, "opt": {"m": pshard, "v": pshard}}
     opt_state = opt.init(params)
     if mgr:
         mgr.install_preemption_hook()
         latest = mgr.latest_step()
         if latest is not None:
-            state = mgr.restore(latest, {"params": params, "opt": opt_state})
+            state = mgr.restore(latest, {"params": params, "opt": opt_state},
+                                shardings=shard)
             params, opt_state = state["params"], state["opt"]
             start = latest
-            print(f"[resume] step {latest}", flush=True)
+            if loud:
+                print(f"[resume] step {latest}", flush=True)
 
     history = []
     durations = []
@@ -72,10 +97,11 @@ def train(arch: str, *, steps: int = 100, smoke: bool = True,
         med = statistics.median(durations[-50:])
         if len(durations) > 5 and dt > straggler_factor * med:
             stragglers += 1
-            print(f"[straggler] step {step} took {dt:.2f}s "
-                  f"(median {med:.2f}s)", flush=True)
+            if loud:
+                print(f"[straggler] step {step} took {dt:.2f}s "
+                      f"(median {med:.2f}s)", flush=True)
         history.append(loss)
-        if step % log_every == 0:
+        if loud and step % log_every == 0:
             print(f"step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics.get('grad_norm', 0)):7.3f} "
                   f"{dt*1e3:7.1f} ms", flush=True)
@@ -83,7 +109,8 @@ def train(arch: str, *, steps: int = 100, smoke: bool = True,
             mgr.save(step + 1, {"params": params, "opt": opt_state},
                      extra={"loss": loss, "data_cursor": step + 1})
             if mgr.preempted:
-                print("[preempted] checkpointed, exiting", flush=True)
+                if loud:
+                    print("[preempted] checkpointed, exiting", flush=True)
                 return {"history": history, "preempted": True,
                         "stragglers": stragglers}
     return {"history": history, "final_loss": history[-1] if history else

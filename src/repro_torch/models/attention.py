@@ -40,6 +40,21 @@ instantiation under ``chunked``.  A decode step is the reference's
 weight-absorbed form: scores and context in the latent space, from the
 cache of ``ckv`` and ``kr`` alone, as fp32 einsums (no kernel stands
 behind it in the reference either).
+
+Under a mesh context (``layers.shard_axes``) each rank runs its model
+rank's share of the heads (``local_heads``, ``layers.model_part``) on its
+batch rows: the projections read only those heads' columns (a weight
+sharded over the model axis on exactly them is not gathered; one split
+elsewhere, mid-head, is gathered whole and cut at whole heads), the
+attention core (the flash forward and backward kernels under
+``chunked``) runs on the local ``(batch / dp, heads / model)`` slice,
+and the output projection's partial sums over the model axis meet in
+fp32 (``layers.psum_model``), as the reference's layout pins them.  A
+GQA group's q heads read their kv head on the same rank: a rank's kv
+heads are those its q heads read, each repeated per q head where the
+rank's heads cut a group unevenly.  MLA's latent projections (``wdq``,
+``wdkv``) are read whole, so the shared latent and rope key are the same
+on every model rank.
 """
 from __future__ import annotations
 
@@ -50,7 +65,8 @@ import torch
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.models.layers import (dot, head_rms_norm, init_linear,
-                                       rms_norm, rope, wide)
+                                       model_part, psum_model, rms_norm,
+                                       rope, weight, wide)
 
 NEG = -1e30
 
@@ -239,21 +255,53 @@ def init_gqa(gen, cfg, dtype):
     return p
 
 
+def local_heads(n_heads: int, n_kv: int):
+    """This model rank's q heads ``[lo, hi)`` and the kv heads they read,
+    in order: a range, one per group (the group's q heads sit on this rank
+    with it), or a list, one per q head where the rank's heads cut a group
+    unevenly.  All heads without a mesh context."""
+    lo, hi = model_part(n_heads)
+    if (lo, hi) == (0, n_heads):
+        return lo, hi, range(n_kv)
+    if hi <= lo:
+        raise NotImplementedError(
+            f"{n_heads} heads over a larger model axis leave a rank none "
+            f"(ROADMAP queue 1 item 6c)")
+    g = n_heads // n_kv
+    kv = [h // g for h in range(lo, hi)]
+    distinct = range(kv[0], kv[-1] + 1)
+    per, rest = divmod(hi - lo, len(distinct))
+    if not rest and kv == [h for h in distinct for _ in range(per)]:
+        return lo, hi, distinct
+    return lo, hi, kv
+
+
+def _head_cols(heads, width: int, device):
+    """The columns of ``heads`` (a range, or a list of heads) in a ``(..,
+    heads · width)`` projection: a slice, or an index tensor."""
+    if isinstance(heads, range):
+        return slice(heads.start * width, heads.stop * width)
+    return torch.tensor([h * width + i for h in heads for i in range(width)],
+                        device=device)
+
+
 def gqa_project(params, x, positions, cfg):
     """-> q ``(B, S, H, hd)``, k, v ``(B, S, Hkv, hd)`` with bias, qk-norm
-    and rope applied."""
+    and rope applied (this rank's heads under a mesh: ``local_heads``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dot(x, params["wq"])
-    k = dot(x, params["wk"])
-    v = dot(x, params["wv"])
+    lo, hi, kv = local_heads(cfg.n_heads, cfg.n_kv_heads)
+    qc, kc = slice(lo * hd, hi * hd), _head_cols(kv, hd, x.device)
+    q = dot(x, weight(params["wq"], -1, qc))
+    k = dot(x, weight(params["wk"], -1, kc))
+    v = dot(x, weight(params["wv"], -1, kc))
     if cfg.qkv_bias:
-        q = q + params["bq"].float()
-        k = k + params["bk"].float()
-        v = v + params["bv"].float()
-    q = q.to(x.dtype).reshape(B, S, cfg.n_heads, hd)
-    k = k.to(x.dtype).reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.to(x.dtype).reshape(B, S, cfg.n_kv_heads, hd)
+        q = q + weight(params["bq"], 0, qc).float()
+        k = k + weight(params["bk"], 0, kc).float()
+        v = v + weight(params["bv"], 0, kc).float()
+    q = q.to(x.dtype).reshape(B, S, hi - lo, hd)
+    k = k.to(x.dtype).reshape(B, S, len(kv), hd)
+    v = v.to(x.dtype).reshape(B, S, len(kv), hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -263,11 +311,21 @@ def gqa_project(params, x, positions, cfg):
     return q, k, v
 
 
+def _out_proj(params, x, out, head_width: int):
+    """The output projection of the attention output ``out`` ``(B, S,
+    H, head_width)``: this rank's heads' rows of ``wo``, the partial sums
+    added over the model axis in fp32 under a mesh, cast once."""
+    B, S = x.shape[:2]
+    lo, hi = model_part(params["wo"].shape[0] // head_width)
+    rows = slice(lo * head_width, hi * head_width)
+    y = dot(out.reshape(B, S, -1), weight(params["wo"], 0, rows))
+    return psum_model(y).to(x.dtype)
+
+
 def gqa_attend(params, x, q, k, v, *, impl="chunked", offset=0):
     """Attention of projected q, k, v and the output projection."""
     out = attention_impl(impl)(q, k, v, causal=True, offset=offset)
-    B, S = x.shape[:2]
-    return dot(out.reshape(B, S, -1), params["wo"]).to(x.dtype)
+    return _out_proj(params, x, out, v.shape[-1])
 
 
 def gqa_forward(params, x, positions, cfg, *, impl="chunked", offset=0):
@@ -297,13 +355,15 @@ def _mla_qkr(params, x, positions, cfg):
     H, rope)``, ckv ``(B, S, kv_lora)``, kr ``(B, S, 1, rope)``."""
     m = cfg.mla
     B, S, _ = x.shape
-    cq = rms_norm(dot(x, params["wdq"]).to(x.dtype), params["q_norm"],
-                  cfg.norm_eps)
-    q = dot(cq, params["wuq"]).to(x.dtype).reshape(
-        B, S, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
+    qh = m.nope_head_dim + m.rope_head_dim
+    lo, hi = model_part(cfg.n_heads)
+    cq = rms_norm(dot(x, weight(params["wdq"])).to(x.dtype),
+                  params["q_norm"], cfg.norm_eps)
+    q = dot(cq, weight(params["wuq"], -1, slice(lo * qh, hi * qh))).to(
+        x.dtype).reshape(B, S, hi - lo, qh)
     qn, qr = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     qr = rope(qr, positions, cfg.rope_theta)
-    dkv = dot(x, params["wdkv"]).to(x.dtype)
+    dkv = dot(x, weight(params["wdkv"])).to(x.dtype)
     ckv = rms_norm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
                    cfg.norm_eps)
     kr = rope(dkv[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)
@@ -318,8 +378,8 @@ def mla_attend(params, x, qn, qr, ckv, kr, cfg, *, impl="chunked",
     decompressed kv, read in place by the kernel)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
-    kv = dot(ckv, params["wukv"]).to(x.dtype).reshape(
+    H = qn.shape[2]
+    kv = dot(ckv, _wukv(params, cfg)).to(x.dtype).reshape(
         B, S, H, m.nope_head_dim + m.v_head_dim)
     kn, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
     q = torch.cat([qn, qr], -1)
@@ -327,7 +387,15 @@ def mla_attend(params, x, qn, qr, ckv, kr, cfg, *, impl="chunked",
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     out = attention_impl(impl)(q, k, v, causal=True, offset=offset,
                                scale=scale)
-    return dot(out.reshape(B, S, -1), params["wo"]).to(x.dtype)
+    return _out_proj(params, x, out, m.v_head_dim)
+
+
+def _wukv(params, cfg):
+    """``wukv``'s columns of this rank's heads (``(kv_lora, H · (nope +
+    v))``)."""
+    width = cfg.mla.nope_head_dim + cfg.mla.v_head_dim
+    lo, hi = model_part(cfg.n_heads)
+    return weight(params["wukv"], -1, slice(lo * width, hi * width))
 
 
 def mla_forward(params, x, positions, cfg, *, impl="chunked", offset=0):
@@ -357,8 +425,7 @@ def gqa_decode(params, x, cache_k, cache_v, length, cfg):
     _write_row(cache_k, rows, positions[:, 0], k1[:, 0])
     _write_row(cache_v, rows, positions[:, 0], v1[:, 0])
     out = decode_attention(q, cache_k, cache_v, positions[:, 0] + 1)
-    out = out.reshape(b, 1, -1)
-    return dot(out, params["wo"]).to(x.dtype), cache_k, cache_v
+    return _out_proj(params, x, out, out.shape[-1]), cache_k, cache_v
 
 
 def _write_row(cache, rows, pos, new) -> None:
@@ -378,14 +445,15 @@ def mla_decode(params, x, cache_ckv, cache_kr, length, cfg):
     stays rank ``kv_lora`` until ``W_uv``; fp32 (``wide``).  Returns
     ``(out, cache_ckv, cache_kr)``."""
     m = cfg.mla
-    B, H = x.shape[0], cfg.n_heads
+    B = x.shape[0]
     positions = _pos_vec(length, B, x.device)
     qn, qr, ckv1, kr1 = _mla_qkr(params, x, positions, cfg)
+    H = qn.shape[2]
     rows = torch.arange(B, device=x.device)
     _write_row(cache_ckv, rows, positions[:, 0], ckv1[:, 0])
     _write_row(cache_kr, rows, positions[:, 0], kr1[:, 0, 0])
-    wukv = params["wukv"].reshape(m.kv_lora_rank, H,
-                                  m.nope_head_dim + m.v_head_dim)
+    wukv = _wukv(params, cfg).reshape(m.kv_lora_rank, H,
+                                      m.nope_head_dim + m.v_head_dim)
     w_uk = wide(wukv[..., :m.nope_head_dim])         # (kv_lora, H, nope)
     w_uv = wide(wukv[..., m.nope_head_dim:])         # (kv_lora, H, v)
     ckv, kr = wide(cache_ckv), wide(cache_kr)
@@ -397,6 +465,5 @@ def mla_decode(params, x, cache_ckv, cache_kr, length, cfg):
     mask = torch.arange(ckv.shape[1], device=x.device)[None, None, None] <= lv
     p = torch.softmax(torch.where(mask, s, NEG), -1)
     ctx = torch.einsum("bhts,bsk->bthk", p, ckv)
-    out = torch.einsum("bthk,khv->bthv", ctx, w_uv)
-    out = out.reshape(B, 1, -1).to(x.dtype)
-    return dot(out, params["wo"]).to(x.dtype), cache_ckv, cache_kr
+    out = torch.einsum("bthk,khv->bthv", ctx, w_uv).to(x.dtype)
+    return _out_proj(params, x, out, m.v_head_dim), cache_ckv, cache_kr

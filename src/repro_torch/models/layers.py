@@ -21,22 +21,165 @@ own bf16 rounding); no weight is widened there.  On the CPU the operands
 are widened, which is the reference's arithmetic.  fp32 and float64
 operands take ``torch.matmul`` as they are.
 
-The reference's mesh constraints (``shard_axes``, ``wsc``) are a no-op on
-one device and are not ported.  ``causal_mask`` and ``cross_entropy`` (the
-training loss) are ported as they are.
+``causal_mask`` and ``cross_entropy`` (the training loss) are ported as
+they are.
+
+The sharding context (``shard_axes``, ``wsc``; the reference's
+role-based constraints).  ``lm_forward``, ``lm_loss`` and
+``lm_decode_step`` given a mesh run their body under ``shard_axes(dp,
+model, mesh)``, as the reference does.  There each rank holds local
+tensors: the batch rows of its dp coordinate, everything else whole on
+the model axis.  ``wsc(x, *roles)`` pins ``x``, held whole on the roles'
+axes, to this rank's block of it (the reference constrains a global
+array; here the layout change is the slice, differentiable); ``gather``
+(``distributed.collectives``) undoes it.  Parameters are read through
+``weight``: the leaf all-gathered on its sharded dims, or only this
+model rank's block of a dim (``model_part``), the tensor-parallel split
+of heads and of the MLP's hidden width.  A row-parallel product's
+partial sums meet in ``psum_model``.  Without the context every one of
+these returns its input.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+# ------------------------------------------------------- sharding context --
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """The active mesh and the names of its dp axes and model axis."""
+    mesh: object
+    dp: tuple
+    model: str
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape[self.model]
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.axis_index(self.model)
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.dp)
+
+
+_AXES: contextvars.ContextVar = contextvars.ContextVar("shard_axes",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def shard_axes(dp=("data",), model="model", mesh=None):
+    """Activate the sharding context (module docstring) for the enclosed
+    code; ``mesh=None`` turns it off (a rank's local computation)."""
+    axes = None
+    if mesh is not None:
+        axes = MeshAxes(mesh, (dp,) if isinstance(dp, str) else tuple(dp),
+                        model)
+    token = _AXES.set(axes)
+    try:
+        yield axes
+    finally:
+        _AXES.reset(token)
+
+
+def mesh_axes_active() -> MeshAxes | None:
+    """The active ``MeshAxes``, or None."""
+    return _AXES.get()
+
+
+def _role_axes(ax: MeshAxes, role: str) -> tuple:
+    axes = ()
+    if "dp" in role:
+        axes += ax.dp
+    if "model" in role:
+        axes += (ax.model,)
+    return axes
+
+
+def wsc(x, *roles):
+    """Pin ``x`` by role: each entry is None, "dp", "model" or
+    "dp+model"; ``x``, held whole on those axes, becomes this rank's block
+    of each such dim (a view; its grad is padded with zeros).  A dim that
+    does not divide over its axes stays whole, as the reference leaves it
+    unconstrained.  Without a mesh context it returns ``x``."""
+    ax = _AXES.get()
+    if ax is None:
+        return x
+    for dim, role in enumerate(roles):
+        if role is None:
+            continue
+        axes = _role_axes(ax, role)
+        if x.shape[dim] % math.prod(ax.mesh.shape[a] for a in axes) == 0:
+            x = collectives.take_block(x, ax.mesh, dim, axes)
+    return x
+
+
+def model_part(n: int) -> tuple[int, int]:
+    """This model rank's share ``[lo, hi)`` of ``n`` items (heads, hidden
+    units): contiguous, the first ``n % size`` ranks one more; all of
+    them without a mesh context."""
+    ax = _AXES.get()
+    if ax is None:
+        return 0, n
+    m, k = ax.model_size, ax.model_index
+    base, extra = divmod(n, m)
+    lo = k * base + min(k, extra)
+    return lo, lo + base + (k < extra)
+
+
+def weight(w, dim: int | None = None, index=None):
+    """A parameter leaf as this rank computes with it: under a mesh
+    context the full tensor (``collectives.materialize``), or with
+    ``index`` (a slice, or a tensor of indices, on ``dim``) that part of
+    it, which for this model rank's block of a dim sharded over the model
+    axis is read without gathering that dim.  Without a context, ``w``
+    (indexed)."""
+    ax = _AXES.get()
+    if dim is not None:
+        dim %= w.ndim
+    if ax is None:
+        return w if index is None else _take(w, dim, index)
+    if index is None:
+        return collectives.materialize(w, ax.mesh)
+    if isinstance(index, slice):
+        n, m, k = w.shape[dim], ax.model_size, ax.model_index
+        if n % m == 0 and (index.start, index.stop) == (k * n // m,
+                                                        (k + 1) * n // m):
+            return collectives.materialize(w, ax.mesh, keep={dim: ax.model})
+    return _take(collectives.materialize(w, ax.mesh), dim, index)
+
+
+def _take(t, dim, index):
+    if isinstance(index, slice):
+        if (index.start, index.stop) == (0, t.shape[dim]):
+            return t
+        return t.narrow(dim, index.start, index.stop - index.start)
+    return t.index_select(dim, index)
+
+
+def psum_model(t):
+    """The sum over the model axis of a row-parallel product's partial
+    sums (``t`` held per rank); ``t`` without a mesh context."""
+    ax = _AXES.get()
+    if ax is None:
+        return t
+    return collectives.psum(t, ax.mesh, ax.model)
 
 
 def wide(t: torch.Tensor) -> torch.Tensor:
@@ -69,8 +212,11 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _wide_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``WideDot``'s forward: x ``(..., K)`` @ w ``(K, N)``, or x ``(n, K)``
-    against each expert of w ``(E, K, N)``."""
+    """``WideDot``'s forward: x ``(..., K)`` @ w ``(K, N)``, x ``(n, K)``
+    against each expert of w ``(E, K, N)``, or each expert's own x ``(E,
+    n, K)``."""
+    if x.ndim == 3 and w.ndim == 3:
+        return _mm32(x, w)
     if w.ndim == 3:
         return _mm32(x.expand(w.shape[0], *x.shape), w)
     return _mm32(x.reshape(-1, x.shape[-1]), w).reshape(
@@ -84,7 +230,8 @@ class WideDot(torch.autograd.Function):
     rounded once to bf16.  ``w`` is ``(K, N)`` (x ``(..., K)`` ->
     ``(..., N)``) or a stack of experts ``(E, K, N)`` (x ``(n, K)`` ->
     ``(E, n, N)``, the reference's ``einsum("td,edf->tef")`` in the
-    port's layout; x's grad sums over the experts in fp32)."""
+    port's layout; x's grad sums over the experts in fp32; or x ``(E, n,
+    K)``, each expert's own rows: ``einsum("ecd,edf->ecf")``)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -95,6 +242,12 @@ class WideDot(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
+        if x.ndim == 3 and w.ndim == 3:
+            if ctx.needs_input_grad[0]:
+                dx = _mm32(g, w.mT).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _mm32(x.mT, g).to(w.dtype)
+            return dx, dw
         if w.ndim == 3:
             if ctx.needs_input_grad[0]:
                 dx = _mm32(g, w.mT).sum(0).to(x.dtype)
@@ -112,10 +265,11 @@ class WideDot(torch.autograd.Function):
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over x's last axis, as fp32 (``wide``); ``w`` may be a
-    stack of experts ``(E, K, N)`` (-> ``(E, n, N)``).  bf16 operands keep
-    the fp32 product unrounded (``WideDot``)."""
+    stack of experts ``(E, K, N)`` (-> ``(E, n, N)``, against x ``(n, K)``
+    or each expert's own rows ``(E, n, K)``).  bf16 operands keep the fp32
+    product unrounded (``WideDot``)."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        if w.ndim == 3:
+        if w.ndim == 3 and x.ndim == 2:
             # x against each expert as one batched product: ``matmul``'s
             # fold of (n, K) @ (E, K, N) copies the weight, and autograd
             # keeps that copy for the backward
@@ -125,6 +279,7 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x, scale, eps=1e-5):
+    scale = weight(scale)
     xf = wide(x)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * wide(scale)).to(x.dtype)
@@ -170,11 +325,18 @@ def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
 
 
 def mlp_apply(params, x, act: str = "swiglu"):
+    """The MLP; under a mesh context tensor-parallel: this model rank's
+    share of the hidden units (``model_part``), the down projection's
+    partial sums added in fp32 over the model axis."""
+    lo, hi = model_part(params["wi"].shape[-1])
+    cols = slice(lo, hi)
     if act == "swiglu":
-        h = F.silu(dot(x, params["wg"])) * dot(x, params["wi"])
+        h = (F.silu(dot(x, weight(params["wg"], -1, cols)))
+             * dot(x, weight(params["wi"], -1, cols)))
     else:                                  # jax.nn.gelu: tanh approximation
-        h = F.gelu(dot(x, params["wi"]), approximate="tanh")
-    return dot(h.to(x.dtype), params["wo"]).to(x.dtype)
+        h = F.gelu(dot(x, weight(params["wi"], -1, cols)), approximate="tanh")
+    out = dot(h.to(x.dtype), weight(params["wo"], 0, cols))
+    return psum_model(out).to(x.dtype)
 
 
 def causal_mask(sq: int, sk: int, offset: int, device=None):
@@ -189,11 +351,18 @@ def cross_entropy(logits, labels, *, ignore_id: int = -1):
     ``(..., V)`` cast to fp32, labels ``(...)`` integers; the gold logit is
     picked through ``labels.clip(0)`` (an ignored label picks token 0,
     then weighs 0), as the reference does."""
+    total, count = cross_entropy_sum(logits, labels, ignore_id=ignore_id)
+    return total / count.clamp(min=1.0)
+
+
+def cross_entropy_sum(logits, labels, *, ignore_id: int = -1):
+    """``cross_entropy``'s sum over the labels ``!= ignore_id`` and their
+    count (fp32), the parts a sharded loss adds over the ranks."""
     logits = logits.float()
     logz = torch.logsumexp(logits, -1)
     gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     valid = (labels != ignore_id).float()
-    return ((logz - gold) * valid).sum() / valid.sum().clamp(min=1.0)
+    return ((logz - gold) * valid).sum(), valid.sum()
 
 
 # ------------------------------------------------------------------- init --
@@ -223,9 +392,12 @@ def unbind_params(tree) -> list:
     """The layers of a stacked nested dict, as views (no copies): one
     ``unbind`` per leaf, whose backward stacks all the layers' grads at
     once.  (Indexing each layer on its own makes autograd build and add a
-    full-size zero-padded grad of the stacked leaf per layer.)"""
+    full-size zero-padded grad of the stacked leaf per layer.)  A
+    ``Sharded`` leaf unbinds its local block."""
     if isinstance(tree, dict):
         parts = {k: unbind_params(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, collectives.Sharded):
+        return tree.unbind(_AXES.get().mesh)
     return list(torch.unbind(tree, 0))

@@ -10,9 +10,9 @@ recurrence keeps the reference's three realizations:
 Each ``lax.scan`` is a Python loop here: over chunks in the chunked forms,
 over tokens in ``*_seq`` and in sLSTM.  Carries and the recurrences run
 in fp32 (float64 in a float64 model: ``acc``, ``layers.wide``); block
-inputs and outputs stay in the model dtype.  The
-reference's mesh constraints (``wsc``) are a no-op on one device and are
-left out.  None of these recurrences has a Pallas kernel in the
+inputs and outputs stay in the model dtype.  The reference's mesh
+constraints (``wsc``) are left out: the recurrent blocks take no mesh
+(ROADMAP item 6c).  None of these recurrences has a Pallas kernel in the
 reference (they run in XLA there), so they run as plain PyTorch here.
 
 One difference from the reference: ``ssd_chunked`` masks the pairs above

@@ -32,9 +32,26 @@ forward or a prefill (``chunked`` or ``seq``); a decode step runs them as
 caches (the conv tails in the model dtype).
 
 ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
-reference wraps each scanned block in ``jax.checkpoint``).  A ``mesh``
-(sharded training) raises ``NotImplementedError`` (ROADMAP queue 1 item
-6).
+reference wraps each scanned block in ``jax.checkpoint``).
+
+``mesh=`` (a ``launch.mesh.Mesh`` bound to ``torch.distributed``, one
+process per entry; ``dp_axes`` and ``model_axis`` name its axes, as in
+the reference) runs ``lm_forward``, ``lm_loss`` and ``lm_decode_step``
+sharded: every rank passes the global batch and the parameters placed by
+the rule table (``distributed.sharding.device_put``; a plain tensor is
+read as replicated), and runs under ``layers.shard_axes``: its batch rows
+(the dp block, ``wsc``), each weight gathered on its fsdp dims when read,
+attention and the MLP tensor-parallel over the model axis (this rank's
+heads and hidden units, the output projections' partial sums added over
+the model axis), the MoE blocks by ``moe_apply``'s expert-parallel
+dispatch.  Activations between blocks hold the rank's rows whole on the
+model axis.  Outputs and decode caches are the rank's rows
+(``init_caches(mesh=)``: its rows and its heads' kv).  ``lm_loss`` is
+the global batch's mean over every label ``!= -1`` (each rank's sum over
+the global count, not a mean of per-rank means) and its backward gives
+each rank its shards' grads of that global loss
+(``distributed.collectives``).  The recurrent blocks and zamba2's shared
+blocks take no mesh (ROADMAP item 6c), nor does ``lm_prefill``.
 
 Differences from the reference: ``impl`` is an argument only (no
 ``REPRO_ATTN_IMPL`` override); ``lm_forward`` takes no ``positions`` (they
@@ -53,15 +70,18 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as col
 from repro_torch.models import ssm
 from repro_torch.models.attention import (_mla_qkr, _pos_vec, gqa_attend,
                                           gqa_decode, gqa_project, init_gqa,
-                                          init_mla, mla_attend, mla_decode)
+                                          init_mla, local_heads, mla_attend,
+                                          mla_decode)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (cross_entropy, dot, dtype_of,
-                                       init_linear, init_mlp, mlp_apply,
-                                       normal, rms_norm, sinusoidal_pos,
-                                       unbind_params, wide)
+from repro_torch.models.layers import (cross_entropy_sum, dot, dtype_of,
+                                       init_linear, init_mlp,
+                                       mesh_axes_active, mlp_apply, normal,
+                                       rms_norm, shard_axes, sinusoidal_pos,
+                                       unbind_params, weight, wide, wsc)
 from repro_torch.models.moe import init_moe, moe_apply
 
 REC_KINDS = ("mamba2", "mlstm", "slstm")
@@ -76,7 +96,7 @@ def _embed(params, cfg, tokens, embeds, positions):
     """The input rows: the embedding table's rows of ``tokens``, or
     ``embeds`` cast to its dtype; sinusoidal positions added in fp32
     (``wide``) and rounded once to that dtype."""
-    x = params["embed"][tokens] if embeds is None \
+    x = weight(params["embed"])[tokens] if embeds is None \
         else embeds.to(params["embed"].dtype)
     if cfg.pos_emb == "sinusoidal":
         xf = wide(x)
@@ -229,7 +249,11 @@ def _ffn(p, h, cfg):
     mixture of experts where the block has one (aux its load-balancing
     loss), else the MLP (aux 0.0)."""
     if "moe" in p:
-        return moe_apply(p["moe"], h, cfg)
+        ax = mesh_axes_active()
+        if ax is None:
+            return moe_apply(p["moe"], h, cfg)
+        return moe_apply(p["moe"], h, cfg, mesh=ax.mesh, dp_axes=ax.dp,
+                         model_axis=ax.model)
     return mlp_apply(p["mlp"], h, cfg.mlp_act), 0.0
 
 
@@ -292,7 +316,8 @@ def _super_steps(params, cfg):
 
 
 def _head(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+    return (weight(params["embed"]).T if cfg.tie_embeddings
+            else weight(params["head"]))
 
 
 def _block_out(p, x, positions, cfg, kind, impl, rec_impl):
@@ -303,22 +328,53 @@ def _block_out(p, x, positions, cfg, kind, impl, rec_impl):
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
-               impl="chunked", rec_impl="chunked", remat=False):
+               impl="chunked", rec_impl="chunked", mesh=None,
+               dp_axes=("data",), model_axis="model", remat=False):
     """Full-sequence forward over tokens ``(b, S)`` or embeddings ``(b, S,
     d_model)``.  Returns ``(logits (b, S, V) fp32, aux)``; aux is the MoE
     blocks' load-balancing losses summed over the layers (fp32), 0.0 for a
     model without experts.  ``remat``: each layer (and each shared block)
     runs under ``torch.utils.checkpoint`` (its activations recomputed in
-    the backward, its input saved)."""
-    check_supported(cfg)
+    the backward, its input saved).  ``mesh``: sharded (module
+    docstring); the logits are this rank's batch rows."""
+    check_mesh(cfg, mesh)
+    if mesh is not None:
+        params = col.sharded_tree(params, mesh)
+    with shard_axes(dp_axes, model_axis, mesh):
+        return _forward(params, cfg, tokens, embeds, impl, rec_impl, remat)
+
+
+def _rows(t, dp_size: int):
+    """The global batch ``t``'s rows of this rank's dp block (``wsc``);
+    the batch must divide over the dp axes."""
+    if t is None:
+        return None
+    if t.shape[0] % dp_size:
+        raise ValueError(f"a batch of {t.shape[0]} does not divide over "
+                         f"the dp axes ({dp_size} ranks)")
+    return wsc(t, "dp", *([None] * (t.ndim - 1)))
+
+
+def _forward(params, cfg, tokens, embeds, impl, rec_impl, remat):
+    """``lm_forward``'s body, under the caller's sharding context."""
+    ax = mesh_axes_active()
+    if ax is not None:
+        tokens, embeds = (_rows(tokens, ax.dp_size),
+                          _rows(embeds, ax.dp_size))
     b, S, dev = _inputs(tokens, embeds)
     positions = torch.arange(S, device=dev)[None].expand(b, S)
     x = _embed(params, cfg, tokens, embeds, positions)
     aux = 0.0
 
+    def block(*args):
+        # a checkpointed layer's recomputation runs in the backward,
+        # outside the caller's context: it enters its own
+        with shard_axes(*((ax.dp, ax.model, ax.mesh) if ax else ())):
+            return _block_out(*args)
+
     def run(p, x, kind):
         if remat:
-            return checkpoint(_block_out, p, x, positions, cfg, kind, impl,
+            return checkpoint(block, p, x, positions, cfg, kind, impl,
                               rec_impl, use_reentrant=False)
         return _block_out(p, x, positions, cfg, kind, impl, rec_impl)
 
@@ -337,32 +393,60 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     return dot(x, _head(params, cfg)), aux
 
 
-def check_single_device(mesh) -> None:
-    """Raise for a mesh: the port trains on one device."""
-    if mesh is not None:
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise unless ``mesh`` is None or a mesh bound to
+    ``torch.distributed`` and ``cfg``'s blocks take one (attention with an
+    MLP or experts; the recurrent and shared blocks are item 6c)."""
+    check_supported(cfg)
+    if mesh is None:
+        return
+    if getattr(mesh, "device_mesh", None) is None:
+        raise TypeError("mesh= takes a launch.mesh.Mesh bound to "
+                        "torch.distributed (launch.mesh.make_process_mesh, "
+                        "one process per entry)")
+    if cfg.shared_attn_every or any(kind != "attn" for kind, _, _ in
+                                    build_stages(cfg)):
         raise NotImplementedError(
-            "sharded training (mesh=...) is not ported (ROADMAP queue 1 "
-            "item 6); the port trains on one device")
+            f"{cfg.name}: the recurrent and shared blocks over a mesh are "
+            f"ROADMAP queue 1 item 6c")
 
 
 # ==================================================================== loss ==
-def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None, impl="chunked",
+def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None,
+            dp_axes=("data",), model_axis="model", impl="chunked",
             rec_impl="chunked", remat=False, aux_weight=1e-2):
     """Next-token loss of ``batch = {"tokens" or "embeds", "labels"}``
     (labels ``-1`` ignored): ``(loss, {"ce", "aux"})`` with ``loss = ce +
-    aux_weight · aux``.  The reference's mesh axes (``dp_axes``,
-    ``model_axis``) have no counterpart on one device."""
-    check_single_device(mesh)
+    aux_weight · aux``.  Under a mesh (module docstring) ``batch`` is the
+    global batch on every rank, ``ce`` the global mean and the loss the
+    same value on every rank, whose backward on every rank gives each its
+    shards' grads of it."""
     logits, aux = lm_forward(params, cfg, batch.get("tokens"),
                              batch.get("embeds"), impl=impl,
-                             rec_impl=rec_impl, remat=remat)
-    ce = cross_entropy(logits, batch["labels"])
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
-    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+                             rec_impl=rec_impl, mesh=mesh, dp_axes=dp_axes,
+                             model_axis=model_axis, remat=remat)
+    with shard_axes(dp_axes, model_axis, mesh) as ax:
+        labels = batch["labels"] if ax is None else _rows(batch["labels"],
+                                                          ax.dp_size)
+    total, count = cross_entropy_sum(logits, labels)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=total.device)
+    if mesh is None:
+        ce = total / count.clamp(min=1.0)
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+    with torch.no_grad():
+        count = col.psum(count, mesh, ax.dp).clamp(min=1.0)
+    # each rank's share: its rows' sum over the global count, divided
+    # among the model ranks that hold the same rows (the autograd
+    # convention of distributed.collectives)
+    ce = col.replicated_sum(total / count / ax.model_size, mesh,
+                            mesh.axis_names)
+    return (ce + aux_weight * col.scale_grad(aux, 1.0 / mesh.size),
+            {"ce": ce, "aux": aux})
 
 
 # ================================================================== caches ==
-def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False):
+def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False,
+              n_kv=None):
     if mla:
         m = cfg.mla
         return {name: torch.zeros((n, batch, max_len, width), dtype=dtype,
@@ -370,13 +454,14 @@ def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False):
                 for name, width in (("ckv", m.kv_lora_rank),
                                     ("kr", m.rope_head_dim))}
     hd = cfg.resolved_head_dim
-    return {name: torch.zeros((n, batch, max_len, cfg.n_kv_heads, hd),
-                              dtype=dtype, device=device)
+    return {name: torch.zeros((n, batch, max_len, n_kv or cfg.n_kv_heads,
+                               hd), dtype=dtype, device=device)
             for name in ("k", "v")}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-                device="cuda"):
+                device="cuda", mesh=None, dp_axes=("data",),
+                model_axis="model"):
     """Per-layer decode caches, stacked per stage, zeros (the recurrent
     states at their initial values): ``{"stage_i": {"k", "v": (L, batch,
     max_len, Hkv, hd)}}`` for GQA attention, ``{"ckv": (L, batch,
@@ -384,8 +469,22 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     block's state leaves with a
     leading ``L`` for a recurrent stage (fp32 states, ``ssm.acc``; conv
     tails in ``dtype``), and ``"shared": {"k", "v"}`` with one slab per
-    shared-block application (``n_layers // shared_attn_every``)."""
-    check_supported(cfg)
+    shared-block application (``n_layers // shared_attn_every``).  Under a
+    mesh: this rank's rows of a global ``batch`` and the kv heads its q
+    heads read (MLA's latent whole)."""
+    check_mesh(cfg, mesh)
+    if mesh is not None:
+        with shard_axes(dp_axes, model_axis, mesh) as ax:
+            if batch % ax.dp_size:
+                raise ValueError(f"a batch of {batch} does not divide over "
+                                 f"the dp axes ({ax.dp_size} ranks)")
+            n_kv = len(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
+            return _init_caches(cfg, batch // ax.dp_size, max_len, dtype,
+                                device, n_kv)
+    return _init_caches(cfg, batch, max_len, dtype, device, cfg.n_kv_heads)
+
+
+def _init_caches(cfg, batch, max_len, dtype, device, n_kv):
     dtype = dtype or dtype_of(cfg.dtype)
     caches = {}
     stages = build_stages(cfg)
@@ -394,7 +493,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
         if kind == "attn":
             caches[f"stage_{si}"] = _kv_cache(
                 L, cfg, batch, max_len, dtype, device,
-                mla=cfg.attn_type == "mla")
+                mla=cfg.attn_type == "mla", n_kv=n_kv)
             continue
         state = _REC_STATE[kind](cfg, batch, dtype, device=device)
         caches[f"stage_{si}"] = {
@@ -413,11 +512,26 @@ def _store(stage_cache, li, state) -> None:
         stage_cache[name][li].copy_(t)
 
 
-def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length):
+def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length, *,
+                   mesh=None, dp_axes=("data",), model_axis="model"):
     """One decode step.  tokens ``(b,)``; length int or ``(b,)`` (current
     context size, each row's position).  Writes the caches in place;
-    returns ``(logits (b, V), caches)``."""
-    check_supported(cfg)
+    returns ``(logits (b, V), caches)``.  Under a mesh, ``tokens`` and a
+    ``(b,)`` length are the global batch's, the caches and logits this
+    rank's rows (``init_caches(mesh=)``); the MoE blocks take
+    ``moe_apply``'s decode paths."""
+    check_mesh(cfg, mesh)
+    if mesh is None:
+        return _decode(params, cfg, tokens, caches, length)
+    params = col.sharded_tree(params, mesh)
+    with shard_axes(dp_axes, model_axis, mesh) as ax:
+        tokens = _rows(tokens, ax.dp_size)
+        if torch.is_tensor(length) and length.ndim:
+            length = _rows(length, ax.dp_size)
+        return _decode(params, cfg, tokens, caches, length)
+
+
+def _decode(params, cfg, tokens, caches, length):
     positions = _pos_vec(length, tokens.shape[0], tokens.device)
     x = _embed(params, cfg, tokens[:, None], None, positions)   # (b, 1, d)
     if cfg.shared_attn_every:

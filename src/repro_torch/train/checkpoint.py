@@ -12,9 +12,15 @@ checkpoints beyond ``keep`` are deleted, and ``install_preemption_hook``
 makes SIGTERM set a flag the train loop polls (checkpoint and exit).
 
 Arrays are copied to the host leaf by leaf and restored onto each leaf's
-device and dtype in ``like``.  The reference's ``shardings`` (elastic
-restore onto a mesh) raises ``NotImplementedError`` (ROADMAP queue 1 item
-6).
+device and dtype in ``like``.
+
+On a mesh (``DTensor`` leaves, ``distributed.sharding.device_put``) every
+rank calls ``save``: each leaf is gathered whole on every rank, in one
+order, and rank 0 alone writes, then all ranks wait for the rename.
+``restore(shardings=)`` is the reference's elastic restore: every rank
+reads the global arrays and places each leaf by its ``NamedSharding``
+(``sharding.place``), whatever mesh shape wrote them, one device
+included; a leaf without one is restored as it is.
 """
 from __future__ import annotations
 
@@ -25,6 +31,10 @@ import signal
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import place
 
 _SEP = "\x1e"  # record separator — safe vs '/' in keys
 
@@ -54,6 +64,16 @@ def _flatten(tree, prefix=()) -> dict:
 
 def tree_paths(tree) -> list[str]:
     return list(_flatten(tree).keys())
+
+
+def _whole(leaf):
+    """A ``DTensor`` leaf gathered whole (every rank of its mesh takes
+    part); any other leaf as it is."""
+    if not col.is_dtensor(leaf):
+        return leaf
+    from torch.distributed.tensor import Replicate
+    return leaf.redistribute(
+        placements=[Replicate()] * leaf.device_mesh.ndim).to_local()
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
@@ -86,17 +106,29 @@ class CheckpointManager:
     # ------------------------------------------------------------- save ---
     def save(self, step: int, state, *, extra: dict | None = None):
         """state: a nested dict of tensors (params, opt state, ...).
-        Atomic; returns the checkpoint's directory."""
+        Atomic; returns the checkpoint's directory.  On a mesh every rank
+        calls it (module docstring)."""
         tmp = os.path.join(self.dir, f"step_{step}.tmp")
         final = os.path.join(self.dir, f"step_{step}")
-        os.makedirs(tmp, exist_ok=True)
+        group = any(col.is_dtensor(t) for t in _flatten(state).values())
+        writer = not group or dist.get_rank() == 0
         arrays = {}
         manifest = {"step": step, "extra": extra or {}, "leaves": {}}
         for key, leaf in _flatten(state).items():
-            arr, dtype = _to_host(leaf)
-            arrays[key] = arr
-            manifest["leaves"][key] = {"shape": list(arr.shape),
-                                       "dtype": dtype}
+            whole = _whole(leaf)
+            if writer:
+                arr, dtype = _to_host(whole)
+                arrays[key] = arr
+                manifest["leaves"][key] = {"shape": list(arr.shape),
+                                           "dtype": dtype}
+        if writer:
+            self._write(tmp, final, arrays, manifest)
+        if group:
+            dist.barrier()
+        return final
+
+    def _write(self, tmp, final, arrays, manifest):
+        os.makedirs(tmp, exist_ok=True)
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -104,7 +136,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
-        return final
 
     def _gc(self):
         steps = sorted(self.all_steps())
@@ -130,13 +161,12 @@ class CheckpointManager:
     def restore(self, step: int, like, *, shardings=None):
         """Restore into the structure of ``like`` (a nested dict of tensors,
         ``QTensor``s included): each leaf takes its ``like`` leaf's dtype
-        and device."""
-        if shardings is not None:
-            raise NotImplementedError("restoring onto a mesh (shardings=) "
-                                      "is not ported (ROADMAP queue 1 item "
-                                      "6)")
+        and device.  ``shardings``: a matching (partial) tree of
+        ``NamedSharding``s; each leaf that has one is placed by it (module
+        docstring)."""
         man = self.manifest(step)["leaves"]
         flat_like = _flatten(like)
+        shard_flat = _flatten(shardings) if shardings is not None else {}
         with np.load(os.path.join(self.dir, f"step_{step}",
                                   "arrays.npz")) as z:
             missing = set(flat_like) - set(z.files)
@@ -146,7 +176,12 @@ class CheckpointManager:
             restored = {}
             for key, leaf in flat_like.items():
                 t = _from_host(z[key], man.get(key, {}).get("dtype"))
-                restored[key] = t.to(device=leaf.device, dtype=leaf.dtype)
+                if key in shard_flat:
+                    restored[key] = place(t.to(dtype=leaf.dtype),
+                                          shard_flat[key])
+                else:
+                    restored[key] = t.to(device=col.local(leaf).device,
+                                         dtype=leaf.dtype)
         return _unflatten_like(like, restored)
 
     def manifest(self, step: int):

@@ -26,6 +26,17 @@ last axis, so rows quantize alone).  Neither an updates tree nor a second
 state is ever held, and a leaf's fp32 temporaries stay near 256 MiB: a
 1.6 B-element expert leaf (grok-1's) would otherwise need about 40 GB of
 them.  The returned state is the one passed in.
+
+Sharded parameters (``DTensor`` leaves, ``distributed.sharding
+.device_put``): each moment takes its parameter's placements (a
+``DTensor`` over a local block of the same shape), the grads are the
+local blocks' (``train.step``), and every update is elementwise on the
+local blocks.  The grad norm, and the clip from it, is the global one:
+each rank sums the squares of its blocks, a block replicated over some
+mesh axes counted only on the ranks at coordinate 0 of those axes (once),
+and the sums are added over the group.  int8 moments on a mesh would have
+to quantize in blocks of the global flattened leaf, where a shard's edge
+cuts the reference's blocks: they raise (ROADMAP item 6c).
 """
 from __future__ import annotations
 
@@ -34,7 +45,10 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as col
 
 QBLOCK = 256
 _QRANGE = 24.0   # octaves below the block absmax representable
@@ -124,7 +138,38 @@ def _row_chunks(t: torch.Tensor, rows_per: int):
 
 
 def _device_of(tree) -> torch.device:
-    return tree_leaves(tree)[0].device
+    return col.local(tree_leaves(tree)[0]).device
+
+
+def _sharded(leaves) -> bool:
+    """Whether the parameters are placed on a mesh (any ``DTensor``)."""
+    return any(col.is_dtensor(p) for p in leaves)
+
+
+def _zeros_like(p, make):
+    """``make(shape, device)`` for the local block of ``p``, as a
+    ``DTensor`` with ``p``'s placements where ``p`` is one."""
+    if not col.is_dtensor(p):
+        return make(p.shape, p.device)
+    from torch.distributed.tensor import DTensor
+    loc = col.local(p)
+    return DTensor.from_local(make(loc.shape, loc.device), p.device_mesh,
+                              p.placements, run_check=False)
+
+
+def _grad_sq(grads, params) -> torch.Tensor:
+    """Σ of the squared grads, over the whole of each sharded leaf when
+    the parameters are placed on a mesh (module docstring)."""
+    gs, ps = tree_leaves(grads), tree_leaves(params)
+    if not _sharded(ps):
+        return sum(torch.sum(torch.square(col.local(g).float())) for g in gs)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=col.local(ps[0]).device)
+    for g, p in zip(gs, ps):
+        if col.counted_here(p):
+            total = total + torch.sum(torch.square(col.local(g).float()))
+    dist.all_reduce(total)
+    return total
 
 
 # ----------------------------------------------------------------- AdamW ----
@@ -139,22 +184,27 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4, *,
         return lr(step) if callable(lr) else lr
 
     def init(params):
+        if quantized and _sharded(tree_leaves(params)):
+            raise NotImplementedError(
+                "int8 moments on a mesh must quantize in the reference's "
+                "blocks of the global leaf (ROADMAP queue 1 item 6c)")
+
         def zeros_like_state(p):
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            return QTensor(*quantize_i8(z)) if quantized else z
+            def make(shape, device):
+                z = torch.zeros(shape, dtype=torch.float32, device=device)
+                return QTensor(*quantize_i8(z)) if quantized else z
+            return _zeros_like(p, make)
 
         return {"step": torch.zeros((), dtype=torch.int32,
                                     device=_device_of(params)),
                 "m": tree_map(zeros_like_state, params),
                 "v": tree_map(zeros_like_state, params)}
 
-    def prepare(grads, state):
+    def prepare(grads, state, params):
         """-> (step, clip, bias corrections, lr, grad norm)."""
         step = state["step"] + 1
         # global grad-norm clip
-        gsq = sum(torch.sum(torch.square(g.float()))
-                  for g in tree_leaves(grads))
-        gnorm = torch.sqrt(gsq)
+        gnorm = torch.sqrt(_grad_sq(grads, params))
         clip = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0) if grad_clip else 1.0
         t = step.float()
@@ -180,9 +230,9 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4, *,
         return u.to(p.dtype), mf, vf
 
     def update(grads, state, params):
-        step, clip, bc1, bc2, lr_t, gnorm = prepare(grads, state)
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
-                              tree_leaves(state["v"]), tree_leaves(params)):
+        step, clip, bc1, bc2, lr_t, gnorm = prepare(grads, state, params)
+        for g, m, v, p in zip(*(map(col.local, tree_leaves(t)) for t in (
+                grads, state["m"], state["v"], params))):
             decay = float(p.ndim >= 2)
             rows = max(1, CHUNK_ELEMS // max(1, p.shape[-1] if p.ndim
                                                  else 1))
@@ -212,15 +262,16 @@ def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
         step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
         if momentum:
             return {"step": step, "m": tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)}
+                lambda p: _zeros_like(p, lambda shape, device: torch.zeros(
+                    shape, dtype=torch.float32, device=device)), params)}
         return {"step": step}
 
     def update(grads, state, params):
         state["step"] = state["step"] + 1
         moments = (tree_leaves(state["m"]) if momentum
                    else [None] * len(tree_leaves(params)))
-        for g, m, p in zip(tree_leaves(grads), moments, tree_leaves(params)):
+        for g, m, p in zip(*(map(col.local, t) for t in (
+                tree_leaves(grads), moments, tree_leaves(params)))):
             d = g.float()
             if momentum:
                 d = m.mul_(momentum).add_(d)

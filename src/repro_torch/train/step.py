@@ -12,12 +12,22 @@ reference's ``(p + u).astype(p.dtype)``, by the optimizer's in-place
 ``update``, which also overwrites the moments), and returns the same tree;
 it marks every parameter ``requires_grad``.  The reference is
 functional.
+
+With a mesh (``mesh=``, ``dp_axes``, ``model_axis``: the reference's
+FSDP+TP step) every rank calls the step with the parameters and moments
+placed on the mesh (``DTensor`` leaves) and the global batch; the loss is
+``lm_loss(mesh=)``'s, the leaves differentiated are the ``DTensor``s'
+local blocks (marked ``requires_grad`` for the step only), so each rank's
+grads are its blocks' of the global loss, which AdamW takes with the
+global grad norm.  Microbatches split the global batch, as the
+reference's, each then over the dp axes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import check_single_device, lm_loss
+from repro_torch.distributed import collectives as col
+from repro_torch.models.transformer import check_mesh, lm_loss
 from repro_torch.train.optim import tree_leaves, tree_unflatten
 
 
@@ -40,8 +50,9 @@ def leaf_grads(loss, leaves, unread=None):
             for p in leaves]
 
 
-def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
-                     microbatches: int = 1, impl="chunked", aux_weight=1e-2):
+def build_train_step(cfg, optimizer, *, mesh=None, dp_axes=("data",),
+                     model_axis="model", remat=False, microbatches: int = 1,
+                     impl="chunked", aux_weight=1e-2):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``batch`` = ``{"tokens" or "embeds", "labels"}`` with a
     leading global-batch dim (``"embeds"``: ``(b, S, d_model)`` fed from
@@ -50,20 +61,22 @@ def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
     it is split on dim 0 and the grads are accumulated in fp32, then
     divided by the count.  ``metrics``:
     ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d tensors on the
-    parameters' device; ``lr`` as the optimizer gives it).  A ``mesh``
-    raises ``NotImplementedError``; the reference's mesh axes have no
-    counterpart on one device."""
-    check_single_device(mesh)
+    parameters' device; ``lr`` as the optimizer gives it).  ``mesh``: the
+    sharded step (module docstring)."""
+    check_mesh(cfg, mesh)
 
     def loss_and_grads(params, leaves, batch):
-        loss, parts = lm_loss(params, cfg, batch, impl=impl, remat=remat,
+        loss, parts = lm_loss(params, cfg, batch, mesh=mesh, dp_axes=dp_axes,
+                              model_axis=model_axis, impl=impl, remat=remat,
                               aux_weight=aux_weight)
-        grads = leaf_grads(loss, leaves, unread_leaf(params, cfg, batch))
+        unread = unread_leaf(params, cfg, batch)
+        grads = leaf_grads(loss, leaves,
+                           None if unread is None else col.local(unread))
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 grads)
 
     def train_step(params, opt_state, batch):
-        leaves = tree_leaves(params)
+        leaves = [col.local(p) for p in tree_leaves(params)]
         for p in leaves:
             p.requires_grad_(True)
         if microbatches == 1:
@@ -85,6 +98,9 @@ def build_train_step(cfg, optimizer, *, mesh=None, remat=False,
             loss = lsum / n
             parts = {key: torch.stack([p[key] for p in parts_all]).mean()
                      for key in parts_all[0]}
+        if mesh is not None:
+            for p in leaves:
+                p.requires_grad_(False)
         with torch.no_grad():
             opt_state, om = optimizer.update(
                 tree_unflatten(params, grads), opt_state, params)

@@ -190,7 +190,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.configs.chameleon_34b, "
             "repro_torch.configs.musicgen_medium, "
             "repro_torch.launch.mesh, repro_torch.distributed, "
-            "repro_torch.distributed.sharding\n"
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.collectives, "
+            "repro_torch.distributed.pipeline\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

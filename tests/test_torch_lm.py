@@ -501,15 +501,16 @@ def test_cross_entropy_and_causal_mask_match_the_reference():
 
 
 def test_lm_loss_refuses_a_mesh_and_outside_embeddings():
-    """A mesh is refused (item 6).  Embeddings fed from outside are taken
-    now (their parity with the reference: ``tests/test_torch_embeds.py``):
-    the embedding table's own rows of the tokens, fed as ``embeds``, give
-    the tokens' loss bit for bit, and a batch with both inputs or neither
-    is refused."""
+    """A mesh that is not bound to torch.distributed is refused (the
+    sharded loss: ``tests/test_torch_distributed.py``).  Embeddings fed
+    from outside are taken now (their parity with the reference:
+    ``tests/test_torch_embeds.py``): the embedding table's own rows of the
+    tokens, fed as ``embeds``, give the tokens' loss bit for bit, and a
+    batch with both inputs or neither is refused."""
     _, _, pcfg, pp = both("llama3.2-1b")
     batch = {k: torch.as_tensor(v)
              for k, v in train_batch(pcfg.vocab, (1, 8)).items()}
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="make_process_mesh"):
         lm_loss(pp, pcfg, batch, mesh=object())
     rows = pp["embed"][batch["tokens"]]
     want, _ = lm_loss(pp, pcfg, batch)

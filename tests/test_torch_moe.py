@@ -98,7 +98,8 @@ def test_aux_load_balance_loss_matches_the_reference(arch):
     got = moe.aux_load_balance_loss(probs, i, pcfg.moe.n_experts)
     close(got, want)
     assert got.item() > 0
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # averaging over mesh axes needs a mesh (tests/test_torch_moe_ep.py)
+    with pytest.raises(ValueError, match="needs a mesh"):
         moe.aux_load_balance_loss(probs, i, pcfg.moe.n_experts,
                                   axes=("data",))
 
@@ -118,11 +119,20 @@ def test_moe_matches_the_reference(arch, fn):
 
 
 def test_moe_apply_refuses_a_mesh_and_the_expert_parallel_paths():
+    """A mesh not bound to torch.distributed is refused; without a mesh
+    the expert-parallel paths fall to the dense realization, as the
+    reference's ``moe_apply`` does (the paths over a mesh:
+    ``tests/test_torch_moe_ep.py``)."""
     cfg, rm, pcfg, pm = moe_params("grok-1-314b")
     x = torch.from_numpy(hidden(cfg, (1, 4)))
-    for kw in ({"mesh": object()}, {"path": "a2a"}, {"path": "gathered"}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            moe.moe_apply(pm, x, pcfg, **kw)
+    with pytest.raises(TypeError, match="make_process_mesh"):
+        moe.moe_apply(pm, x, pcfg, mesh=object())
+    want, waux = rmoe.moe_apply(rm, jnp.asarray(x.numpy()), cfg, path="a2a")
+    for path in ("a2a", "gathered"):
+        got, aux = moe.moe_apply(pm, x, pcfg, path=path)
+        assert torch.equal(got, moe.moe_dense(pm, x, pcfg)[0])
+        close(got, want)
+        close(aux, waux)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

@@ -167,7 +167,10 @@ def test_rules_read_only_axis_sizes():
 
 
 def test_shardings_wait_for_item_6():
+    """``shardings`` binds specs to a mesh bound to torch.distributed
+    (item 6b: ``tests/test_torch_distributed.py``); a mesh of axis sizes
+    alone is refused."""
     specs = shd.param_specs(param_shapes(configs.get("qwen3-0.6b")),
                             _FakeMesh())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="bound"):
         shd.shardings(specs, _FakeMesh())

@@ -477,10 +477,12 @@ def test_train_step_raises_for_a_leaf_the_loss_does_not_reach(arch):
 
 
 def test_train_step_refuses_a_mesh():
+    """A mesh not bound to torch.distributed is refused (the sharded step
+    and launcher: ``tests/test_torch_distributed.py``)."""
     cfg = configs.get_smoke("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="make_process_mesh"):
         build_train_step(cfg, adamw(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="make_process_mesh"):
         train("llama3.2-1b", steps=1, mesh=object(), device="cpu")
 
 
