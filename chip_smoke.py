@@ -187,15 +187,27 @@ musicgen's prefill and greedy decode from embeddings fed from outside
 against the kernel; then musicgen-medium whole (from ``{"embeds",
 "labels"}``) and codeqwen1.5-7b at 4 layers trained as the families are
 (``DENSE_TRAIN``).
-Then the LM over a device mesh (``distributed_phase``): one NCCL rank a
-visible card (a (1, 1) mesh on one card), the sharded smoke steps of
-llama3.2-1b and deepseek-v3 (through ``moe_a2a``) held to the one-card
-step with flash's forward and backward launched in them, deepseek-v3's
-decode over the mesh and its MoE's gathered paths, a checkpoint restored
-onto the mesh; ``--distributed`` runs on four cards instead: llama3.2-1b
+Then the LM over a device mesh (``distributed_phase``, alone under
+``--mesh``): one NCCL rank a visible card (a (1, 1) mesh on one card),
+the sharded smoke steps of llama3.2-1b and deepseek-v3 (through
+``moe_a2a``) held to the one-card step with flash's forward and backward
+launched in them, deepseek-v3's decode over the mesh and its MoE's
+gathered paths, a checkpoint restored onto the mesh, ``ServeEngine(mesh=)``
+(its greedy tokens against the engine without a mesh, flash launched in
+its prefills), zamba2's smoke step and decode against no mesh, and an int8
+step on placed parameters bit for bit (``dist_rest_smoke``); ``--mesh``
+then times flash at the per-rank shapes of the four-card sections' served
+prefills beside its plain core (``dist_flash_shapes``);
+``--distributed[=sections]`` runs on four cards instead: (a) llama3.2-1b
 at its published size over (2, 2) held to one card and trained 10 bf16
-steps, deepseek-v3's 3 dense and 1 MoE layer at its published width over
-(1, 4) trained 10 steps, ``pipeline_apply`` over 4 stages.
+steps, (b) deepseek-v3's 3 dense and 1 MoE layer at its published width
+over (1, 4) trained 10 steps, (c) ``pipeline_apply`` over 4 stages, (d)
+qwen3-0.6b served over (2, 2) and (1, 4) against one card, (e) zamba2-2.7b
+and xlstm-350m trained and served over both, (f) grok-1 with int8 moments
+over (1, 4), (g) its checkpoint restored onto (2, 2) (sections "abc",
+"d", "e", "f", "g"; all by default), and (w), not by default: the
+witnesses that tell a fault of the mesh from rounding (xlstm-350m's fp32
+and fp64 steps, grok-1's 1-layer step and loss curves).
 Timing that holds no kernel against its plain version runs under its
 phase's flag only, not in the full run: the GNN-CV paths' eager request
 times of both plans and their request profiles (``request_times``)
@@ -5028,18 +5040,10 @@ def dist_step_check(what, got, want) -> str:
 
 
 def dist_one_step(cfg, params, batch, mesh=None):
-    """One AdamW step (lr 1e-3) of ``params`` (placed on ``mesh`` when
+    """One AdamW step (lr DIST_LR) of ``params`` (placed on ``mesh`` when
     given): (metrics as floats, the parameters after it, whole)."""
-    from repro_torch.launch.mesh import mesh_axes
-    from repro_torch.train import adamw, build_train_step
-    opt = adamw(1e-3)
-    kw = {}
-    if mesh is not None:
-        dp, model, _ = mesh_axes(mesh)
-        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
-    params, _, m = build_train_step(cfg, opt, **kw)(params, opt.init(params),
-                                                     batch)
-    return {k: float(v) for k, v in m.items()}, dist_whole(params)
+    metrics, params, _ = dist_step_lean(cfg, params, batch, mesh)
+    return metrics, dist_whole(params)
 
 
 def dist_smoke_cfg(arch: str):
@@ -5147,7 +5151,185 @@ def dist_rank_smoke(rank: int, world: int, ckpt_dir: str) -> dict:
     lines.append(f"checkpoint saved from {shape} and restored by "
                  f"restore(shardings=): {len(a)} leaves bit for bit: {same}")
     assert same
+    lines += dist_rest_smoke(mesh, kernels)
     return {"lines": lines, "launches": launches}
+
+
+def dist_rest_smoke(mesh, kernels) -> list[str]:
+    """The rest of the LM over the mesh at smoke size: the engine, zamba2's
+    step and decode, an int8 step on placed parameters."""
+    return ([dist_serve_smoke(mesh, kernels)] + dist_rec_smoke(mesh)
+            + [dist_int8_smoke(mesh)])
+
+
+def dist_rank_rest(rank: int, world: int) -> list[str]:
+    """``dist_rest_smoke`` alone on this rank (the card tests)."""
+    from repro_torch.launch.mesh import make_process_mesh
+    dist_setup()
+    mesh = make_process_mesh(dist_mesh_shape(world), ("data", "model"))
+    return dist_rest_smoke(mesh, dist_kernels())
+
+
+def dist_serve_smoke(mesh, kernels) -> str:
+    """``ServeEngine(mesh=)`` on the mesh at smoke size: its greedy
+    tokens against the same engine without a mesh, flash launched in its
+    prefills (counts set to 0 just before the mesh engine, read just
+    after)."""
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models.transformer import init_lm
+    cfg = dist_smoke_cfg(LM_ARCH)
+    batch = prompts(cfg.vocab, 6, LM_PROMPT_LEN, 0)
+    want = dist_engine(cfg, init_lm(0, cfg, device=mesh.device), batch,
+                       8, slots=4, max_len=64)
+    placed, _ = dist_place(init_lm(0, cfg, device=mesh.device), mesh)
+    for fn in kernels.values():
+        fn.launches = 0
+    got = dist_engine(cfg, placed, batch, 8, mesh=mesh, slots=4,
+                      max_len=64)
+    torch.cuda.synchronize()
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    same = [r.out for r in got[0]] == [r.out for r in want[0]]
+    line = (f"{cfg.name} ServeEngine(mesh=) over {tuple(mesh.shape.values())}"
+            f", {len(batch)} requests: greedy tokens equal to the engine "
+            f"without a mesh: {same}; launches {counts}")
+    assert same and counts["flash_attention"] == len(batch) * cfg.n_layers, \
+        line
+    return line
+
+
+def dist_rec_smoke(mesh) -> list[str]:
+    """zamba2's smoke train step (Mamba2 heads over the model axis, the
+    shared GQA blocks through flash) and decode on the mesh, against no
+    mesh."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.transformer import (init_caches, init_lm,
+                                                lm_decode_step)
+    dp, model, _ = mesh_axes(mesh)
+    shape = tuple(mesh.shape.values())
+    cfg = dist_smoke_cfg("zamba2-2.7b")
+    batch = TokenPipeline(cfg.vocab, 32, 8, seed=1,
+                          device=mesh.device).batch(0)
+    want = dist_one_step(cfg, init_lm(0, cfg, device=mesh.device), batch)
+    got = dist_one_step(cfg, dist_place(init_lm(0, cfg, device=mesh.device),
+                                        mesh)[0], batch, mesh)
+    lines = [dist_step_check(f"{cfg.name} sharded step over {shape}", got,
+                             want)]
+    params = init_lm(0, cfg, device=mesh.device)
+    placed, _ = dist_place(init_lm(0, cfg, device=mesh.device), mesh)
+    b = 2 * mesh.shape["data"]
+    caches = init_caches(cfg, b, 4, device=mesh.device, mesh=mesh,
+                         dp_axes=dp, model_axis=model)
+    one = init_caches(cfg, b, 4, device=mesh.device)
+    toks = torch.arange(b, device=mesh.device) * 7 % cfg.vocab
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(3):
+            lg, caches = lm_decode_step(placed, cfg, toks, caches, i,
+                                        mesh=mesh, dp_axes=dp,
+                                        model_axis=model)
+            ref, one = lm_decode_step(params, cfg, toks, one, i)
+            lg = col.gather(lg, mesh, 0, dp)
+            worst = max(worst, float((lg - ref).abs().max()
+                                     / ref.abs().max()))
+            toks = ref.argmax(-1)
+    lines.append(f"{cfg.name} lm_decode_step over {shape}: 3 steps, logits "
+                 f"within {worst:.3e} of max|no mesh| (limit "
+                 f"{DIST_DECODE_RTOL:g})")
+    assert worst <= DIST_DECODE_RTOL, lines[-1]
+    return lines
+
+
+def dist_int8_smoke(mesh) -> str:
+    """An int8 train step of llama3.2-1b's smoke weights placed on the
+    mesh against the unplaced step: parameters, codes and scales bit for
+    bit (codes gathered and padded as the reference lays them out).  On
+    a mesh of more than one rank, whose grads sum in another order, the
+    step's update from the unplaced step's grads, each rank taking its
+    blocks (AdamW without the clip, whose global grad norm would sum in
+    another order too)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import adamw, build_train_step
+    from repro_torch.train.optim import Optimizer, tree_leaves, tree_map
+    dp, model, _ = mesh_axes(mesh)
+    cfg = dist_smoke_cfg("llama3.2-1b")
+    batch = TokenPipeline(cfg.vocab, 32, 8, seed=1,
+                          device=mesh.device).batch(0)
+    opt = adamw(1e-3, quantized=True, grad_clip=1.0 if mesh.size == 1
+                else 0.0)
+    params = init_lm(0, cfg, device=mesh.device)
+    state = opt.init(params)
+    grads = {}
+
+    def keep(g, s, p):
+        grads["g"] = tree_map(torch.clone, g)
+        return opt.update(g, s, p)
+
+    build_train_step(cfg, Optimizer(opt.init, keep))(params, state, batch)
+    placed, shard = dist_place(init_lm(0, cfg, device=mesh.device), mesh)
+    pstate = opt.init(placed)
+    if mesh.size == 1:
+        build_train_step(cfg, opt, mesh=mesh, dp_axes=dp, model_axis=model)(
+            placed, pstate, batch)
+    else:
+        with torch.no_grad():
+            opt.update(tree_map(lambda g, sh: sh.block(g).clone(),
+                                grads["g"], shard), pstate, placed)
+    got, want = dist_whole(placed), dist_whole(params)
+    same = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+    n_q = 0
+    for mom in ("m", "v"):
+        for q, w in zip(tree_leaves(pstate[mom]), tree_leaves(state[mom])):
+            codes, scale = q.whole()
+            same &= torch.equal(codes, w.codes) and torch.equal(scale,
+                                                                 w.scale)
+            n_q += 1
+    line = (f"{cfg.name} int8 step on parameters placed over "
+            f"{tuple(mesh.shape.values())} vs unplaced"
+            f"{'' if mesh.size == 1 else ' (from its grads)'}: {len(want)} "
+            f"parameters and {n_q} moments' codes and scales bit for bit: "
+            f"{same}")
+    assert same, line
+    return line
+
+
+
+
+def dist_engine(cfg, params, batch, max_new, *, mesh=None, slots=None,
+                max_len=None):
+    """``batch``'s prompts through a ``ServeEngine`` (on ``mesh`` when
+    given; greedy), stepped here: (requests, each prefill's last logits
+    in fp32, host ms of each engine step, wall seconds)."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.serve import ServeEngine
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    eng = ServeEngine(cfg, params, slots=slots or LM_SLOTS,
+                      max_len=max_len or LM_MAX_LEN, **kw)
+    firsts, sample = [], eng._sample
+
+    def record(logits):
+        if logits.shape[0] == 1:            # a prefill's (decode: slots)
+            firsts.append(logits.float().clone())
+        return sample(logits)
+
+    eng._sample = record
+    reqs = [eng.submit(p, max_new=max_new) for p in batch]
+    steps = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while not all(r.done for r in reqs):
+            t_a = time.perf_counter()
+            eng.step()                    # ends in .tolist(): synchronized
+            steps.append((time.perf_counter() - t_a) * 1e3)
+            assert len(steps) <= len(reqs) * max_new, "did not converge"
+    return reqs, firsts, steps, time.perf_counter() - t0
 
 
 def distributed_phase(card: str) -> None:
@@ -5161,6 +5343,39 @@ def distributed_phase(card: str) -> None:
                         timeout_s=DIST_TIMEOUT_S)
     for line in res[0]["lines"]:
         log(f"{line}  [{card}]")
+
+
+def dist_flash_shapes(card: str) -> None:
+    """``--mesh``'s timing: flash at the per-rank shapes of
+    ``--distributed``'s served prefills, (d)'s qwen3-0.6b at its buckets
+    and (e)'s zamba2-2.7b at its prompts' lengths, a model rank's q and kv
+    heads over a model axis of 2 and of 4, in bf16 and fp32: each call
+    checked against its plain core, and the two timed."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    for arch, n_req in ((LM_ARCH, LM_REQUESTS),
+                        ("zamba2-2.7b", DIST_REC_REQUESTS)):
+        cfg = configs.get(arch)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        lengths = sorted(lm_buckets(cfg)) if arch == LM_ARCH else sorted(
+            {len(p) for p in prompts(cfg.vocab, n_req, LM_PROMPT_LEN, 0)})
+        for m in (2, 4):
+            for dt in (torch.bfloat16, torch.float32):
+                ms = plain = 0.0
+                for s in lengths:
+                    case = flash_case((1, hq // m, max(1, hkv // m), s, s, d,
+                                       True), dt, rng, dev)
+                    check_case(case)
+                    ms += time_ms(case.run)
+                    plain += time_ms(case.plain)
+                log(f"flash at {arch}'s per-rank shape over a model axis of "
+                    f"{m} ({hq // m} q / {max(1, hkv // m)} kv heads, D {d}),"
+                    f" {str(dt).split('.')[-1]}, one call at each of the "
+                    f"{len(lengths)} served lengths {lengths[0]}-"
+                    f"{lengths[-1]}: kernel {ms:.4f} ms, plain core "
+                    f"{plain:.4f} ms in all  [{card}]")
 
 
 def dist_train_steps(cfg, params, mesh, n: int, profiled: int = 0):
@@ -5431,16 +5646,744 @@ def dist_rank_full(rank: int, world: int) -> list[str]:
     return lines
 
 
-def distributed_full_phase(card: str) -> None:
-    """``--distributed``: one rank a card, every card (four)."""
+def dist_rank_all(rank: int, world: int, card: str, sections: str,
+                  ckpt_dir: str) -> list[str]:
+    """``--distributed``'s sections on this rank: (a)-(c)
+    (``dist_rank_full``) under "abc", (d)-(g) and (w) under "d", "e",
+    "f", "g", "w"; rank 0
+    prints the new sections' lines as they come (a failure keeps what
+    came before) and returns (a)-(c)'s."""
+    lines = dist_rank_full(rank, world) if "abc" in sections else []
+    free_cuda()
+    emit = DistReport(rank, card)
+    dev = dist_device()
+    dist_setup()
+    if "d" in sections:
+        dist_serve_full(rank, dev, emit, LM_ARCH, LM_REQUESTS, LM_MAX_NEW,
+                        timing=True)
+        stamp_rank(rank, "(d) qwen3-0.6b served over (2, 2) and (1, 4)")
+    if "e" in sections:
+        for arch in DIST_REC:
+            dist_rec_full(rank, dev, emit, arch)
+            dist_serve_full(rank, dev, emit, arch, DIST_REC_REQUESTS,
+                            DIST_REC_MAX_NEW, timing=False)
+            stamp_rank(rank, f"(e) {arch} over (2, 2) and (1, 4)")
+    if "f" in sections or "g" in sections:
+        dist_grok_full(rank, dev, emit, ckpt_dir, train="f" in sections,
+                       checkpoint="g" in sections)
+        stamp_rank(rank, "(f, g) grok-1 with int8 moments")
+    if "w" in sections:
+        dist_witness(rank, dev, emit)
+        stamp_rank(rank, "(w) the witnesses of rounding")
+    assert not emit.failed, emit.failed
+    return lines
+
+
+class DistReport:
+    """Rank 0's lines of (d)-(f), printed as they come.  A check that only
+    rank 0 can make (against its one-card run) is recorded here and fails
+    the run after the last section, so the other ranks never wait for it
+    at a barrier; checks every rank makes alike assert where they
+    stand."""
+
+    def __init__(self, rank: int, card: str):
+        self.rank, self.card, self.failed = rank, card, []
+
+    def __call__(self, line: str, ok: bool = True) -> None:
+        if self.rank == 0:
+            log(f"{line}{'' if ok else '  FAIL'}  [{self.card}]")
+            if not ok:
+                self.failed.append(line)
+
+
+def stamp_rank(rank: int, what: str) -> None:
+    if rank == 0:
+        stamp(what)
+
+
+def distributed_full_phase(card: str, sections: str) -> None:
+    """``--distributed[=sections]``: one rank a card, four cards."""
+    import tempfile
     sys.path.insert(0, str(ROOT / "tools"))
     from ranks import run_ranks
     world = torch.cuda.device_count()
     assert world >= 4, f"--distributed needs 4 cards, found {world}"
-    res = run_ranks(dist_rank_full, 4, device_type="cuda",
-                    timeout_s=DIST_TIMEOUT_S)
+    with tempfile.TemporaryDirectory() as ckpt:
+        res = run_ranks(dist_rank_all, 4, card, sections, ckpt,
+                        device_type="cuda", timeout_s=DIST_FULL_TIMEOUT_S)
     for line in res[0]:
         log(f"{line}  [{card}]")
+
+
+# ``--distributed``'s sections (d)-(f), the rest of the LM over a mesh, at
+# published width on four cards, each over (2, 2) and (1, 4) where named
+# (rank 0 draws the one-card run while the others wait):
+# (d) qwen3-0.6b, not cut, served through ``ServeEngine(mesh=)`` with the
+#     launcher's defaults (LM_REQUESTS prompts of LM_PROMPT_LEN from seed
+#     0, LM_SLOTS slots, LM_MAX_LEN positions, LM_MAX_NEW new tokens,
+#     greedy): in fp32 each prefill's last logits within DIST_LOGIT_RTOL
+#     of max|logits| of one card's engine and the tokens equal, or apart
+#     only where one card's logits tie within 2 DIST_LOGIT_RTOL
+#     (``dist_margins``); in bf16 tok/s, engine step p50 and flash's
+#     launches beside one card's;
+# (e) zamba2-2.7b and xlstm-350m, not cut: one fp32 step (batch
+#     DIST_FP32_BATCH x TRAIN_SEQ, the moments drawn after the backward:
+#     ``dist_step_lean``) against one card's, loss within DIST_LOSS_RTOL,
+#     grad norm DIST_GNORM_RTOL, parameters in AdamW's unit
+#     (``dist_unit_check``), each leaf's first moment's distance printed;
+#     xlstm's fp32 step is printed beside one card's fp32 step's distance
+#     from its fp64 step, and its fp64 step is held to those bars and
+#     each first moment within DIST_FP64_RTOL (``dist_rec_steps``);
+#     DIST_STEPS bf16 steps with the loss falling, step p50, peak a rank
+#     and a profile's NCCL share; the fp32 engine (DIST_REC_REQUESTS
+#     requests, DIST_REC_MAX_NEW tokens): tokens as in (d), the prefill
+#     logits' distance printed (54 Mamba2 blocks sum in another order over
+#     the mesh: 1.543e-5 of max|one card| measured, zamba2 over (2, 2));
+# (f) grok-1 at its published width with int8 moments: 1 layer over (1,
+#     4) (its experts through ``moe_a2a`` at capacity DIST_CAPACITY) against
+#     one card's int8 step, both in bf16, which every rank runs on its own
+#     card and holds its blocks to (no rank waits on another's check at a
+#     barrier; the counts summed over the ranks): loss and grad norm within
+#     DIST_BF16_RTOL; the shares of parameter entries past DIST_LR_BAND lr
+#     and of moment entries past one code step, of one card's step against
+#     the mesh's bf16 step and against its fp32 step (the same weights),
+#     one card's against the fp32 step within DIST_WITNESS times the mesh's
+#     own bf16 step's (``dist_grok_one_layer``); 2 layers over (1, 4),
+#     DIST_STEPS steps with the loss falling, peak a rank, explain()'s
+#     bytes against the held blocks, a profile;
+# (g) that state (about 43 GiB) saved, its size and times, restored onto
+#     (2, 2) bit for bit, and step DIST_STEPS + 1 on both meshes.
+# (w) the witnesses that tell a fault of the mesh from rounding: xlstm's
+#     steps of (e) (fp32 and fp64, ``dist_rec_steps``) and grok-1's 1-layer
+#     step of (f) with DIST_STEPS int8 steps of one card and of (1, 4) side
+#     by side (``dist_grok_one_layer(curves=True)``).
+DIST_FULL_TIMEOUT_S = 3300
+DIST_SHAPES = ((2, 2), (1, 4))
+DIST_REC = ("zamba2-2.7b", "xlstm-350m")
+DIST_REC_REQUESTS, DIST_REC_MAX_NEW = 8, 16
+DIST_LOGIT_RTOL = 1e-5
+DIST_FP32_BATCH = TRAIN_BATCH // 2
+# xLSTM's backward amplifies fp32's rounding past 6b's grad-norm bar (one
+# card's fp32 step is as far from its fp64 step as the mesh's): its step is
+# held to one card's in float64, where the two compute the same function
+# to within the moments' fp32 storage
+DIST_FP64 = ("xlstm-350m",)
+DIST_FP64_RTOL = 1e-6
+DIST_LR = 1e-3
+DIST_LR_BAND, DIST_FLIP_SHARE = 0.1, 1e-4
+DIST_RESUME_RTOL = 1e-2
+# grok-1's 1-layer step runs in bf16 (its fp32 weights, grads and moments
+# outgrow one card): its loss and grad norm against one card's within
+# this, the bars of (f) being the moments' and the parameters'
+DIST_BF16_RTOL = 1e-2
+DIST_WITNESS = 2.0
+CODE_STEP = 2.0 ** (24.0 / 126.0) - 1.0
+
+
+def dist_peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def dist_step_lean(cfg, params, batch, mesh=None, quantized=False):
+    """One AdamW step (lr DIST_LR) of ``params`` (placed on ``mesh`` when
+    given), the moments drawn after the backward: (metrics as floats, the
+    parameters, the optimizer state)."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.train import adamw, build_train_step
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    opt = adamw(DIST_LR, quantized=quantized)
+    box = {}
+
+    def update(g, s, p):
+        box["state"] = opt.init(p)
+        return opt.update(g, box["state"], p)
+
+    from repro_torch.train.optim import Optimizer
+    step = build_train_step(cfg, Optimizer(init=opt.init, update=update),
+                            **kw)
+    params, _, m = step(params, None, batch)
+    return {k: float(v) for k, v in m.items()}, params, box["state"]
+
+
+def dist_unit_check(what, gm, gp, wm, wp, gnorm_rtol,
+                    loss_rtol=DIST_LOSS_RTOL) -> tuple[str, bool]:
+    """A sharded step against one card's: loss, grad norm, and each
+    parameter entry within 1e-5 of its leaf's max|one card| plus
+    DIST_LR_BAND of the lr (plus one bf16 ulp of the entry for bf16
+    leaves) on all but DIST_FLIP_SHARE of the entries: AdamW's unit, in
+    which a grad near zero that the two sum to other signs moves its
+    entry by up to twice the lr.  -> (the line, whether it passed)."""
+    loss = dist_rel(gm, wm, "loss")
+    gnorm = dist_rel(gm, wm, "grad_norm")
+    outside = total = 0
+    worst = 0.0
+    for k, w in wp.items():
+        o, t, wst = dist_param_apart(gp[k].detach(),
+                                     w.detach().to(gp[k].device))
+        outside, total, worst = outside + o, total + t, max(worst, wst)
+    line = (f"{what}: loss {gm['loss']:.6f} vs one card {wm['loss']:.6f} "
+            f"(rel {loss:.3e}, limit {loss_rtol:g}); grad norm rel "
+            f"{gnorm:.3e} (limit {gnorm_rtol:g}); parameters: {outside} of "
+            f"{total} entries past {DIST_LR_BAND:g} lr (limit "
+            f"{DIST_FLIP_SHARE:g} of them), the worst {worst:.3f} lr")
+    return line, (loss <= loss_rtol and gnorm <= gnorm_rtol
+                  and outside <= DIST_FLIP_SHARE * total)
+
+
+def dist_margins(cfg, params, batch, got, want):
+    """Tokens of two engines on the same prompts: (requests equal, those
+    apart only where one card's logits (``params``, teacher-forced over
+    the prompt and its own tokens) tie within 2 DIST_LOGIT_RTOL of their
+    max at the first token apart, the largest such gap)."""
+    from repro_torch.models.transformer import lm_forward
+    equal = ties = 0
+    worst = 0.0
+    dev = params["embed"].device
+    for p, g, w in zip(batch, got, want):
+        if g.out == w.out:
+            equal += 1
+            continue
+        i = next(k for k, (a, b) in enumerate(zip(g.out, w.out)) if a != b)
+        seq = torch.as_tensor(np.concatenate([p, w.out[:i]]), device=dev)
+        with torch.no_grad():
+            row = lm_forward(params, cfg, tokens=seq[None])[0][0, -1]
+        gap = float((row[w.out[i]] - row[g.out[i]]) / row.abs().max())
+        worst = max(worst, gap)
+        ties += gap <= 2 * DIST_LOGIT_RTOL
+    return equal, ties, worst
+
+
+def dist_serve_full(rank, dev, emit, arch, n_req, max_new, *,
+                    timing: bool) -> None:
+    """(d), or (e)'s engine: ``arch`` not cut, served over each of
+    DIST_SHAPES against one card's engine in fp32 (the tokens
+    margin-aware; the prefill logits within DIST_LOGIT_RTOL under
+    ``timing``, (d)'s bar, else printed); with ``timing`` the same in
+    bf16, timed."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models.transformer import init_lm
+    kernels = dist_kernels()
+    full = configs.get(arch)
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    batch = prompts(full.vocab, n_req, LM_PROMPT_LEN, 0)
+    want = p1 = None
+    if rank == 0:
+        p1 = init_lm(0, cfg32, device=dev)
+        want = dist_engine(cfg32, p1, batch, max_new)
+    for shape in DIST_SHAPES:
+        dist.barrier()
+        mesh = make_process_mesh(shape, ("data", "model"))
+        placed, _ = dist_place(init_lm(0, cfg32, device=dev), mesh)
+        free_cuda()
+        got = dist_engine(cfg32, placed, batch, max_new, mesh=mesh)
+        del placed
+        free_cuda()
+        if rank == 0:
+            rel = max(rel_err(g, w)[1] for g, w in zip(got[1], want[1]))
+            equal, ties, gap = dist_margins(cfg32, p1, batch, got[0],
+                                            want[0])
+            bar = (f"limit {DIST_LOGIT_RTOL:g}" if timing
+                   else "not a bar: the tokens are")
+            line = (f"{arch} fp32 ServeEngine(mesh=) over {shape}, "
+                    f"{len(batch)} requests x {max_new} tokens: prefill "
+                    f"logits within {rel:.3e} of max|one card| ({bar}); "
+                    f"tokens equal on {equal} "
+                    f"requests, apart at a tie on {ties} (largest gap "
+                    f"{gap:.3e}); wall {got[3]:.4f} s against one card's "
+                    f"{want[3]:.4f} s")
+            emit(line, (rel <= DIST_LOGIT_RTOL or not timing)
+                 and equal + ties == len(batch))
+    del p1, want
+    free_cuda()
+    if not timing:
+        return
+    dist.barrier()
+    one = None
+    if rank == 0:
+        for fn in kernels.values():
+            fn.launches = 0
+        one = dist_engine(full, init_lm(0, full, device=dev), batch,
+                          max_new)
+        emit(dist_serve_line(f"{arch} bf16 ServeEngine on one card", one,
+                             kernels))
+        free_cuda()
+    for shape in DIST_SHAPES:
+        dist.barrier()
+        mesh = make_process_mesh(shape, ("data", "model"))
+        placed, _ = dist_place(init_lm(0, full, device=dev), mesh)
+        free_cuda()
+        for fn in kernels.values():
+            fn.launches = 0
+        got = dist_engine(full, placed, batch, max_new, mesh=mesh)
+        del placed
+        free_cuda()
+        counts = {n: fn.launches for n, fn in kernels.items()}
+        emit(dist_serve_line(f"{arch} bf16 ServeEngine(mesh=) over {shape}",
+                             got, kernels) + (
+            f"; tokens equal to one card's on "
+            f"{sum(g.out == w.out for g, w in zip(got[0], one[0]))} of "
+            f"{len(batch)} requests" if rank == 0 else ""))
+        assert counts["flash_attention"] == len(batch) * full.n_layers, \
+            counts
+
+
+def dist_serve_line(what, run, kernels) -> str:
+    reqs, _, steps, wall = run
+    n_tok = sum(len(r.out) for r in reqs)
+    return (f"{what} (host clock): {len(reqs)} requests, {len(steps)} "
+            f"steps, {n_tok} tokens in {wall:.4f} s ({n_tok / wall:.2f} "
+            f"tok/s), engine step p50 {statistics.median(steps):.4f} ms; "
+            f"launches on rank 0 "
+            f"{ {n: fn.launches for n, fn in kernels.items()} }")
+
+
+def dist_witness(rank, dev, emit) -> None:
+    """(w): xlstm-350m's fp32 and fp64 steps, grok-1's 1-layer step and
+    its loss curves on one card and over (1, 4)."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_process_mesh
+    dist_rec_steps(rank, dev, emit, "xlstm-350m")
+    full = configs.get("grok-1-314b")
+    pipe = TokenPipeline(full.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                         device=dev)
+    dist_grok_one_layer(rank, dev, emit, full, pipe,
+                        make_process_mesh((1, 4), ("data", "model")),
+                        curves=True)
+
+
+def dist_cast(tree, dtype):
+    """A parameter tree with its floating leaves cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: dist_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def dist_moments_apart(got, want) -> tuple[float, str]:
+    """The largest distance of a leaf's first moment (0.1 of its clipped
+    grad) from ``want``'s, over that leaf's max|want|: (it, the leaf)."""
+    worst, at = 0.0, ""
+    for k, w in want.items():
+        w = w.to(got[k].device)
+        d = float((got[k].double() - w.double()).abs().max()) \
+            / max(float(w.abs().max()), 1e-30)
+        if d >= worst:
+            worst, at = d, k
+    return worst, at
+
+
+def dist_rec_steps(rank, dev, emit, arch) -> None:
+    """(e)'s fp32 step over each of DIST_SHAPES against one card's (and,
+    for DIST_FP64's archs, the float64 step, which holds the mesh to 6b's
+    bars where fp32's rounding is amplified past them: DIST_FP64)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.transformer import init_lm
+    cfg32 = dataclasses.replace(configs.get(arch), dtype="float32")
+    batch = TokenPipeline(cfg32.vocab, TRAIN_SEQ, DIST_FP32_BATCH, seed=0,
+                          device=dev).batch(0)
+    dtypes = (torch.float32, torch.float64) if arch in DIST_FP64 \
+        else (torch.float32,)
+    name = {torch.float32: "fp32", torch.float64: "fp64"}
+    want = {}
+    if rank == 0:
+        for dt in dtypes:
+            torch.cuda.reset_peak_memory_stats()
+            wm, wp, ws = dist_step_lean(
+                cfg32, dist_cast(init_lm(0, cfg32, device=dev), dt), batch)
+            want[dt] = (wm, {k: v.cpu() for k, v in dist_whole(wp).items()},
+                        {k: v.cpu() for k, v in dist_whole(ws["m"]).items()})
+            del wp, ws
+            free_cuda()
+            emit(f"{arch} {name[dt]} step on one card (batch "
+                 f"{DIST_FP32_BATCH} x {TRAIN_SEQ}): peak {dist_peak():.3f} "
+                 f"GiB")
+        if len(dtypes) == 2:
+            (m32, _, g32), (m64, _, g64) = want[dtypes[0]], want[dtypes[1]]
+            apart, leaf = dist_moments_apart(g32, g64)
+            emit(f"{arch} one card's fp32 step against its fp64 step: grad "
+                 f"norm rel {dist_rel(m32, m64, 'grad_norm'):.3e}, first "
+                 f"moments {apart:.3e} of the leaf's max ({leaf}): fp32's "
+                 f"own distance")
+    for shape in DIST_SHAPES:
+        mesh = make_process_mesh(shape, ("data", "model"))
+        for dt in dtypes:
+            dist.barrier()
+            placed, _ = dist_place(
+                dist_cast(init_lm(0, cfg32, device=dev), dt), mesh)
+            free_cuda()
+            gm, gp, gs = dist_step_lean(cfg32, placed, batch, mesh)
+            got, mom = dist_whole(gp), dist_whole(gs["m"])
+            del placed, gp, gs
+            free_cuda()
+            if rank == 0:
+                wm, wp, wmom = want[dt]
+                line, ok = dist_unit_check(
+                    f"{arch} {name[dt]} step over {shape}", gm, got, wm, wp,
+                    DIST_GNORM_RTOL)
+                apart, leaf = dist_moments_apart(mom, wmom)
+                line += (f"; first moments {apart:.3e} of the leaf's max "
+                         f"({leaf})")
+                if dt == torch.float64:
+                    line += f" (limit {DIST_FP64_RTOL:g})"
+                    ok = ok and apart <= DIST_FP64_RTOL
+                elif len(dtypes) == 2:
+                    m64, _, g64 = want[torch.float64]
+                    apart64, leaf64 = dist_moments_apart(mom, g64)
+                    line += (f"; against one card's fp64 step: grad norm "
+                             f"rel {dist_rel(gm, m64, 'grad_norm'):.3e}, "
+                             f"first moments {apart64:.3e} ({leaf64}); not "
+                             f"a bar: the fp64 step below holds the mesh")
+                    ok = True
+                emit(line, ok)
+            del got, mom
+            free_cuda()
+    del want
+    free_cuda()
+
+
+def dist_rel(got, want, key) -> float:
+    return abs(got[key] - want[key]) / abs(want[key])
+
+
+def dist_rec_full(rank, dev, emit, arch) -> None:
+    """(e)'s training: ``dist_rec_steps``, then DIST_STEPS bf16 steps over
+    each of DIST_SHAPES and a profile."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.transformer import init_lm
+    full = configs.get(arch)
+    dist_rec_steps(rank, dev, emit, arch)
+    kernels = dist_kernels()
+    for shape in DIST_SHAPES:
+        mesh = make_process_mesh(shape, ("data", "model"))
+        placed, _ = dist_place(init_lm(0, full, device=dev), mesh)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        hist, _, ms, events = dist_train_steps(full, placed, mesh,
+                                               DIST_STEPS, DIST_PROFILED)
+        counts = {n: fn.launches for n, fn in kernels.items()}
+        peak = dist_peak()
+        del placed
+        free_cuda()
+        emit(dist_loss_line(f"{arch} bf16 over {shape}, {DIST_STEPS} "
+                            f"steps", hist, ms)
+             + f"; launches on rank 0 {counts}; peak {peak:.3f} GiB a rank; "
+             + dist_profile_line(events, DIST_PROFILED))
+
+
+def dist_grok_full(rank, dev, emit, ckpt_dir, *, train: bool,
+                   checkpoint: bool) -> None:
+    """(f) under ``train``, (g) under ``checkpoint`` (above)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.weights import param_dtypes, param_shapes
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.optim import moment_shardings, tree_leaves
+    full = configs.get("grok-1-314b")
+    pipe = TokenPipeline(full.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                         device=dev)
+    mesh = make_process_mesh((1, 4), ("data", "model"))
+    if train:
+        dist_grok_one_layer(rank, dev, emit, full, pipe, mesh)
+    # 2 layers over (1, 4): steps, memory, the checkpoint
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    dist.barrier()
+    placed, _ = dist_place(init_lm(0, cfg2, device=dev), mesh)
+    free_cuda()
+    specs = sharding.param_specs(param_shapes(cfg2), mesh)
+    stated = sum(row[3] for row in sharding.explain(
+        param_shapes(cfg2), specs, mesh, param_dtypes(cfg2)))
+    held = sum(col.local(t).numel() * col.local(t).element_size()
+               for t in tree_leaves(placed))
+    torch.cuda.reset_peak_memory_stats()
+    kernels = dist_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    state = dist_int8_steps(cfg2, placed, mesh, pipe, DIST_STEPS)
+    hist, ms = state["hist"], state["ms"]
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    peak = dist_peak()
+    events = device_events(lambda: state["step"](DIST_STEPS),
+                           DIST_PROFILED)
+    n_params = sum(math.prod(t.shape) for t in tree_leaves(placed))
+    emit(dist_loss_line(f"grok-1 2 layers ({n_params / 1e9:.2f} B params), "
+                        f"int8 moments, bf16, over (1, 4), {DIST_STEPS} "
+                        f"steps", hist, ms)
+         + f"; launches on rank 0 {counts}; peak {peak:.3f} GiB a rank; "
+           f"parameters a rank: explain() {stated / 2**30:.3f} GiB, held "
+           f"{held / 2**30:.3f} GiB; " + dist_profile_line(events,
+                                                            DIST_PROFILED))
+    assert stated == held, (stated, held)
+    if not checkpoint:
+        del placed, state
+        free_cuda()
+        return
+    # the state after DIST_STEPS + DIST_PROFILED steps, saved, restored
+    # onto (2, 2)
+    opt_state = state["opt"]
+    mgr = CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    path = mgr.save(1, {"params": placed, "opt": opt_state})
+    t_save = time.perf_counter() - t0
+    size = 0
+    if rank == 0:
+        size = sum(f.stat().st_size for f in pathlib.Path(path).iterdir())
+    m22 = make_process_mesh((2, 2), ("data", "model"))
+    like_p, shard22 = dist_place(init_lm(1, cfg2, device=dev), m22)
+    free_cuda()
+    from repro_torch.train import adamw
+    ms22 = moment_shardings(like_p, shard22, quantized=True)
+    like = {"params": like_p, "opt": adamw(quantized=True).init(like_p)}
+    t0 = time.perf_counter()
+    back = mgr.restore(1, like, shardings={"params": shard22,
+                                           "opt": {"m": ms22, "v": ms22}})
+    t_restore = time.perf_counter() - t0
+    del like, like_p
+    free_cuda()
+    same, n = True, 0
+    for a, b in zip(tree_leaves(placed), tree_leaves(back["params"])):
+        wa, wb = dist_whole({"x": a})["x"], dist_whole({"x": b})["x"]
+        same &= torch.equal(wa, wb)
+        n += 1
+        del wa, wb
+        free_cuda()
+    for mom in ("m", "v"):
+        for qa, qb in zip(tree_leaves(opt_state[mom]),
+                          tree_leaves(back["opt"][mom])):
+            wa, wb = qa.whole(), qb.whole()
+            same &= torch.equal(wa[0], wb[0]) and torch.equal(wa[1], wb[1])
+            n += 2
+            del wa, wb
+            free_cuda()
+    same &= int(back["opt"]["step"]) == int(opt_state["step"])
+    step = DIST_STEPS + DIST_PROFILED
+    loss_14 = state["step"](step)["loss"].item()
+    del placed, opt_state, state
+    free_cuda()
+    resumed = dist_int8_steps(cfg2, back["params"], m22, pipe, 0,
+                              opt_state=back["opt"])
+    loss_22 = resumed["step"](step)["loss"].item()
+    rel = abs(loss_22 - loss_14) / abs(loss_14)
+    line = (f"grok-1 2 layers int8 checkpoint from (1, 4): "
+            f"{size / 2**30:.3f} GiB, saved in {t_save:.2f} s, restored "
+            f"onto (2, 2) in {t_restore:.2f} s; {n} leaves (parameters, "
+            f"codes and scales) bit for bit: {same}; step {step + 1}'s loss "
+            f"{loss_22:.6f} on (2, 2) against {loss_14:.6f} on (1, 4) (rel "
+            f"{rel:.3e}, limit {DIST_RESUME_RTOL:g})")
+    emit(line)
+    assert same and rel <= DIST_RESUME_RTOL, line
+    del back, resumed
+    free_cuda()
+
+
+def dist_grok_one_layer(rank, dev, emit, full, pipe, mesh, *,
+                        curves: bool = False) -> None:
+    """(f)'s first half: grok-1 at 1 layer, one int8 step over ``mesh``
+    against one card's, which every rank takes on its own card and holds
+    its own blocks to (replicated blocks counted once).  Both run in bf16,
+    whose grads round apart: the mesh's step also runs with fp32 weights
+    (the same bf16 values), and one card's bf16 step must be no further
+    from it than DIST_WITNESS times the mesh's own bf16 step is (a fault
+    of the mesh would move both of the mesh's steps from one card's).
+    With ``curves`` (section w): then DIST_STEPS int8 steps of one card
+    and of the mesh, their losses side by side."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optim import QTensor, tree_leaves
+    cfg1 = dataclasses.replace(full, n_layers=1, moe=dataclasses.replace(
+        full.moe, capacity_factor=DIST_CAPACITY))
+    batch = pipe.batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    wm, wp, ws = dist_step_lean(cfg1, init_lm(0, cfg1, device=dev), batch,
+                                quantized=True)
+    one_p = [t.detach().cpu() for t in tree_leaves(wp)]
+    one_q = [QTensor(q.codes.cpu(), q.scale.cpu()) for mom in ("m", "v")
+             for q in tree_leaves(ws[mom])]
+    del wp, ws
+    free_cuda()
+    emit(f"grok-1 1 layer int8 step on one card (each rank its own): peak "
+         f"{dist_peak():.3f} GiB")
+    runs = {}
+    for tag in ("bf16", "fp32"):
+        dist.barrier()
+        cfg, params = cfg1, init_lm(0, cfg1, device=dev)
+        if tag == "fp32":
+            cfg = dataclasses.replace(cfg1, dtype="float32")
+            params = dist_cast(params, torch.float32)
+        placed, shard = dist_place(params, mesh)
+        del params
+        free_cuda()
+        runs[tag] = dist_step_lean(cfg, placed, batch, mesh, quantized=True)
+        del placed
+        free_cuda()
+    # per pair (one card's bf16, the mesh's bf16), (one card's bf16, the
+    # mesh's fp32), (the mesh's bf16, its fp32): parameter entries past
+    # DIST_LR_BAND lr and a bf16 ulp, moment entries past one code step
+    apart = torch.zeros(3, 4, dtype=torch.float64, device=dev)
+    leaves = {t: tree_leaves(runs[t][1]) for t in runs}
+    moms = {t: [q for mom in ("m", "v") for q in tree_leaves(runs[t][2][mom])]
+            for t in runs}
+    shards = tree_leaves(shard)
+    n = len(shards)
+    for i, sh in enumerate(shards):
+        p16, p32 = leaves["bf16"][i], leaves["fp32"][i]
+        if not col.counted_here(p16):
+            continue
+        one = sh.block(one_p[i]).to(dev)
+        for row, (got, want) in enumerate(((p16, one), (p32, one),
+                                           (p16, p32))):
+            apart[row, :2] += torch.tensor(dist_param_apart(
+                col.local(got).detach(), col.local(want).detach())[:2],
+                dtype=torch.float64, device=dev)
+        del one
+        for j in (i, n + i):
+            one = dist_moment_block(one_q[j], one_p[i].shape, sh, dev)
+            m16 = moms["bf16"][j].local(p16)
+            m32 = moms["fp32"][j].local(p32)
+            for row, (got, want) in enumerate(((m16, one), (m32, one),
+                                               (m16, m32))):
+                apart[row, 2:] += torch.tensor(
+                    dist_code_steps(got, want), dtype=torch.float64,
+                    device=dev)
+            del one, m16, m32
+    dist.all_reduce(apart)
+    share = (apart[:, 0] / apart[:, 1]).tolist(), \
+        (apart[:, 2] / apart[:, 3]).tolist()
+    gm = runs["bf16"][0]
+    loss = dist_rel(gm, wm, "loss")
+    gnorm = dist_rel(gm, wm, "grad_norm")
+    emit(f"grok-1 1 layer int8 step over (1, 4), bf16: loss {gm['loss']:.6f}"
+         f" vs one card {wm['loss']:.6f} (rel {loss:.3e}, limit "
+         f"{DIST_BF16_RTOL:g}); grad norm rel {gnorm:.3e} (limit "
+         f"{DIST_BF16_RTOL:g}); the mesh's fp32 step: loss "
+         f"{runs['fp32'][0]['loss']:.6f}, grad norm rel "
+         f"{dist_rel(runs['fp32'][0], wm, 'grad_norm'):.3e}",
+         loss <= DIST_BF16_RTOL and gnorm <= DIST_BF16_RTOL)
+    for what, (a, b, c), total in (
+            (f"parameter entries past {DIST_LR_BAND:g} lr and a bf16 ulp",
+             share[0], int(apart[0, 1])),
+            ("moment entries (each rank's blocks dequantized) past one code "
+             f"step ({CODE_STEP:.4f} of the larger)", share[1],
+             int(apart[0, 3]))):
+        emit(f"grok-1 1 layer int8 step over (1, 4), {what}, of {total}: "
+             f"one card's bf16 against the mesh's bf16 {a:.3e}, against the "
+             f"mesh's fp32 {b:.3e}; the mesh's bf16 against its fp32 {c:.3e}"
+             f" (limit: one card's no more than {DIST_WITNESS:g}x the "
+             f"mesh's)", b <= DIST_WITNESS * c)
+    del runs, leaves, moms, one_p, one_q
+    free_cuda()
+    if not curves:
+        return
+    hists = {}
+    for where in ("one card", "(1, 4)"):
+        dist.barrier()
+        on = mesh if where == "(1, 4)" else None
+        params = init_lm(0, cfg1, device=dev)
+        if on is not None:
+            params, _ = dist_place(params, on)
+        free_cuda()
+        state = dist_int8_steps(cfg1, params, on, pipe, DIST_STEPS)
+        hists[where] = (state["hist"], state["ms"])
+        del params, state
+        free_cuda()
+    emit("grok-1 1 layer, int8 moments, bf16, " + ", ".join(
+        f"{where}: {[round(x, 4) for x in h]} (step p50 "
+        f"{statistics.median(ms[3:]):.1f} ms)"
+        for where, (h, ms) in hists.items()) + "; not a bar: bf16 steps "
+        "round apart, a fault would part the curves from the first step")
+
+
+def dist_param_apart(got, want) -> tuple[int, int, float]:
+    """Entries of a parameter block past DIST_LR_BAND lr of ``want``'s,
+    over 1e-5 of its max (and a bf16 ulp of the entry where either is
+    bf16): (how many, of how many, the worst in lr)."""
+    err = (got.float() - want.float()).abs()
+    over = err - 1e-5 * want.float().abs().max()
+    if torch.bfloat16 in (got.dtype, want.dtype):
+        over = over - want.float().abs() * 2.0 ** -7
+    return (int((over > DIST_LR_BAND * DIST_LR).sum()), err.numel(),
+            float(over.max()) / DIST_LR)
+
+
+def dist_moment_block(q, shape, sh, dev, rows=1 << 12):
+    """One card's int8 moment ``q`` (on the host) of a parameter of
+    ``shape``, dequantized on the card a chunk of rows at a time, and
+    ``sh``'s block of it: this rank's entries."""
+    from repro_torch.train.optim import dequantize_i8
+    codes = q.codes.reshape(-1, q.codes.shape[-1])
+    scale = q.scale.reshape(-1, q.scale.shape[-1])
+    out = torch.empty((codes.shape[0], shape[-1]), dtype=torch.float32,
+                      device=dev)
+    for i in range(0, codes.shape[0], rows):
+        out[i:i + rows] = dequantize_i8(codes[i:i + rows].to(dev),
+                                        scale[i:i + rows].to(dev),
+                                        (shape[-1],))
+    block = sh.block(out.reshape(shape)).clone()
+    del out
+    return block
+
+
+def dist_int8_steps(cfg, params, mesh, pipe, n, opt_state=None) -> dict:
+    """``n`` bf16 steps with int8 moments (AdamW, the cosine schedule
+    from 3e-4) of ``params`` placed on ``mesh`` (one card's without):
+    {"hist", "ms", "opt", "step": one more step of batch ``s``, its
+    metrics}."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.train import adamw, build_train_step
+    from repro_torch.train.optim import cosine_schedule
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    opt = adamw(cosine_schedule(3e-4, warmup=2, total=DIST_STEPS + 4),
+                quantized=True)
+    step = build_train_step(cfg, opt, **kw)
+    out = {"hist": [], "ms": [],
+           "opt": opt_state if opt_state is not None else opt.init(params)}
+
+    def one(s):
+        _, out["opt"], m = step(params, out["opt"], pipe.batch(s))
+        return m
+
+    out["step"] = one
+    for s in range(n):
+        t0 = time.perf_counter()
+        out["hist"].append(one(s)["loss"].item())
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_code_steps(got, want, rows=1 << 13):
+    """Entries of two dequantized int8 moments further apart than one
+    code step of the larger, a chunk of rows at a time; entries under
+    2^-24 of their row's absmax (about where the codes hold 0) held to
+    that -> (how many, of how many)."""
+    a, b = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    outside = 0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows], b[i:i + rows]
+        big = torch.maximum(x.abs(), y.abs())
+        floor = big.amax(-1, keepdim=True) * 2.0 ** -24
+        outside += int(((x - y).abs() > CODE_STEP * big + floor).sum())
+    return outside, a.numel()
 
 
 def main() -> int:
@@ -5520,8 +6463,16 @@ def main() -> int:
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
         return finish()
-    if "--distributed" in sys.argv[1:]:
-        distributed_full_phase(card)
+    if "--mesh" in sys.argv[1:]:
+        distributed_phase(card)
+        stamp("distributed phase")
+        dist_flash_shapes(card)
+        stamp("flash at the mesh's per-rank shapes")
+        return finish()
+    dist_arg = [a for a in sys.argv[1:] if a.startswith("--distributed")]
+    if dist_arg:
+        sections = dist_arg[0].partition("=")[2] or "abc,d,e,f,g"
+        distributed_full_phase(card, sections)
         stamp("distributed phase (four cards)")
         log(f"card: {card}")
         return finish()

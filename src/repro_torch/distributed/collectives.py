@@ -69,6 +69,16 @@ def local(t):
     return t._local_tensor if is_dtensor(t) else t
 
 
+def whole(t):
+    """A ``DTensor`` gathered whole, every rank of its mesh taking part;
+    any other leaf as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(
+        placements=[Replicate()] * t.device_mesh.ndim).to_local()
+
+
 def spec_of(t, mesh) -> tuple:
     """The spec (one entry per dim) of a ``Sharded`` leaf or a ``DTensor``
     over ``mesh``; a plain tensor's is all None (replicated)."""

@@ -42,10 +42,12 @@ cache of ``ckv`` and ``kr`` alone, as fp32 einsums (no kernel stands
 behind it in the reference either).
 
 Under a mesh context (``layers.shard_axes``) each rank runs its model
-rank's share of the heads (``local_heads``, ``layers.model_part``) on its
-batch rows: the projections read only those heads' columns (a weight
-sharded over the model axis on exactly them is not gathered; one split
-elsewhere, mid-head, is gathered whole and cut at whole heads), the
+rank's share of the heads (``local_heads``, ``layers.head_part``; all of
+them, whole on every model rank, where the model axis is wider than the
+head count) on its batch rows: the projections read only
+those heads' columns (a weight sharded over the model axis on exactly
+them is not gathered; one split elsewhere, mid-head, is gathered whole
+and cut at whole heads), the
 attention core (the flash forward and backward kernels under
 ``chunked``) runs on the local ``(batch / dp, heads / model)`` slice,
 and the output projection's partial sums over the model axis meet in
@@ -64,8 +66,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
-from repro_torch.models.layers import (dot, head_rms_norm, init_linear,
-                                       model_part, psum_model, rms_norm,
+from repro_torch.models.layers import (dot, head_part, head_rms_norm,
+                                       init_linear, psum_model, rms_norm,
                                        rope, weight, wide)
 
 NEG = -1e30
@@ -256,17 +258,14 @@ def init_gqa(gen, cfg, dtype):
 
 
 def local_heads(n_heads: int, n_kv: int):
-    """This model rank's q heads ``[lo, hi)`` and the kv heads they read,
-    in order: a range, one per group (the group's q heads sit on this rank
-    with it), or a list, one per q head where the rank's heads cut a group
-    unevenly.  All heads without a mesh context."""
-    lo, hi = model_part(n_heads)
+    """This model rank's q heads ``[lo, hi)`` (``layers.head_part``) and
+    the kv heads they read, in order: a range, one per group (the group's
+    q heads sit on this rank with it), or a list, one per q head where the
+    rank's heads cut a group unevenly.  All heads without a mesh context, or
+    where the model axis is wider than the head count."""
+    lo, hi = head_part(n_heads, uneven=True)
     if (lo, hi) == (0, n_heads):
         return lo, hi, range(n_kv)
-    if hi <= lo:
-        raise NotImplementedError(
-            f"{n_heads} heads over a larger model axis leave a rank none "
-            f"(ROADMAP queue 1 item 6c)")
     g = n_heads // n_kv
     kv = [h // g for h in range(lo, hi)]
     distinct = range(kv[0], kv[-1] + 1)
@@ -316,10 +315,11 @@ def _out_proj(params, x, out, head_width: int):
     H, head_width)``: this rank's heads' rows of ``wo``, the partial sums
     added over the model axis in fp32 under a mesh, cast once."""
     B, S = x.shape[:2]
-    lo, hi = model_part(params["wo"].shape[0] // head_width)
+    n = params["wo"].shape[0] // head_width
+    lo, hi = head_part(n, uneven=True)
     rows = slice(lo * head_width, hi * head_width)
     y = dot(out.reshape(B, S, -1), weight(params["wo"], 0, rows))
-    return psum_model(y).to(x.dtype)
+    return (y if (lo, hi) == (0, n) else psum_model(y)).to(x.dtype)
 
 
 def gqa_attend(params, x, q, k, v, *, impl="chunked", offset=0):
@@ -356,7 +356,7 @@ def _mla_qkr(params, x, positions, cfg):
     m = cfg.mla
     B, S, _ = x.shape
     qh = m.nope_head_dim + m.rope_head_dim
-    lo, hi = model_part(cfg.n_heads)
+    lo, hi = head_part(cfg.n_heads, uneven=True)
     cq = rms_norm(dot(x, weight(params["wdq"])).to(x.dtype),
                   params["q_norm"], cfg.norm_eps)
     q = dot(cq, weight(params["wuq"], -1, slice(lo * qh, hi * qh))).to(
@@ -394,7 +394,7 @@ def _wukv(params, cfg):
     """``wukv``'s columns of this rank's heads (``(kv_lora, H · (nope +
     v))``)."""
     width = cfg.mla.nope_head_dim + cfg.mla.v_head_dim
-    lo, hi = model_part(cfg.n_heads)
+    lo, hi = head_part(cfg.n_heads, uneven=True)
     return weight(params["wukv"], -1, slice(lo * width, hi * width))
 
 

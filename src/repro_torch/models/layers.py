@@ -36,8 +36,11 @@ array; here the layout change is the slice, differentiable); ``gather``
 ``weight``: the leaf all-gathered on its sharded dims, or only this
 model rank's block of a dim (``model_part``), the tensor-parallel split
 of heads and of the MLP's hidden width.  A row-parallel product's
-partial sums meet in ``psum_model``.  Without the context every one of
-these returns its input.
+partial sums meet in ``psum_model``, and a norm over a dim split that way
+adds its squares' sums there (``rms_norm_split``).  A scale already read
+through ``weight`` goes to ``rms_norm_by`` (``rms_norm`` reads its leaf,
+and a second read would count its grad twice).  Without the context every
+one of these returns its input.
 """
 from __future__ import annotations
 
@@ -77,6 +80,15 @@ class MeshAxes:
     @property
     def dp_size(self) -> int:
         return math.prod(self.mesh.shape[a] for a in self.dp)
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's place over the dp axes, outer axis first (the
+        block ``wsc`` cuts)."""
+        i = 0
+        for a in self.dp:
+            i = i * self.mesh.shape[a] + self.mesh.axis_index(a)
+        return i
 
 
 _AXES: contextvars.ContextVar = contextvars.ContextVar("shard_axes",
@@ -141,6 +153,31 @@ def model_part(n: int) -> tuple[int, int]:
     base, extra = divmod(n, m)
     lo = k * base + min(k, extra)
     return lo, lo + base + (k < extra)
+
+
+def head_part(n: int, *, uneven: bool = False,
+              groups: int | None = None) -> tuple[int, int]:
+    """This model rank's heads ``[lo, hi)`` of ``n``: its ``model_part``
+    share, or all ``n`` where that share would not be whole, which is the
+    reference's rule (``wsc`` leaves a dim that does not divide
+    unconstrained): every model rank then runs the heads whole and adds
+    no partial sums.  A share is whole where ``n`` divides over the model
+    axis and, with SSD's B/C ``groups``, each rank's heads cover whole
+    groups or lie in one.  ``uneven`` (attention): any split but one that
+    leaves a rank no head is whole, since a GQA rank reads the kv heads of
+    its own q heads (``attention.local_heads``) whatever the split; a
+    recurrent block's state, conv tail and gated norm are per head group,
+    so it splits evenly only.  All heads without a mesh context."""
+    ax = _AXES.get()
+    if ax is None:
+        return 0, n
+    m = ax.model_size
+    if uneven:
+        whole = n < m
+    else:
+        whole = m > 1 and (n % m != 0 or (groups is not None
+                                          and groups % m and m % groups))
+    return (0, n) if whole else model_part(n)
 
 
 def weight(w, dim: int | None = None, index=None):
@@ -279,9 +316,26 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x, scale, eps=1e-5):
-    scale = weight(scale)
+    """``x`` normalized over its last dim and scaled by the parameter leaf
+    ``scale`` (read through ``weight``)."""
+    return rms_norm_by(x, weight(scale), eps)
+
+
+def rms_norm_by(x, scale, eps=1e-5):
+    """``rms_norm`` with a scale already read (a tensor derived from a
+    ``weight`` read, which a second read would count twice in the
+    grad)."""
     xf = wide(x)
     var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * wide(scale)).to(x.dtype)
+
+
+def rms_norm_split(x, scale, n: int, eps=1e-5):
+    """``rms_norm_by`` over a last dim of ``n`` of which ``x`` holds this
+    model rank's part (``scale`` the same part): the squares' sums added
+    over the model axis (``psum_model``)."""
+    xf = wide(x)
+    var = psum_model((xf * xf).sum(-1, keepdim=True)) / n
     return (xf * torch.rsqrt(var + eps) * wide(scale)).to(x.dtype)
 
 

@@ -10,10 +10,26 @@ recurrence keeps the reference's three realizations:
 Each ``lax.scan`` is a Python loop here: over chunks in the chunked forms,
 over tokens in ``*_seq`` and in sLSTM.  Carries and the recurrences run
 in fp32 (float64 in a float64 model: ``acc``, ``layers.wide``); block
-inputs and outputs stay in the model dtype.  The reference's mesh
-constraints (``wsc``) are left out: the recurrent blocks take no mesh
-(ROADMAP item 6c).  None of these recurrences has a Pallas kernel in the
-reference (they run in XLA there), so they run as plain PyTorch here.
+inputs and outputs stay in the model dtype.  None of these recurrences
+has a Pallas kernel in the reference (they run in XLA there), so they run
+as plain PyTorch here.
+
+Under a mesh context (``layers.shard_axes``, ``transformer.lm_forward``'s
+and its siblings' ``mesh=``) every leaf is read through ``layers.weight``
+and each rank runs its batch rows.  Where SSD's or mLSTM's heads divide
+over the model axis (``layers.head_part``; the reference pins them there with
+``wsc``) each model rank runs its share of them: Mamba2 reads ``in_proj``'s
+columns of its heads section by section (z, x, the B and C of their
+groups, dt), with the conv's channels, ``A_log``, ``dt_bias`` and ``D``
+alike; its gated norm over all of ``d_in`` adds the squares' sums over the
+model axis (``layers.rms_norm_split``).  mLSTM runs its up projection's
+``h_in`` half and the conv whole (every head's q and k read every
+channel) and the rest on its heads: ``z``, q, k, v, the gates, the
+per-head norm and the skip.  The output projection's partial sums are
+added over the model axis (``psum_model``).  Where the heads do not
+divide, and always for sLSTM (its recurrent ``r`` is replicated by the
+rule table), a block runs whole on every model rank.  States and conv
+tails are the rank's rows and heads (mLSTM's conv tail whole).
 
 One difference from the reference: ``ssd_chunked`` masks the pairs above
 each chunk's diagonal before its exp, where the reference masks after it
@@ -34,7 +50,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (dot, init_linear, normal, rms_norm,
+from repro_torch.models.layers import (dot, head_part, init_linear,
+                                       normal, psum_model, rms_norm,
+                                       rms_norm_by, rms_norm_split, weight,
                                        wide)
 
 NEG = -1e30  # finite -inf stand-in (avoids inf-inf NaNs in grads)
@@ -193,41 +211,78 @@ def _causal_conv(x, w, b, *, tail=None):
     return (y + wide(b)).to(x.dtype), new_tail
 
 
+def _mamba2_part(cfg, device):
+    """This rank's part of a Mamba2 block: ``(heads, groups, in_proj's
+    columns, the conv's channels)``; the columns None where the block runs
+    whole.  ``in_proj``'s columns are z ``[0, d_in)``, x ``[d_in,
+    2·d_in)``, B and C ``gN`` each, dt ``nheads``; the conv's are x, B,
+    C."""
+    s, d_in, gN, nheads, _ = _mamba2_dims(cfg)
+    lo, hi = head_part(nheads, groups=s.n_groups)
+    if (lo, hi) == (0, nheads):
+        return (lo, hi), (0, s.n_groups), None, None
+    P, N = s.head_dim, s.d_state
+    rep = nheads // s.n_groups
+    g0, g1 = lo // rep, (hi - 1) // rep + 1
+    xs = torch.arange(lo * P, hi * P, device=device)
+    bs = torch.arange(g0 * N, g1 * N, device=device)
+    dts = torch.arange(lo, hi, device=device)
+    cols = torch.cat([xs, d_in + xs, 2 * d_in + bs, 2 * d_in + gN + bs,
+                      2 * d_in + 2 * gN + dts])
+    chans = torch.cat([xs, d_in + bs, d_in + gN + bs])
+    return (lo, hi), (g0, g1), cols, chans
+
+
 def mamba2_forward(params, x, cfg, *, state=None, impl="chunked"):
     """x ``(b, S, d)``.  state: None or ``{"conv": (b, K-1, conv_ch),
-    "ssm": (b, H, N, P)}``.  Returns ``(out, new_state)``."""
+    "ssm": (b, H, N, P)}`` (this rank's heads and their channels under a
+    mesh context: module docstring).  Returns ``(out, new_state)``."""
     s, d_in, gN, nheads, _ = _mamba2_dims(cfg)
-    proj = dot(x, params["in_proj"]).to(x.dtype)
-    z, xBC, dtr = torch.split(proj, [d_in, d_in + 2 * gN, nheads], -1)
+    (lo, hi), (g0, g1), cols, chans = _mamba2_part(cfg, x.device)
+    h_loc, g_loc = hi - lo, g1 - g0
+    di, gn = h_loc * s.head_dim, g_loc * s.d_state
+    heads = None if cols is None else slice(lo, hi)
+    proj = dot(x, weight(params["in_proj"], -1, cols)).to(x.dtype)
+    z, xBC, dtr = torch.split(proj, [di, di + 2 * gn, h_loc], -1)
     conv_tail = None if state is None else state["conv"]
-    xBC, new_tail = _causal_conv(xBC, params["conv_w"], params["conv_b"],
+    xBC, new_tail = _causal_conv(xBC, weight(params["conv_w"], -1, chans),
+                                 weight(params["conv_b"], 0, chans),
                                  tail=conv_tail)
     xBC = F.silu(wide(xBC)).to(x.dtype)
-    xs, B, C = torch.split(xBC, [d_in, gN, gN], -1)
+    xs, B, C = torch.split(xBC, [di, gn, gn], -1)
     b, S = x.shape[:2]
-    xs = xs.reshape(b, S, nheads, s.head_dim)
-    B = B.reshape(b, S, s.n_groups, s.d_state)
-    C = C.reshape(b, S, s.n_groups, s.d_state)
-    dt = softplus(wide(dtr) + params["dt_bias"])      # (b, S, H)
-    A = -torch.exp(params["A_log"])
+    xs = xs.reshape(b, S, h_loc, s.head_dim)
+    B = B.reshape(b, S, g_loc, s.d_state)
+    C = C.reshape(b, S, g_loc, s.d_state)
+    dt = softplus(wide(dtr) + weight(params["dt_bias"], 0, heads))
+    A = -torch.exp(weight(params["A_log"], 0, heads))
+    D = weight(params["D"], 0, heads)
     ssm0 = None if state is None else state["ssm"]
     if impl == "chunked":
-        y, ssm1 = ssd_chunked(xs, dt, A, B, C, params["D"], state=ssm0,
-                              chunk=s.chunk)
+        y, ssm1 = ssd_chunked(xs, dt, A, B, C, D, state=ssm0, chunk=s.chunk)
     else:
-        y, ssm1 = ssd_seq(xs, dt, A, B, C, params["D"], state=ssm0)
-    y = y.reshape(b, S, d_in)
-    y = rms_norm((wide(y) * F.silu(wide(z))).to(x.dtype),
-                 params["norm"], cfg.norm_eps)
-    out = dot(y, params["out_proj"]).to(x.dtype)
-    return out, {"conv": new_tail, "ssm": ssm1}
+        y, ssm1 = ssd_seq(xs, dt, A, B, C, D, state=ssm0)
+    y = y.reshape(b, S, di)
+    y = (wide(y) * F.silu(wide(z))).to(x.dtype)
+    if heads is None:
+        y = rms_norm(y, params["norm"], cfg.norm_eps)
+        return (dot(y, weight(params["out_proj"])).to(x.dtype),
+                {"conv": new_tail, "ssm": ssm1})
+    cut = slice(lo * s.head_dim, hi * s.head_dim)
+    y = rms_norm_split(y, weight(params["norm"], 0, cut), d_in, cfg.norm_eps)
+    out = psum_model(dot(y, weight(params["out_proj"], 0, cut)))
+    return out.to(x.dtype), {"conv": new_tail, "ssm": ssm1}
 
 
 def mamba2_init_state(cfg, batch, dtype, *, device="cuda"):
-    s, _, _, nheads, conv_ch = _mamba2_dims(cfg)
+    """A Mamba2 block's initial state (this rank's heads and channels
+    under a mesh context)."""
+    s, _, _, nheads, _ = _mamba2_dims(cfg)
+    (lo, hi), (g0, g1), _, _ = _mamba2_part(cfg, "cpu")
+    conv_ch = (hi - lo) * s.head_dim + 2 * (g1 - g0) * s.d_state
     return {"conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
                                 dtype=dtype, device=device),
-            "ssm": torch.zeros((batch, nheads, s.d_state, s.head_dim),
+            "ssm": torch.zeros((batch, hi - lo, s.d_state, s.head_dim),
                                dtype=acc(dtype), device=device)}
 
 
@@ -367,22 +422,38 @@ def init_mlstm(gen, cfg, dtype):
 
 def mlstm_block(params, x, cfg, *, state=None, impl="chunked"):
     """Post-up-projection mLSTM block.  state: ``{"conv", "C", "n",
-    "m"}`` or None."""
+    "m"}`` or None (this rank's heads under a mesh context: module
+    docstring)."""
     xc = cfg.xlstm
     b, S, d = x.shape
     d_in = int(xc.proj_factor * d)
     H = cfg.n_heads
     P = d_in // H
-    up = dot(x, params["up"]).to(x.dtype)
+    lo, hi = head_part(H)
+    whole = (lo, hi) == (0, H)
+    hs = None if whole else slice(lo * P, hi * P)
+    up_cols = gate_cols = None
+    if not whole:
+        dev = x.device
+        heads = torch.arange(lo, hi, device=dev)
+        up_cols = torch.cat([torch.arange(d_in, device=dev),
+                             d_in + torch.arange(lo * P, hi * P, device=dev)])
+        gate_cols = torch.cat([heads, H + heads])
+    up = dot(x, weight(params["up"], -1, up_cols)).to(x.dtype)
     h_in, z = torch.split(up, [d_in, up.shape[-1] - d_in], -1)
     conv_tail = None if state is None else state["conv"]
-    hc, new_tail = _causal_conv(h_in, params["conv_w"], params["conv_b"],
-                                tail=conv_tail)
+    hc, new_tail = _causal_conv(h_in, weight(params["conv_w"]),
+                                weight(params["conv_b"]), tail=conv_tail)
     hc = F.silu(wide(hc)).to(x.dtype)
-    q = dot(hc, params["wq"]).to(x.dtype).reshape(b, S, H, P)
-    k = dot(hc, params["wk"]).to(x.dtype).reshape(b, S, H, P)
-    v = dot(h_in, params["wv"]).to(x.dtype).reshape(b, S, H, P)
-    gates = dot(hc, params["wif"]) + params["if_bias"]
+    h_loc = hi - lo
+    q = dot(hc, weight(params["wq"], -1, hs)).to(x.dtype).reshape(
+        b, S, h_loc, P)
+    k = dot(hc, weight(params["wk"], -1, hs)).to(x.dtype).reshape(
+        b, S, h_loc, P)
+    v = dot(h_in, weight(params["wv"], -1, hs)).to(x.dtype).reshape(
+        b, S, h_loc, P)
+    gates = (dot(hc, weight(params["wif"], -1, gate_cols))
+             + weight(params["if_bias"], 0, gate_cols))
     li, lfr = torch.chunk(gates, 2, -1)                 # (b, S, H) each
     lf = F.logsigmoid(lfr)
     st0 = None if state is None else (state["C"], state["n"], state["m"])
@@ -391,25 +462,34 @@ def mlstm_block(params, x, cfg, *, state=None, impl="chunked"):
                                            chunk=xc.chunk)
     else:
         hout, (C1, n1, m1) = mlstm_seq(q, k, v, li, lf, state=st0)
-    hout = rms_norm(hout, params["norm"].reshape(H, P).to(x.dtype),
-                    cfg.norm_eps).reshape(b, S, d_in)
-    hout = hout + wide(params["skip"]) * hc
+    norm = weight(params["norm"], 0, hs)
+    hout = rms_norm_by(hout, norm.reshape(h_loc, P).to(x.dtype),
+                       cfg.norm_eps).reshape(b, S, h_loc * P)
+    if not whole:
+        hc = hc[..., hs]
+    hout = hout + wide(weight(params["skip"], 0, hs)) * hc
     hout = wide(hout) * F.silu(wide(z))
-    out = dot(hout.to(x.dtype), params["down"]).to(x.dtype)
-    return out, {"conv": new_tail, "C": C1, "n": n1, "m": m1}
+    out = dot(hout.to(x.dtype), weight(params["down"], 0, hs))
+    if not whole:
+        out = psum_model(out)
+    return out.to(x.dtype), {"conv": new_tail, "C": C1, "n": n1, "m": m1}
 
 
 def mlstm_init_state(cfg, batch, dtype, *, device="cuda"):
+    """An mLSTM block's initial state (this rank's heads under a mesh
+    context; the conv tail whole)."""
     xc = cfg.xlstm
     d_in = int(xc.proj_factor * cfg.d_model)
     H = cfg.n_heads
     P = d_in // H
+    lo, hi = head_part(H)
+    h = hi - lo
     return {"conv": torch.zeros((batch, xc.conv_width - 1, d_in),
                                 dtype=dtype, device=device),
-            "C": torch.zeros((batch, H, P, P), dtype=acc(dtype),
+            "C": torch.zeros((batch, h, P, P), dtype=acc(dtype),
                              device=device),
-            "n": torch.zeros((batch, H, P), dtype=acc(dtype), device=device),
-            "m": torch.full((batch, H), NEG, dtype=acc(dtype),
+            "n": torch.zeros((batch, h, P), dtype=acc(dtype), device=device),
+            "m": torch.full((batch, h), NEG, dtype=acc(dtype),
                             device=device)}
 
 
@@ -433,18 +513,19 @@ def init_slstm(gen, cfg, dtype):
 
 
 def slstm_block(params, x, cfg, *, state=None):
-    """Sequential sLSTM (a loop over tokens: inherently recurrent).
-    state: ``{"c", "n", "m", "h"}``, each ``(b, H, hd)``, or None."""
+    """Sequential sLSTM (a loop over tokens: inherently recurrent), whole
+    on every model rank under a mesh context.  state: ``{"c", "n", "m",
+    "h"}``, each ``(b, H, hd)``, or None."""
     b, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
-    wx = dot(x, params["w"]) + params["bias"]           # (b, S, 4d) fp32
+    wx = dot(x, weight(params["w"])) + weight(params["bias"])   # fp32
     if state is None:
         z = _zeros((b, H, hd), x)
         state = {"c": z, "n": z, "h": z,
                  "m": torch.full((b, H, hd), NEG, dtype=acc(x.dtype),
                                  device=x.device)}
-    rw = wide(params["r"])
+    rw = wide(weight(params["r"]))
     # wx is ordered as (z, i, f, o) blocks of d; regroup per head
     wxh = wide(wx).reshape(b, S, 4, H, hd).transpose(2, 3) \
         .reshape(b, S, H, 4 * hd)
@@ -464,7 +545,7 @@ def slstm_block(params, x, cfg, *, state=None):
         hs.append(h)
     hs = (torch.stack(hs, 1) if hs else wxh[..., :hd]).reshape(b, S, d)
     hs = rms_norm(hs.to(x.dtype), params["norm"], cfg.norm_eps)
-    out = dot(hs, params["out"]).to(x.dtype)
+    out = dot(hs, weight(params["out"])).to(x.dtype)
     return out, {"c": c, "n": n, "m": m, "h": h}
 
 

@@ -36,22 +36,29 @@ reference wraps each scanned block in ``jax.checkpoint``).
 
 ``mesh=`` (a ``launch.mesh.Mesh`` bound to ``torch.distributed``, one
 process per entry; ``dp_axes`` and ``model_axis`` name its axes, as in
-the reference) runs ``lm_forward``, ``lm_loss`` and ``lm_decode_step``
-sharded: every rank passes the global batch and the parameters placed by
-the rule table (``distributed.sharding.device_put``; a plain tensor is
-read as replicated), and runs under ``layers.shard_axes``: its batch rows
-(the dp block, ``wsc``), each weight gathered on its fsdp dims when read,
-attention and the MLP tensor-parallel over the model axis (this rank's
-heads and hidden units, the output projections' partial sums added over
-the model axis), the MoE blocks by ``moe_apply``'s expert-parallel
-dispatch.  Activations between blocks hold the rank's rows whole on the
+the reference) runs ``lm_forward``, ``lm_loss``, ``lm_decode_step``
+and ``lm_prefill`` sharded, for every block kind: every rank passes the
+global batch and the parameters placed by the rule table
+(``distributed.sharding.device_put``; a plain tensor is read as
+replicated), and runs under ``layers.shard_axes``: its batch rows (the dp
+block, ``wsc``; a batch that does not divide over the dp axes is held
+whole on every dp rank, as the reference's ``wsc`` leaves it, and the
+call runs as if the mesh had no dp axes: ``_batch_axes``), each weight
+gathered on its fsdp dims when read, attention and the MLP
+tensor-parallel over the model axis (this rank's heads and hidden units,
+the output projections' partial sums added over the model axis; heads
+whole where the model axis is wider than the head count), the MoE blocks
+by ``moe_apply``'s expert-parallel dispatch, the recurrent blocks on this
+rank's heads where they divide (``models/ssm.py``), zamba2's shared
+blocks as attention blocks, each super-step's block a view of the placed
+stack.  Activations between blocks hold the rank's rows whole on the
 model axis.  Outputs and decode caches are the rank's rows
-(``init_caches(mesh=)``: its rows and its heads' kv).  ``lm_loss`` is
-the global batch's mean over every label ``!= -1`` (each rank's sum over
-the global count, not a mean of per-rank means) and its backward gives
+(``init_caches(mesh=)``: its rows, its heads' kv, its recurrent heads'
+states).  ``lm_loss`` is the global batch's mean over every label ``!=
+-1`` (each rank's sum over the global count, not a mean of per-rank
+means; rows held whole on the dp ranks count once) and its backward gives
 each rank its shards' grads of that global loss
-(``distributed.collectives``).  The recurrent blocks and zamba2's shared
-blocks take no mesh (ROADMAP item 6c), nor does ``lm_prefill``.
+(``distributed.collectives``).
 
 Differences from the reference: ``impl`` is an argument only (no
 ``REPRO_ATTN_IMPL`` override); ``lm_forward`` takes no ``positions`` (they
@@ -66,6 +73,8 @@ turn and writes it into stacked leaves allocated once (``_init_stage``),
 so a stage never exists twice in memory.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -340,27 +349,32 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     check_mesh(cfg, mesh)
     if mesh is not None:
         params = col.sharded_tree(params, mesh)
+        dp_axes = _batch_axes(_inputs(tokens, embeds)[0], dp_axes, mesh)
     with shard_axes(dp_axes, model_axis, mesh):
         return _forward(params, cfg, tokens, embeds, impl, rec_impl, remat)
 
 
-def _rows(t, dp_size: int):
-    """The global batch ``t``'s rows of this rank's dp block (``wsc``);
-    the batch must divide over the dp axes."""
-    if t is None:
-        return None
-    if t.shape[0] % dp_size:
-        raise ValueError(f"a batch of {t.shape[0]} does not divide over "
-                         f"the dp axes ({dp_size} ranks)")
+def _batch_axes(b: int, dp_axes, mesh) -> tuple:
+    """The dp axes a global batch of ``b`` rows is cut over: ``dp_axes``,
+    or none where ``b`` does not divide over them; the rows are then held
+    whole on every dp rank, as the reference's ``wsc`` leaves a dim that
+    does not divide, and the call runs as if the mesh had no dp axes."""
+    dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+    n = math.prod(mesh.shape[a] for a in dp_axes)
+    return dp_axes if b % n == 0 else ()
+
+
+def _rows(t):
+    """The global batch ``t``'s rows of this rank's dp block (``wsc``)."""
+    if t is None or not torch.is_tensor(t) or not t.ndim:
+        return t
     return wsc(t, "dp", *([None] * (t.ndim - 1)))
 
 
 def _forward(params, cfg, tokens, embeds, impl, rec_impl, remat):
     """``lm_forward``'s body, under the caller's sharding context."""
     ax = mesh_axes_active()
-    if ax is not None:
-        tokens, embeds = (_rows(tokens, ax.dp_size),
-                          _rows(embeds, ax.dp_size))
+    tokens, embeds = _rows(tokens), _rows(embeds)
     b, S, dev = _inputs(tokens, embeds)
     positions = torch.arange(S, device=dev)[None].expand(b, S)
     x = _embed(params, cfg, tokens, embeds, positions)
@@ -394,21 +408,13 @@ def _forward(params, cfg, tokens, embeds, impl, rec_impl, remat):
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise unless ``mesh`` is None or a mesh bound to
-    ``torch.distributed`` and ``cfg``'s blocks take one (attention with an
-    MLP or experts; the recurrent and shared blocks are item 6c)."""
+    """Raise unless ``cfg``'s blocks are the reference's and ``mesh`` is
+    None or a mesh bound to ``torch.distributed``."""
     check_supported(cfg)
-    if mesh is None:
-        return
-    if getattr(mesh, "device_mesh", None) is None:
+    if mesh is not None and getattr(mesh, "device_mesh", None) is None:
         raise TypeError("mesh= takes a launch.mesh.Mesh bound to "
                         "torch.distributed (launch.mesh.make_process_mesh, "
                         "one process per entry)")
-    if cfg.shared_attn_every or any(kind != "attn" for kind, _, _ in
-                                    build_stages(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: the recurrent and shared blocks over a mesh are "
-            f"ROADMAP queue 1 item 6c")
 
 
 # ==================================================================== loss ==
@@ -421,13 +427,15 @@ def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None,
     global batch on every rank, ``ce`` the global mean and the loss the
     same value on every rank, whose backward on every rank gives each its
     shards' grads of it."""
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        dp_axes = _batch_axes(batch["labels"].shape[0], dp_axes, mesh)
     logits, aux = lm_forward(params, cfg, batch.get("tokens"),
                              batch.get("embeds"), impl=impl,
                              rec_impl=rec_impl, mesh=mesh, dp_axes=dp_axes,
                              model_axis=model_axis, remat=remat)
     with shard_axes(dp_axes, model_axis, mesh) as ax:
-        labels = batch["labels"] if ax is None else _rows(batch["labels"],
-                                                          ax.dp_size)
+        labels = _rows(batch["labels"])
     total, count = cross_entropy_sum(logits, labels)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=total.device)
     if mesh is None:
@@ -436,9 +444,10 @@ def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None,
     with torch.no_grad():
         count = col.psum(count, mesh, ax.dp).clamp(min=1.0)
     # each rank's share: its rows' sum over the global count, divided
-    # among the model ranks that hold the same rows (the autograd
-    # convention of distributed.collectives)
-    ce = col.replicated_sum(total / count / ax.model_size, mesh,
+    # among the ranks that hold the same rows (the model ranks, and every
+    # dp rank where the rows are whole: the autograd convention of
+    # distributed.collectives)
+    ce = col.replicated_sum(total / count / (mesh.size // ax.dp_size), mesh,
                             mesh.axis_names)
     return (ce + aux_weight * col.scale_grad(aux, 1.0 / mesh.size),
             {"ce": ce, "aux": aux})
@@ -470,21 +479,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     leading ``L`` for a recurrent stage (fp32 states, ``ssm.acc``; conv
     tails in ``dtype``), and ``"shared": {"k", "v"}`` with one slab per
     shared-block application (``n_layers // shared_attn_every``).  Under a
-    mesh: this rank's rows of a global ``batch`` and the kv heads its q
-    heads read (MLA's latent whole)."""
+    mesh: this rank's rows of a global ``batch`` (all of them where
+    ``batch`` does not divide over the dp axes), the kv heads its q heads
+    read (MLA's latent whole; every kv head where the model axis is wider
+    than the head count) and its recurrent heads' states
+    (``models/ssm.py``)."""
     check_mesh(cfg, mesh)
-    if mesh is not None:
-        with shard_axes(dp_axes, model_axis, mesh) as ax:
-            if batch % ax.dp_size:
-                raise ValueError(f"a batch of {batch} does not divide over "
-                                 f"the dp axes ({ax.dp_size} ranks)")
-            n_kv = len(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
-            return _init_caches(cfg, batch // ax.dp_size, max_len, dtype,
-                                device, n_kv)
-    return _init_caches(cfg, batch, max_len, dtype, device, cfg.n_kv_heads)
+    if mesh is None:
+        return _init_caches(cfg, batch, max_len, dtype, device)
+    dp_axes = _batch_axes(batch, dp_axes, mesh)
+    with shard_axes(dp_axes, model_axis, mesh) as ax:
+        return _init_caches(cfg, batch // ax.dp_size, max_len, dtype,
+                            device)
 
 
-def _init_caches(cfg, batch, max_len, dtype, device, n_kv):
+def _init_caches(cfg, batch, max_len, dtype, device):
+    """``init_caches`` of ``batch`` rows, under the caller's sharding
+    context."""
+    n_kv = len(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
     dtype = dtype or dtype_of(cfg.dtype)
     caches = {}
     stages = build_stages(cfg)
@@ -502,7 +514,7 @@ def _init_caches(cfg, batch, max_len, dtype, device, n_kv):
     if cfg.shared_attn_every:
         n_apps = len(stages[0][2]) // cfg.shared_attn_every
         caches["shared"] = _kv_cache(n_apps, cfg, batch, max_len, dtype,
-                                     device)
+                                     device, n_kv=n_kv)
     return caches
 
 
@@ -524,11 +536,9 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length, *,
     if mesh is None:
         return _decode(params, cfg, tokens, caches, length)
     params = col.sharded_tree(params, mesh)
-    with shard_axes(dp_axes, model_axis, mesh) as ax:
-        tokens = _rows(tokens, ax.dp_size)
-        if torch.is_tensor(length) and length.ndim:
-            length = _rows(length, ax.dp_size)
-        return _decode(params, cfg, tokens, caches, length)
+    dp_axes = _batch_axes(tokens.shape[0], dp_axes, mesh)
+    with shard_axes(dp_axes, model_axis, mesh):
+        return _decode(params, cfg, _rows(tokens), caches, _rows(length))
 
 
 def _decode(params, cfg, tokens, caches, length):
@@ -571,8 +581,8 @@ def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
-               max_len: int, impl="chunked", rec_impl="chunked",
-               last_index=None):
+               max_len: int, impl="chunked", rec_impl="chunked", mesh=None,
+               dp_axes=("data",), model_axis="model", last_index=None):
     """Prefill: forward over the prompt, tokens ``(b, S)`` or embeddings
     ``(b, S, d_model)``, filling fresh decode caches.
 
@@ -583,14 +593,29 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     the true last prompt token (right-padded prompts are causal-safe for
     attention: pads never reach positions at or before it; a recurrent
     state absorbs them, so recurrent models are prefilled at their exact
-    length); ``length`` is then ``last_index + 1``, else ``S``.
+    length); ``length`` is then ``last_index + 1``, else ``S``.  ``mesh``:
+    sharded (module docstring); the logits, caches (``init_caches(mesh=)``'s
+    layout) and a ``(b,)`` length are this rank's rows.
     """
-    check_supported(cfg)
+    check_mesh(cfg, mesh)
+    if mesh is None:
+        return _prefill(params, cfg, tokens, embeds, max_len, impl,
+                        rec_impl, last_index)
+    params = col.sharded_tree(params, mesh)
+    dp_axes = _batch_axes(_inputs(tokens, embeds)[0], dp_axes, mesh)
+    with shard_axes(dp_axes, model_axis, mesh):
+        return _prefill(params, cfg, _rows(tokens), _rows(embeds), max_len,
+                        impl, rec_impl, _rows(last_index))
+
+
+def _prefill(params, cfg, tokens, embeds, max_len, impl, rec_impl,
+             last_index):
+    """``lm_prefill``'s body on this rank's rows, under the caller's
+    sharding context."""
     b, S, dev = _inputs(tokens, embeds)
     positions = torch.arange(S, device=dev)[None].expand(b, S)
     x = _embed(params, cfg, tokens, embeds, positions)
-    caches = init_caches(cfg, b, max_len, params["embed"].dtype,
-                         device=dev)
+    caches = _init_caches(cfg, b, max_len, params["embed"].dtype, dev)
 
     def attn(p, x, cache, li):
         x, _, rows = _attn_block(p, x, positions, cfg, impl=impl)

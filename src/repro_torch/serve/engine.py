@@ -22,6 +22,21 @@ recurrent state.  Per-slot lengths and last
 tokens live on the host and go to the device with each step.  Sampled
 decoding draws from a ``torch.Generator`` seeded with ``seed``; greedy
 decoding takes the argmax.
+
+``mesh=`` (``dp_axes``, ``model_axis``: a ``launch.mesh.Mesh`` bound to
+``torch.distributed``, one process per entry) serves over the mesh with
+the reference's control flow: every rank builds the same engine from the
+same placed parameters and submits the same requests.  The slots split
+over the dp axes in contiguous blocks (``_rows``): the pool is
+``init_caches(mesh=)`` over the global ``slots``, each rank holding its
+dp block's rows (every slot where ``slots`` does not divide over the dp
+axes) and its model rank's heads.  A prompt's one-row prefill
+(``lm_prefill(mesh=)``: its row whole on every dp rank, tensor-parallel
+over the model axis) is spliced into the slot's row by the ranks whose
+block holds it.  Prefill logits are taken from dp rank 0 and decode
+logits gathered over the dp axes, so every rank samples the same tokens
+from the same global logits (the generator seeded alike) and holds the
+same lengths, last tokens and request outputs.
 """
 from __future__ import annotations
 
@@ -30,9 +45,12 @@ import itertools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.transformer import (init_caches, lm_decode_step,
-                                            lm_prefill)
+from repro_torch.distributed import collectives as col
+from repro_torch.models.layers import shard_axes
+from repro_torch.models.transformer import (_batch_axes, init_caches,
+                                            lm_decode_step, lm_prefill)
 
 
 @dataclasses.dataclass
@@ -47,14 +65,16 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg, params, *, slots: int = 8, max_len: int = 512,
+                 mesh=None, dp_axes=("data",), model_axis="model",
                  greedy: bool = True, seed: int = 0, impl: str = "chunked"):
         self.cfg = cfg
         self.impl = impl
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.mesh = mesh
         self.greedy = greedy
-        self.device = params["embed"].device
+        self.device = col.local(params["embed"]).device
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._rid = itertools.count()
@@ -62,8 +82,21 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self.lengths = np.zeros((slots,), np.int64)
         self.last_tok = np.zeros((slots,), np.int64)
+        self._mesh_kw = {}
+        self._rows = (0, slots)
+        self._dp = self._dp_all = ()
+        if mesh is not None:
+            self._mesh_kw = dict(mesh=mesh, dp_axes=dp_axes,
+                                 model_axis=model_axis)
+            self._dp_all = ((dp_axes,) if isinstance(dp_axes, str)
+                            else tuple(dp_axes))
+            self._dp = _batch_axes(slots, dp_axes, mesh)
+            with shard_axes(self._dp, model_axis, mesh) as ax:
+                n = slots // ax.dp_size
+                self._rows = (ax.dp_index * n, (ax.dp_index + 1) * n)
         self.caches = init_caches(cfg, slots, max_len,
-                                  params["embed"].dtype, device=self.device)
+                                  params["embed"].dtype, device=self.device,
+                                  **self._mesh_kw)
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new: int = 32, eos_id: int | None = None):
@@ -103,21 +136,47 @@ class ServeEngine:
                 padded[:S] = req.prompt
                 logits, caches1, _ = lm_prefill(
                     self.params, self.cfg, self._tensor(padded)[None],
-                    max_len=self.max_len, impl=self.impl, last_index=S - 1)
+                    max_len=self.max_len, impl=self.impl, last_index=S - 1,
+                    **self._mesh_kw)
             else:
                 # a recurrent state absorbs every token it sees: prefill
                 # at the exact prompt length
                 logits, caches1, _ = lm_prefill(
                     self.params, self.cfg, self._tensor(req.prompt)[None],
-                    max_len=self.max_len, impl=self.impl)
-            for key, stage in self.caches.items():       # the slot's row
-                for name, full in stage.items():
-                    full[:, slot].copy_(caches1[key][name][:, 0])
-            tok = int(self._sample(logits)[0])
+                    max_len=self.max_len, impl=self.impl, **self._mesh_kw)
+            lo, hi = self._rows
+            if lo <= slot < hi:                           # the slot's row
+                for key, stage in self.caches.items():
+                    for name, full in stage.items():
+                        full[:, slot - lo].copy_(caches1[key][name][:, 0])
+            tok = int(self._sample(self._from_dp0(logits))[0])
             req.out.append(tok)
             self.active[slot] = req
             self.lengths[slot] = S
             self.last_tok[slot] = tok
+
+    def _from_dp0(self, logits):
+        """A prefill's logits, held whole on every dp rank, as dp rank 0
+        computed them (each dp rank's model group computes its own copy):
+        every rank then samples from the same bits."""
+        if self.mesh is None:
+            return logits
+        logits = logits.contiguous()
+        for axis in self._dp_all:
+            if self.mesh.shape[axis] > 1:
+                dist.broadcast(logits, self.mesh.axis_ranks(axis)[0],
+                               group=self.mesh.group(axis))
+        return logits
+
+    def _global(self, logits):
+        """A decode step's logits of this rank's slots as every slot's:
+        gathered over the dp axes, or, where the slots are whole on every
+        dp rank, dp rank 0's."""
+        if self.mesh is None:
+            return logits
+        if self._dp:
+            return col.gather(logits, self.mesh, 0, self._dp)
+        return self._from_dp0(logits)
 
     def _sample(self, logits):
         if self.greedy:
@@ -134,8 +193,8 @@ class ServeEngine:
             return 0
         logits, self.caches = lm_decode_step(
             self.params, self.cfg, self._tensor(self.last_tok), self.caches,
-            self._tensor(self.lengths))
-        toks = self._sample(logits).tolist()
+            self._tensor(self.lengths), **self._mesh_kw)
+        toks = self._sample(self._global(logits)).tolist()
         self.lengths += [r is not None for r in self.active]
         self.last_tok[:] = toks
         for i, req in enumerate(self.active):

@@ -20,7 +20,11 @@ order, and rank 0 alone writes, then all ranks wait for the rename.
 ``restore(shardings=)`` is the reference's elastic restore: every rank
 reads the global arrays and places each leaf by its ``NamedSharding``
 (``sharding.place``), whatever mesh shape wrote them, one device
-included; a leaf without one is restored as it is.
+included; a leaf without one is restored as it is.  An int8 moment
+(``optim.QTensor``) is saved in the reference's layout (``QTensor.whole``:
+a moment whose shards cut its blocks holds its codes unpadded) and
+restored as its ``like`` moment holds it (``QTensor.fit``);
+``optim.moment_shardings`` gives the moments' shardings.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import place
+from repro_torch.train.optim import QTensor
 
 _SEP = "\x1e"  # record separator — safe vs '/' in keys
 
@@ -43,37 +48,41 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _flatten(tree, prefix=()) -> dict:
+def _flatten(tree, prefix=(), *, moments=False) -> dict:
+    """Leaves by joined path; with ``moments`` a ``QTensor`` is one leaf
+    (its fields' paths are its path's ``.codes`` and ``.scale``)."""
     if isinstance(tree, dict):
         out = {}
         for key in sorted(tree):
-            out.update(_flatten(tree[key], prefix + (str(key),)))
+            out.update(_flatten(tree[key], prefix + (str(key),),
+                                moments=moments))
         return out
+    if moments and isinstance(tree, QTensor):
+        return {_SEP.join(prefix): tree}
     if _is_namedtuple(tree):
         out = {}
         for name in tree._fields:
-            out.update(_flatten(getattr(tree, name), prefix + ("." + name,)))
+            out.update(_flatten(getattr(tree, name), prefix + ("." + name,),
+                                moments=moments))
         return out
     if isinstance(tree, (list, tuple)):
         out = {}
         for i, leaf in enumerate(tree):
-            out.update(_flatten(leaf, prefix + (str(i),)))
+            out.update(_flatten(leaf, prefix + (str(i),), moments=moments))
         return out
     return {_SEP.join(prefix): tree}
 
 
+def _fields(key: str, leaf) -> dict:
+    """A flattened leaf as the arrays the npz holds: a ``QTensor``'s
+    codes and scale under their own paths."""
+    if isinstance(leaf, QTensor):
+        return {key + _SEP + "." + f: t for f, t in leaf._asdict().items()}
+    return {key: leaf}
+
+
 def tree_paths(tree) -> list[str]:
     return list(_flatten(tree).keys())
-
-
-def _whole(leaf):
-    """A ``DTensor`` leaf gathered whole (every rank of its mesh takes
-    part); any other leaf as it is."""
-    if not col.is_dtensor(leaf):
-        return leaf
-    from torch.distributed.tensor import Replicate
-    return leaf.redistribute(
-        placements=[Replicate()] * leaf.device_mesh.ndim).to_local()
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
@@ -114,13 +123,15 @@ class CheckpointManager:
         writer = not group or dist.get_rank() == 0
         arrays = {}
         manifest = {"step": step, "extra": extra or {}, "leaves": {}}
-        for key, leaf in _flatten(state).items():
-            whole = _whole(leaf)
-            if writer:
-                arr, dtype = _to_host(whole)
-                arrays[key] = arr
-                manifest["leaves"][key] = {"shape": list(arr.shape),
-                                           "dtype": dtype}
+        for key, leaf in _flatten(state, moments=True).items():
+            whole = leaf.whole() if isinstance(leaf, QTensor) \
+                else col.whole(leaf)
+            for k, t in _fields(key, whole).items():
+                if writer:
+                    arr, dtype = _to_host(t)
+                    arrays[k] = arr
+                    manifest["leaves"][k] = {"shape": list(arr.shape),
+                                             "dtype": dtype}
         if writer:
             self._write(tmp, final, arrays, manifest)
         if group:
@@ -165,23 +176,28 @@ class CheckpointManager:
         ``NamedSharding``s; each leaf that has one is placed by it (module
         docstring)."""
         man = self.manifest(step)["leaves"]
-        flat_like = _flatten(like)
-        shard_flat = _flatten(shardings) if shardings is not None else {}
+        flat_like = _flatten(like, moments=True)
+        shard_flat = _flatten(shardings, moments=True) \
+            if shardings is not None else {}
         with np.load(os.path.join(self.dir, f"step_{step}",
                                   "arrays.npz")) as z:
-            missing = set(flat_like) - set(z.files)
+            missing = set(_flatten(like)) - set(z.files)
             if missing:
                 raise KeyError(f"checkpoint missing leaves: "
                                f"{sorted(missing)}")
+
+            def read(k):
+                return _from_host(z[k], man.get(k, {}).get("dtype"))
+
             restored = {}
             for key, leaf in flat_like.items():
-                t = _from_host(z[key], man.get(key, {}).get("dtype"))
-                if key in shard_flat:
-                    restored[key] = place(t.to(dtype=leaf.dtype),
-                                          shard_flat[key])
+                if isinstance(leaf, QTensor):
+                    got = QTensor(*(read(k) for k in _fields(key, leaf)))
+                    got = QTensor(*map(_restored, got.fit(leaf), leaf,
+                                       shard_flat.get(key, (None, None))))
                 else:
-                    restored[key] = t.to(device=col.local(leaf).device,
-                                         dtype=leaf.dtype)
+                    got = _restored(read(key), leaf, shard_flat.get(key))
+                restored[key] = got
         return _unflatten_like(like, restored)
 
     def manifest(self, step: int):
@@ -201,7 +217,17 @@ class CheckpointManager:
         return self._preempted
 
 
+def _restored(t, like, sharding):
+    """A read array as its ``like`` leaf: placed by ``sharding`` when
+    given, else on the leaf's device; in its dtype."""
+    if sharding is not None:
+        return place(t.to(dtype=like.dtype), sharding)
+    return t.to(device=col.local(like).device, dtype=like.dtype)
+
+
 def _unflatten_like(like, flat_map, prefix=()):
+    if isinstance(like, QTensor):
+        return flat_map[_SEP.join(prefix)]
     if isinstance(like, dict):
         return {key: _unflatten_like(like[key], flat_map, prefix + (str(key),))
                 for key in like}

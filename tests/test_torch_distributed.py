@@ -200,7 +200,28 @@ def test_placements_are_the_rule_table_s(ranks, arch, shape):
 
 
 def test_int8_moments_on_a_mesh_wait_for_item_6c(ranks):
-    assert "6c" in ranks["placements"]["int8"]
+    """int8 moments on placed parameters (the first arch's smoke weights):
+    the codes take their parameter's placements, each rank's codes the
+    width of its block (padded to a block where the last dim is whole);
+    the scales the same placements, but replicated over the axes that
+    cut the last dim where they cut blocks (``train/optim.py``)."""
+    rows = [row for shape in SHAPES
+            for row in ranks["placements"][("int8", shape)]]
+    assert any(straddles for *_, straddles, _, _ in rows)
+    for param, codes, scale, straddles, c_loc, p_loc in rows:
+        assert codes == param
+        assert c_loc[:-1] == p_loc[:-1]
+        cut = "Shard(dim=%d)" % (len(p_loc) - 1)
+        if cut in param:
+            assert c_loc[-1] == p_loc[-1]
+        else:
+            assert c_loc[-1] == -(-p_loc[-1] // 256) * 256
+        assert straddles == (cut in param and p_loc[-1] % 256 != 0)
+        if straddles:
+            assert cut not in scale
+            assert scale == param.replace(cut, "Replicate()")
+        else:
+            assert scale == param
 
 
 # ------------------------------------------------------------------ steps --
@@ -291,16 +312,16 @@ def test_train_launcher_on_a_mesh(ranks):
 
 # ---------------------------------------------------------------- refusals --
 def test_a_mesh_must_be_bound_and_blocks_attention():
-    """A mesh that is not bound to torch.distributed is refused; the
-    recurrent and shared blocks over a mesh are item 6c."""
+    """A mesh that is not bound to torch.distributed is refused; every
+    arch's blocks take a bound one (the recurrent and shared blocks
+    too)."""
     cfg = configs.get_smoke("llama3.2-1b")
     with pytest.raises(TypeError, match="make_process_mesh"):
         check_mesh(cfg, _Shape((2, 2)))
     bound = types.SimpleNamespace(device_mesh=object())
-    check_mesh(cfg, bound)
-    for arch in ("zamba2-2.7b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="6c"):
-            check_mesh(configs.get_smoke(arch), bound)
+    for arch in configs.ARCHS:
+        check_mesh(configs.get_smoke(arch), bound)
+        check_mesh(configs.get(arch), bound)
     with pytest.raises(ValueError, match="bound"):
         shd.shardings(shd.param_specs(param_shapes(cfg), _Shape((2, 2))),
                       _Shape((2, 2)))

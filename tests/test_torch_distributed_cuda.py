@@ -3,8 +3,11 @@ card, spawned by ``tools/ranks.py``, run ``chip_smoke.dist_rank_smoke``:
 the sharded train step of llama3.2-1b and of deepseek-v3 (its MoE through
 ``moe_a2a``) held to the one-card step with the flash forward and
 backward launched, a deepseek-v3 decode step over the mesh and its MoE's
-gathered paths, and a checkpoint saved from the mesh and restored onto
-it.  One rank on a one-card host (a (1, 1) mesh: NCCL takes one rank a
+gathered paths, a checkpoint saved from the mesh and restored onto it,
+and the rest (``chip_smoke.dist_rest_smoke``): ``ServeEngine(mesh=)``'s
+tokens against the engine without a mesh with flash launched in its
+prefills, zamba2's step and decode against no mesh, and an int8 step on
+placed parameters bit for bit.  One rank on a one-card host (a (1, 1) mesh: NCCL takes one rank a
 card); four ranks over a (2, 2) mesh where four cards are visible.  Run
 with ``python -m pytest -m cuda tests/test_torch_distributed_cuda.py`` on
 the card; they skip without one.  Imports no JAX.
@@ -48,3 +51,13 @@ def test_four_rank_nccl_group_runs_the_sharded_step(cuda, tmp_path):
         pytest.skip("needs 4 cards (NCCL takes one rank a card)")
     lines = run_smoke(4, tmp_path)
     assert "mesh (2, 2)" in lines[0]
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_serves_and_trains_the_rest(cuda):
+    from repro_torch.kernels import _build
+    _build.build()
+    lines = run_ranks(chip_smoke.dist_rank_rest, 1, device_type="cuda",
+                      timeout_s=600)[0]
+    assert "equal to the engine without a mesh: True" in lines[0]
+    assert lines[-1].endswith("bit for bit: True")

@@ -46,6 +46,13 @@ def whole(tree):
     return out
 
 
+def cast(tree, dtype):
+    """A parameter tree with its floating leaves cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 def placed(params, mesh):
     """``params`` placed by the rule table on ``mesh``."""
     dp, model, _ = mesh_axes(mesh)
@@ -63,12 +70,17 @@ def moe_cfg(capacity_factor):
 
 def case_cfg(name, get=configs.get_smoke):
     """A test case's config: an arch's smoke config, deepseek-v3's at
-    capacity factor 4.0 (no token dropped), or ``"heads10"``: llama's
+    capacity factor 4.0 (no token dropped), ``"heads10"``: llama's
     with 10 heads of 8 over 2 kv heads, which a 4-way model axis splits
-    3, 3, 2, 2 (groups cut unevenly, projections sharded mid-head)."""
+    3, 3, 2, 2 (groups cut unevenly, projections sharded mid-head), or
+    ``"heads2"``: llama's with 2 heads of 32 over one kv head, fewer heads
+    than a 4-way model axis."""
     if name == "heads10":
         return dataclasses.replace(get("llama3.2-1b"), n_heads=10,
                                    n_kv_heads=2, head_dim=8)
+    if name == "heads2":
+        return dataclasses.replace(get("llama3.2-1b"), n_heads=2,
+                                   n_kv_heads=1, head_dim=32)
     cfg = get(name)
     if name == "deepseek-v3-671b":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -101,11 +113,22 @@ def placements(rank, world, archs, shapes):
             walk(pp, specs, "")
             out[(arch, shape)] = rows
             if arch == archs[0]:
-                try:
-                    adamw(quantized=True).init(pp)
-                except NotImplementedError as e:
-                    out["int8"] = str(e)
+                out[("int8", shape)] = int8_placements(pp)
     return out if rank == 0 else None
+
+
+def int8_placements(params):
+    """Each leaf's placements beside its int8 moment's codes' and
+    scales', and whether its shards cut ``QBLOCK`` blocks."""
+    from repro_torch.train.optim import _straddles, tree_leaves
+    state = adamw(quantized=True).init(params)
+    out = []
+    for p, q in zip(tree_leaves(params), tree_leaves(state["m"])):
+        out.append((str(p.placements), str(q.codes.placements),
+                    str(q.scale.placements), _straddles(p),
+                    tuple(col.local(q.codes).shape),
+                    tuple(col.local(p).shape)))
+    return out
 
 
 def distributed_all(rank, world, ref_trees, batch, uneven, tokens, cases):
@@ -354,3 +377,230 @@ def _flat(tree, path=""):
             out.update(_flat(tree[k], f"{path}/{k}" if path else k))
         return out
     return {path: tree}
+
+
+# --------------------------------------------------------- test_mesh_serve --
+def local_index(cfg, mesh, b):
+    """Where a rank's caches of a global batch ``b`` sit in the one-device
+    caches: its rows ``(lo, hi)`` and, per stage kind, the dim and index
+    of its heads or channels (None: whole)."""
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.attention import local_heads
+    from repro_torch.models.layers import shard_axes
+    from repro_torch.models.transformer import _batch_axes
+    dp, model, _ = mesh_axes(mesh)
+    with shard_axes(_batch_axes(b, dp, mesh), model, mesh) as ax:
+        n = b // ax.dp_size
+        rows = (ax.dp_index * n, (ax.dp_index + 1) * n)
+        kv = list(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
+        out = {"rows": rows, "attn": {"k": (3, kv), "v": (3, kv)}}
+        if cfg.ssm is not None:
+            (lo, hi), _, _, chans = ssm._mamba2_part(cfg, "cpu")
+            out["mamba2"] = {"ssm": (2, list(range(lo, hi))),
+                             "conv": (3, None if chans is None
+                                      else chans.tolist())}
+        if cfg.xlstm is not None:
+            lo, hi = layers.head_part(cfg.n_heads)
+            heads = list(range(lo, hi))
+            out["mlstm"] = {"C": (2, heads), "n": (2, heads),
+                            "m": (2, heads)}
+    return out
+
+
+def _local_caches(caches):
+    return {key: {name: t.detach().numpy().copy() for name, t in st.items()}
+            for key, st in caches.items()}
+
+
+def mesh_serve_all(rank, world, ref_trees, prompts, serve_cases, tokens,
+                   prefill_cases):
+    """Every rank body of ``test_torch_mesh_serve.py`` in one group:
+    ``ServeEngine(mesh=)``'s greedy outputs per case ``(arch, shape,
+    slots)`` (every rank's, to check they agree), and ``lm_prefill(mesh=)``
+    of ``tokens`` per case ``(arch, shape)``: the logits gathered over the
+    dp axes, each rank's caches and ``local_index``."""
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.serve.engine import ServeEngine
+    out = {"serve": {}, "prefill": {}}
+    for arch, shape, slots in serve_cases:
+        cfg = case_cfg(arch)
+        mesh = make_process_mesh(shape, AXES)
+        dp, model, _ = mesh_axes(mesh)
+        pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
+                       mesh)
+        eng = ServeEngine(cfg, pp, slots=slots, max_len=32, mesh=mesh,
+                          dp_axes=dp, model_axis=model)
+        reqs = [eng.submit(p, max_new=5) for p in prompts]
+        with torch.no_grad():
+            eng.run()
+        out["serve"][(arch, shape, slots)] = [r.out for r in reqs]
+    toks = torch.as_tensor(tokens)
+    for arch, shape in prefill_cases:
+        cfg = case_cfg(arch)
+        mesh = make_process_mesh(shape, AXES)
+        dp, model, _ = mesh_axes(mesh)
+        pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
+                       mesh)
+        with torch.no_grad():
+            logits, caches, _ = lm_prefill(pp, cfg, toks, max_len=16,
+                                           mesh=mesh, dp_axes=dp,
+                                           model_axis=model)
+            logits = col.gather(logits, mesh, 0, dp).numpy()
+        out["prefill"][(arch, shape)] = (
+            logits, _local_caches(caches), local_index(cfg, mesh,
+                                                       toks.shape[0]))
+    return out
+
+
+# ---------------------------------------------------- test_recurrent_mesh --
+def recurrent_mesh_all(rank, world, ref_trees, batch, tokens, cases):
+    """Every rank body of ``test_torch_recurrent_mesh.py`` in one group:
+    per ``cases["steps"]`` entry ``(arch, shape, rows, remat)`` one AdamW
+    step (lr 1e-3) on the first ``rows`` rows of ``batch`` (metrics,
+    parameters after it and first moments, gathered: the moment is 0.1 of
+    the clipped grad); per ``cases["fp64"]`` entry ``(arch, shape)`` the
+    same step on the whole batch with the parameters in float64 (metrics
+    and first moments); per ``cases["losses"]`` entry ``(arch, shape,
+    rows)`` ``lm_loss(mesh=)``; per ``cases["decodes"]`` entry ``(arch,
+    shape)`` the gathered logits of decode steps over ``tokens`` and the
+    local caches' shapes."""
+    out = {"steps": {}, "fp64": {}, "losses": {}, "decodes": {}}
+    step_cases = [(c, c[2], c[3], None) for c in cases["steps"]] + [
+        ((arch, shape), len(batch["tokens"]), False, torch.float64)
+        for arch, shape in cases["fp64"]]
+    for key, rows, remat, dtype in step_cases:
+        arch, shape = key[:2]
+        cfg = case_cfg(arch)
+        mesh = make_process_mesh(shape, AXES)
+        dp, model, _ = mesh_axes(mesh)
+        params = from_reference(cfg, ref_trees[arch], device="cpu")
+        if dtype is not None:
+            params = cast(params, dtype)
+        pp, _ = placed(params, mesh)
+        opt = adamw(1e-3)
+        step = build_train_step(cfg, opt, mesh=mesh, dp_axes=dp,
+                                model_axis=model, remat=remat)
+        tb = {k: torch.as_tensor(v[:rows]) for k, v in batch.items()}
+        pp, state, m = step(pp, opt.init(pp), tb)
+        metrics = {k: float(v) for k, v in m.items()}
+        if dtype is None:
+            out["steps"][key] = (metrics, whole(pp), whole(state["m"]))
+        else:
+            out["fp64"][key] = (metrics, whole(state["m"]))
+    for arch, shape, rows in cases["losses"]:
+        cfg = case_cfg(arch)
+        mesh = make_process_mesh(shape, AXES)
+        dp, model, _ = mesh_axes(mesh)
+        pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
+                       mesh)
+        tb = {k: torch.as_tensor(v[:rows]) for k, v in batch.items()}
+        with torch.no_grad():
+            loss, _ = lm_loss(pp, cfg, tb, mesh=mesh, dp_axes=dp,
+                              model_axis=model)
+        out["losses"][(arch, shape, rows)] = float(loss)
+    for arch, shape in cases["decodes"]:
+        cfg = case_cfg(arch)
+        mesh = make_process_mesh(shape, AXES)
+        dp, model, _ = mesh_axes(mesh)
+        pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
+                       mesh)
+        b = tokens.shape[1]
+        caches = init_caches(cfg, b, tokens.shape[0] + 1, device="cpu",
+                             mesh=mesh, dp_axes=dp, model_axis=model)
+        logits = []
+        with torch.no_grad():
+            for i, toks in enumerate(torch.as_tensor(tokens)):
+                lg, caches = lm_decode_step(pp, cfg, toks, caches, i,
+                                            mesh=mesh, dp_axes=dp,
+                                            model_axis=model)
+                logits.append(col.gather(lg, mesh, 0, dp).numpy())
+        out["decodes"][(arch, shape)] = (
+            np.stack(logits),
+            {key: {name: tuple(t.shape) for name, t in st.items()}
+             for key, st in caches.items()})
+    return out if rank == 0 else None
+
+
+# --------------------------------------------------------- test_int8_mesh --
+def _spec_fit(specs, shapes, mesh):
+    return {k: tuple(a if a is None or shapes[k][i] % mesh.shape[a] == 0
+                     else None for i, a in enumerate(sp))
+            for k, sp in specs.items()}
+
+
+def _q_whole(q):
+    """An int8 moment gathered whole in the reference's layout, as
+    numpy."""
+    from repro_torch.train.optim import QTensor
+    return QTensor(*(t.detach().cpu().numpy().copy() for t in q.whole()))
+
+
+def int8_mesh_all(rank, world, tree, specs, grads, ref_tree, batches,
+                  directory, ref_dir):
+    """Every rank body of ``test_torch_int8_mesh.py`` in one group.
+
+    ``"tree"``: per mesh shape, three int8 AdamW updates (lr 1e-2, no
+    clip) of ``tree`` placed by ``specs`` from ``grads`` (each update's
+    global grads, each rank taking its block): the parameters and moments
+    gathered, then the state saved, restored onto the transposed mesh
+    (``moment_shardings``), gathered again, and one more update from
+    ``grads[-1]``.  ``"lm"``: llama3.2-1b's smoke weights ``ref_tree``,
+    three int8 steps (the reference's schedule) on ``batches`` over (2,
+    2): the parameters after each, and the state saved into ``ref_dir``
+    for the reference's ``CheckpointManager``."""
+    from repro_torch.train.optim import (cosine_schedule, moment_shardings,
+                                         tree_map)
+    out = {"tree": {}}
+    shapes = {k: tuple(v.shape) for k, v in tree.items()}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_process_mesh(shape, AXES)
+        sh = shd.shardings(_spec_fit(specs, shapes, mesh), mesh)
+        pp = shd.device_put({k: torch.from_numpy(v.copy())
+                             for k, v in tree.items()}, sh)
+        opt = adamw(1e-2, quantized=True, grad_clip=0.0)
+        state = opt.init(pp)
+        for g in grads[:-1]:
+            opt.update({k: sh[k].block(torch.from_numpy(v)).clone()
+                        for k, v in g.items()}, state, pp)
+        got = {"params": whole(pp),
+               "m": {k: _q_whole(q) for k, q in state["m"].items()},
+               "v": {k: _q_whole(q) for k, q in state["v"].items()}}
+        sub = os.path.join(directory, f"{shape[0]}x{shape[1]}")
+        mgr = CheckpointManager(sub)
+        mgr.save(3, {"params": pp, "opt": state})
+        m2 = make_process_mesh((shape[1], shape[0]), AXES)
+        sh2 = shd.shardings(_spec_fit(specs, shapes, m2), m2)
+        like = shd.device_put({k: torch.zeros(s) for k, s in shapes.items()},
+                              sh2)
+        ms = moment_shardings(like, sh2, quantized=True)
+        back = mgr.restore(3, {"params": like, "opt": opt.init(like)},
+                           shardings={"params": sh2,
+                                      "opt": {"m": ms, "v": ms}})
+        got["restored"] = {
+            "params": whole(back["params"]),
+            "m": {k: _q_whole(q) for k, q in back["opt"]["m"].items()},
+            "v": {k: _q_whole(q) for k, q in back["opt"]["v"].items()}}
+        opt.update({k: sh2[k].block(torch.from_numpy(v)).clone()
+                    for k, v in grads[-1].items()}, back["opt"],
+                   back["params"])
+        got["resumed"] = whole(back["params"])
+        out["tree"][shape] = got
+    cfg = configs.get_smoke("llama3.2-1b")
+    mesh = make_process_mesh((2, 2), AXES)
+    dp, model, _ = mesh_axes(mesh)
+    pp, _ = placed(from_reference(cfg, ref_tree, device="cpu"), mesh)
+    opt = adamw(cosine_schedule(3e-4, warmup=2, total=10), quantized=True)
+    state = opt.init(pp)
+    step = build_train_step(cfg, opt, mesh=mesh, dp_axes=dp,
+                            model_axis=model)
+    lm = []
+    for b in batches:
+        pp, state, m = step(pp, state, {k: torch.as_tensor(v)
+                                        for k, v in b.items()})
+        lm.append((float(m["loss"]), whole(pp)))
+    out["lm"] = lm
+    out["lm_state"] = {"m": tree_map(_q_whole, state["m"]),
+                       "step": int(state["step"])}
+    CheckpointManager(ref_dir).save(len(batches), {"params": pp,
+                                                   "opt": state})
+    return out if rank == 0 else None
