@@ -9,6 +9,11 @@ outside, musicgen with sinusoidal positions), the recurrent family
 (zamba2's Mamba2 backbone with its shared GQA blocks, xLSTM's mLSTM and
 sLSTM blocks) and the mixtures of experts (deepseek-v3's MLA + MoE,
 grok-1's GQA + MoE).
+
+Input-shape cells (``SHAPES``, the reference's): train_4k, prefill_32k,
+decode_32k, long_500k; ``long_500k`` is defined only for sub-quadratic
+archs (``cfg.subquadratic``).  ``cells()`` lists the (arch, shape) pairs
+the dry run (``launch/dryrun.py``) takes.
 """
 from __future__ import annotations
 
@@ -20,6 +25,13 @@ ARCHS = [
     "xlstm-350m", "chameleon-34b",
 ]
 PORTED = ARCHS
+
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 
 
 def _module(name: str):
@@ -35,3 +47,16 @@ def get(name: str):
 
 def get_smoke(name: str):
     return _module(name).smoke()
+
+
+def cells(include_na: bool = False):
+    """All (arch, shape) cells.  long_500k only for sub-quadratic archs
+    unless include_na."""
+    out = []
+    for a in ARCHS:
+        cfg = get(a)
+        for s in SHAPES:
+            if s == "long_500k" and not cfg.subquadratic and not include_na:
+                continue
+            out.append((a, s))
+    return out

@@ -25,8 +25,16 @@ under a mesh counts as replicated on every axis.  ``Sharded`` is what the
 model code walks: a ``DTensor`` hides its local tensor from autograd, so
 a step takes each leaf's local tensor as the leaf to differentiate and
 slices per layer on that (``sharded_tree``).
+
+``tallied()`` counts what this rank's collectives move while it is open
+(``Tally``; the counterpart of the reference's ``launch/hlo_analysis
+.collective_bytes``, which reads the partitioned HLO): per kind, in
+bytes, under the ring model of ``hlo_analysis.py``'s docstring.  It is
+off by default, and off it costs each collective one read of ``_TALLY``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -34,7 +42,58 @@ import torch.distributed as dist
 __all__ = ["Sharded", "sharded_tree", "is_dtensor", "counted_here",
            "spec_of", "local", "materialize",
            "gather", "take_block", "psum", "replicated_sum", "scale_grad",
-           "all_to_all", "ppermute", "axes_of"]
+           "all_to_all", "ppermute", "axes_of", "Tally", "tallied", "note"]
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+class Tally:
+    """Per-device bytes each collective kind moves, under the reference's
+    ring model (N ranks in the group, ``(N - 1) / N`` rounded to 1): an
+    all-gather its result, a reduce-scatter its operand, an all-reduce
+    twice its result (a reduce-scatter and an all-gather), an all-to-all
+    and a permute their result.  ``calls`` counts the calls per kind."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self.calls = dict.fromkeys(KINDS, 0)
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[kind] += nbytes
+        self.calls[kind] += 1
+
+    def per_device(self) -> dict:
+        """The reference's ``collective_bytes`` record: bytes per kind,
+        their ``total`` and the calls per kind (``op_counts``)."""
+        return {**self.bytes, "total": sum(self.bytes.values()),
+                "op_counts": dict(self.calls)}
+
+
+_TALLY: Tally | None = None
+
+
+@contextlib.contextmanager
+def tallied():
+    """Count this rank's collectives into a fresh ``Tally`` (yielded)
+    while the block runs."""
+    global _TALLY
+    prev, _TALLY = _TALLY, Tally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def note(kind: str, t, times: int = 1) -> None:
+    """Count a collective on ``t`` made outside this module (``kind`` and
+    the tensor the ring model reads: ``Tally``)."""
+    if _TALLY is not None:
+        _TALLY.add(kind, times * _nbytes(t))
 
 
 def axes_of(entry) -> tuple:
@@ -161,6 +220,8 @@ def _gather_axis(t, dim, mesh, axis):
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0], *src.shape[1:]))
     _ALL_GATHER(out, src, group=mesh.group(axis))
+    if _TALLY is not None:
+        _TALLY.add("all-gather", _nbytes(out))
     return out.movedim(0, dim)
 
 
@@ -171,6 +232,8 @@ def _scatter_axis(t, dim, mesh, axis):
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
     _REDUCE_SCATTER(out, src, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    if _TALLY is not None:
+        _TALLY.add("reduce-scatter", _nbytes(src))
     return out.movedim(0, dim)
 
 
@@ -179,6 +242,8 @@ def _all_reduce(t, mesh, axes):
         if mesh.shape[axis] > 1:
             t = t.contiguous()
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+            if _TALLY is not None:
+                _TALLY.add("all-reduce", 2 * _nbytes(t))
     return t
 
 
@@ -327,6 +392,8 @@ def scale_grad(t, factor: float):
 def _a2a(t, mesh, axis):
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t.contiguous(), group=mesh.group(axis))
+    if _TALLY is not None:
+        _TALLY.add("all-to-all", _nbytes(out))
     return out
 
 
@@ -365,6 +432,8 @@ def _shift(t, mesh, axis, step):
            dist.P2POp(dist.irecv, out, ranks[(i - step) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if _TALLY is not None:
+        _TALLY.add("collective-permute", _nbytes(out))
     return out
 
 

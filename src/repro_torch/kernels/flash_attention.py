@@ -30,7 +30,15 @@ pairs (``MAX_D_BWD``), MLA's (192, 128) among them.  In bf16 both
 directions need every operand 16-byte aligned and raise otherwise.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+launches its kernel or raises.  Each kernel's launch is a custom op
+(``torch.ops.repro_torch.flash_fwd`` / ``flash_bwd``), whose fake
+implementation returns what the kernel writes (shapes, dtypes and
+layouts: ``_out_like``'s output, the fp32 LSE, dq, dk and dv like q, k
+and v) and whose FLOP formula is the kernel table's operation count
+(``flash_fwd_flops``, ``flash_bwd_flops``), so fake and ``meta`` tensors
+(the dry run's, ``launch/dryrun.py``) pass through the card's path, and
+``FlopCounterMode`` counts the kernels.  A meta tensor goes to the custom
+op like a CUDA one; no launch is counted.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -156,20 +165,45 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head dims (q·k {D}, v {DV}) "
                          f"fit none of the kernel's {MAX_D}")
     _check_card("flash_attention", q, ("k", k), ("v", v))
+    _check_aligned("flash_attention", ("q", q), ("k", k), ("v", v))
+    out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, scale,
+                                               return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _lse_like(q: torch.Tensor, with_lse: bool) -> torch.Tensor:
+    """The forward's fp32 LSE ``(B, Hq, Sq)``, contiguous, or an empty
+    ``(0,)`` where the call writes none."""
+    shape = q.shape[:3] if with_lse else (0,)
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float,
+               with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's launch (``flash_attention_fwd`` checks the
+    operands first): ``(out, lse)``, ``lse`` empty without ``with_lse``."""
+    B, Hq, Hkv, Sq, Sk, D, DV = _check_heads("flash_attention", q, k, v)
     out = _out_like(q, DV)
-    _check_aligned("flash_attention", ("q", q), ("k", k), ("v", v),
-                   ("out", out))
-    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    _check_aligned("flash_attention", ("out", out))
+    lse = _lse_like(q, with_lse)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _build.library().repro_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _build.ptr(lse), DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, DV,
-        int(causal), ctypes.c_float(scale), *strides,
+        _build.ptr(lse if with_lse else None), DTYPES[q.dtype], B, Hq, Hkv,
+        Sq, Sk, D, DV, int(causal), ctypes.c_float(scale), *strides,
         _build.stream_of(q, "flash_attention"))
     _build.check(err, "flash_attention")
     _build.counted(flash_attention)
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@_flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, with_lse):
+    """What the kernel writes, shapes and layouts only."""
+    return _out_like(q, v.shape[3]), _lse_like(q, with_lse)
 
 
 flash_attention.launches = flash_attention.captured = 0
@@ -212,10 +246,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous, on "
                          "q's device")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _check_aligned("flash_attention_bwd", ("q", q), ("k", k), ("v", v),
-                   ("out", out), ("dout", dout), ("dq", dq), ("dk", dk),
-                   ("dv", dv))
+                   ("out", out), ("dout", dout))
+    return torch.ops.repro_torch.flash_bwd(q, k, v, out, lse, dout, causal,
+                                           scale)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               causal: bool, scale: float
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' launch (``flash_attention_bwd`` checks the
+    operands first): ``(dq, dk, dv)``."""
+    B, Hq, Hkv, Sq, Sk, D, DV = _check_heads("flash_attention_bwd", q, k, v)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _check_aligned("flash_attention_bwd", ("dq", dq), ("dk", dk), ("dv", dv))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv)
@@ -229,6 +276,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "flash_attention_bwd")
     _build.counted(flash_attention_bwd)
     return dq, dk, dv
+
+
+@_flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, scale):
+    """What the kernels write, shapes and layouts only (their ``delta``
+    scratch is freed within the call)."""
+    return tuple(torch.empty_like(t) for t in (q, k, v))
 
 
 flash_attention_bwd.launches = flash_attention_bwd.captured = 0
@@ -264,3 +318,43 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
                                          causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
+
+
+def live_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: every pair, or under the
+    diagonal when causal (query i sees keys ``j <= i + sk - sq``)."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    if off >= 0:                  # row i sees i + off + 1 keys
+        return sq * (2 * off + sq + 1) // 2
+    return sk * (sk + 1) // 2     # rows before -off see none
+
+
+def flash_fwd_flops(q_shape, k_shape, v_shape, causal: bool) -> int:
+    """The forward's operations: 2·(D + DV) a live (query, key) pair and
+    q head, the count of the kernel table's bound (``chip_smoke.py``'s
+    ``flash_case``)."""
+    B, Hq, Sq, D = q_shape
+    return 2 * (D + v_shape[3]) * B * Hq * live_pairs(Sq, k_shape[2], causal)
+
+
+def flash_bwd_flops(q_shape, k_shape, v_shape, causal: bool) -> int:
+    """The backward's operations: five products a live pair and q head,
+    q·kᵀ, dq and dk of 2·D operations, dO·vᵀ and dv of 2·DV (the count
+    of ``flash_bwd_case``'s bound, not what the kernel issues)."""
+    B, Hq, Sq, D = q_shape
+    return 2 * (3 * D + 2 * v_shape[3]) * B * Hq * live_pairs(
+        Sq, k_shape[2], causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_formula(q_shape, k_shape, v_shape, causal, *args,
+                       **kwargs) -> int:
+    return flash_fwd_flops(q_shape, k_shape, v_shape, causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_formula(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                       dout_shape, causal, *args, **kwargs) -> int:
+    return flash_bwd_flops(q_shape, k_shape, v_shape, causal)

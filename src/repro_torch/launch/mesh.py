@@ -28,7 +28,9 @@ binds a ``Mesh`` to a ``torch.distributed.device_mesh.DeviceMesh`` with
 the same axis names, degrading as the builders above do when the group
 has fewer ranks than the shape asks.  Spawning the ranks is the caller's
 job (the reference is one controller and has no launcher to port); the
-tests and ``chip_smoke.py`` use ``tools/ranks.py``.
+tests and ``chip_smoke.py`` use ``tools/ranks.py``.  The dry run
+(``launch/dryrun.py``) is rank 0 of a ``fake`` group (``init_fake_group``),
+whose mesh holds ``meta`` devices.
 """
 from __future__ import annotations
 
@@ -172,13 +174,19 @@ def _build(shape, axes, *, requested=None) -> Mesh:
                 tuple(axes))
 
 
+def production_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(shape, axis names) of the reference's production mesh: (16, 16)
+    ``("data", "model")``, one pod of 256, or (2, 16, 16) with a leading
+    ``"pod"`` axis."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production shapes: (16, 16) ``("data", "model")``,
-    or (2, 16, 16) with a leading ``"pod"`` axis — degraded to the devices
-    the host has."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _build(shape, axes)
+    """The reference's production shapes (``production_shape``), degraded
+    to the devices the host has."""
+    return _build(*production_shape(multi_pod=multi_pod))
 
 
 def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
@@ -293,13 +301,34 @@ def make_process_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
         raise ValueError(f"mesh shape {want} holds {int(np.prod(want))} "
                          f"ranks, the group {world}")
     backend = dist.get_backend()
-    device_type = "cuda" if backend == "nccl" else "cpu"
+    device_type = "cpu" if backend == "gloo" else "cuda"
     dm = init_device_mesh(device_type, want, mesh_dim_names=tuple(axes))
-    n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
-    grid = [torch.device("cuda", r % n_cards) if n_cards
-            else torch.device("cpu") for r in range(world)]
+    if "fake" in backend:
+        # the dry run's group (launch/dryrun.py): its collectives move
+        # nothing and its tensors are meta, shapes without data
+        grid = [torch.device("meta")] * world
+    else:
+        n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
+        grid = [torch.device("cuda", r % n_cards) if n_cards
+                else torch.device("cpu") for r in range(world)]
     return Mesh(np.asarray(grid, dtype=object).reshape(want), tuple(axes),
                 device_mesh=dm)
+
+
+def init_fake_group(world_size: int) -> None:
+    """Join this process, as rank 0, to a group of ``world_size`` ranks on
+    the ``fake`` backend, whose collectives move nothing and return at
+    once: the dry run's group (``launch/dryrun.py``), where the other
+    ranks exist only as the shapes of their blocks, on ``meta`` tensors
+    (``make_process_mesh`` gives its mesh meta devices)."""
+    import torch.distributed as dist
+    # importing this module registers the fake backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    # meta tensors need the backend too (``batch_isend_irecv`` looks it
+    # up by the tensors' device)
+    dist.init_process_group("cpu:fake,cuda:fake,meta:fake",
+                            store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 def destroy_process_group() -> None:

@@ -193,6 +193,25 @@ def _positions(dest, n: int):
     return (oh.cumsum(0) - oh).gather(1, dest.clamp(min=0)[:, None])[:, 0]
 
 
+def _into_slots(rows, slot, keep, n: int, fill=0):
+    """``rows`` written at their ``slot`` of ``n`` (``rows``' other dims,
+    ``fill`` elsewhere) where ``keep``, the others dropped: the boolean-mask
+    write ``buf[slot[keep]] = rows[keep]`` with a fixed size, the dropped
+    rows written to one extra slot past the end and cut off, so no shape
+    depends on the data."""
+    buf = rows.new_full((n + 1, *rows.shape[1:]), fill)
+    buf[torch.where(keep, slot, n)] = rows
+    return buf[:n]
+
+
+def _expert_load(eid, n: int):
+    """How many entries of ``eid`` pick each of ``n`` experts:
+    ``torch.bincount(eid, minlength=n)`` at a fixed size, its result's
+    shape not read from the data."""
+    return torch.zeros(n, dtype=torch.long, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
+
+
 def _segment_sum(contrib, src, T: int):
     """``jax.ops.segment_sum`` of fp32 rows into ``T`` segments."""
     out = contrib.new_zeros((T, contrib.shape[1]))
@@ -242,10 +261,9 @@ def _moe_a2a_local(w, x, cfg, mesh, axis, dp_axes, stats):
     pos = _positions(dest, M)
     cap = _ceil8(int(math.ceil(T * mo.top_k / M * mo.capacity_factor)))
     keep = pos < cap
-    send_x = t.new_zeros((M, cap, d))
-    send_x[dest[keep], pos[keep]] = t[src[keep]]
-    send_e = torch.full((M, cap), -1, dtype=torch.long, device=dev)
-    send_e[dest[keep], pos[keep]] = eid[keep] % e_loc
+    at = dest * cap + pos
+    send_x = _into_slots(t[src], at, keep, M * cap).view(M, cap, d)
+    send_e = _into_slots(eid % e_loc, at, keep, M * cap, -1).view(M, cap)
     recv_x = col.all_to_all(send_x, mesh, axis)
     with torch.no_grad():
         recv_e = col.all_to_all(send_e, mesh, axis)
@@ -255,8 +273,8 @@ def _moe_a2a_local(w, x, cfg, mesh, axis, dp_axes, stats):
     cap2 = _ceil8(int(math.ceil(n_in / max(e_loc, 1) * mo.capacity_factor)))
     pos2 = _positions(re, e_loc)
     valid2 = (re >= 0) & (pos2 < cap2)
-    xbuf = rt.new_zeros((e_loc, cap2, d))
-    xbuf[re[valid2], pos2[valid2]] = rt[valid2]
+    xbuf = _into_slots(rt, re * cap2 + pos2, valid2,
+                       e_loc * cap2).view(e_loc, cap2, d)
     yb = _expert_mlp(w, xbuf, x.dtype)
     y = yb[re.clamp(min=0), pos2.clamp(max=cap2 - 1)] * valid2[:, None]
     recv_back = col.all_to_all(y.reshape(M, cap, d), mesh, axis)
@@ -271,7 +289,7 @@ def _moe_a2a_local(w, x, cfg, mesh, axis, dp_axes, stats):
                                   mesh, axis)
             arrived = back[dest, pos.clamp(max=cap - 1)].bool()
         stats["dropped"] = ~(keep & arrived)
-        stats["load"] = torch.bincount(eid, minlength=mo.n_experts)
+        stats["load"] = _expert_load(eid, mo.n_experts)
     aux = aux_load_balance_loss(probs, topi, mo.n_experts,
                                 axes=tuple(dp_axes) + (axis,), mesh=mesh)
     return out.reshape(x.shape), aux
@@ -311,10 +329,8 @@ def _gathered_slots(w, t, mo, mesh, axis):
     pos = torch.cumsum(is_local.long(), 0) - 1
     keep = is_local & (pos < cap)
     slot = torch.where(keep, pos, cap)
-    xbuf = t.new_zeros((cap, t.shape[1]))
-    xbuf[slot[keep]] = t[src[keep]]
-    ebuf = torch.zeros(cap, dtype=torch.long, device=dev)
-    ebuf[slot[keep]] = eid[keep] % e_loc
+    xbuf = _into_slots(t[src], slot, keep, cap)
+    ebuf = _into_slots(eid % e_loc, slot, keep, cap)
     return topi, probs, slot, keep, wt, src, xbuf, ebuf, is_local & ~keep
 
 

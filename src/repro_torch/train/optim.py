@@ -294,6 +294,7 @@ def _straddle_ctx(p):
     def max_over(t):
         for g in groups:
             dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+            col.note("all-reduce", t, 2)
 
     return (idx * col.local(p).shape[-1], -(-p.shape[-1] // QBLOCK),
             max_over)
@@ -344,6 +345,7 @@ def _grad_sq(grads, params) -> torch.Tensor:
         if col.counted_here(p):
             total = total + torch.sum(torch.square(col.local(g).float()))
     dist.all_reduce(total)
+    col.note("all-reduce", total, 2)
     return total
 
 

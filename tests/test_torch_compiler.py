@@ -192,7 +192,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.launch.mesh, repro_torch.distributed, "
             "repro_torch.distributed.sharding, "
             "repro_torch.distributed.collectives, "
-            "repro_torch.distributed.pipeline\n"
+            "repro_torch.distributed.pipeline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.step_analysis, "
+            "repro_torch.launch.roofline\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

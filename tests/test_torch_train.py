@@ -731,3 +731,59 @@ def test_train_main_prints_its_final_loss(tmp_path, capsys):
     final = float(text.strip().splitlines()[-1].split("final loss: ")[1])
     res = json.loads(out.read_text())
     assert res["final_loss"] == final and len(res["history"]) == 3
+
+
+# The recorded points of grok-1's one-card curves with int8 moments on the
+# cosine from 3e-4 (10 steps at 1 layer): ``--distributed=w`` (its first
+# seven losses and its last) and ``--train-families`` (its first three,
+# step 3's, step 7's and its last; it fell 0.28 from first to last).
+GROK_SPIKES = {"distributed=w": [12.2871, 11.7306, 12.822, 15.8526, 12.939,
+                                 12.3434, 25.0472, 15.6464],
+               "train-families": [12.2871, 11.7306, 12.822, 15.7498,
+                                  18.2786, 12.0073]}
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("run", sorted(GROK_SPIKES))
+def test_loss_bar_fails_the_recorded_grok_curves(run):
+    """The card's loss bar holds the whole curve: both grok-1 spikes fail
+    it, the second only by its rise (it ends below its start)."""
+    cs = _chip_smoke()
+    hist = GROK_SPIKES[run]
+    line, ok = cs.loss_bar(f"grok-1 {run}", hist)
+    assert not ok and line.endswith("FAIL")
+    assert max(hist) - hist[0] > cs.TRAIN_RISE
+    assert str(hist) in line                 # the whole curve printed
+
+
+def test_loss_bar_fails_deepseeks_spike():
+    """deepseek-v3's 3-layer curve on the cosine from 3e-4 (the card's
+    family run before its schedule moved): 16.44 nats up at step 4, 0.68
+    down by step 10."""
+    cs = _chip_smoke()
+    assert not cs.loss_bar("deepseek-v3 3 layers", [
+        12.2647, 11.4254, 15.2103, 28.7062, 19.0826, 14.2978, 12.8743,
+        12.6097, 12.2834, 11.5865])[1]
+
+
+def test_loss_bar_keeps_the_drop_and_passes_a_falling_curve():
+    """The curves that train on the card hold the bar: zamba2-2.7b's
+    (4.67 nats up at step 3, 1.65 down by step 10) and llama3.2-1b's over
+    (2, 2) (1.25 up, 2.29 down); a flat or non-finite one fails."""
+    cs = _chip_smoke()
+    assert cs.loss_bar("zamba2-2.7b", [
+        10.8911, 9.9836, 15.5593, 13.2313, 10.9018, 10.4257, 10.094, 9.6453,
+        9.352, 9.2398])[1]
+    assert cs.loss_bar("llama3.2-1b over (2, 2)", [
+        12.2105, 11.7903, 13.4625, 11.8706, 11.7881, 11.0787, 10.6133,
+        10.4362, 10.1406, 9.9247])[1]
+    assert not cs.loss_bar("flat", [12.0, 11.95, 11.99])[1]
+    assert not cs.loss_bar("nan", [12.0, float("nan"), 11.0])[1]
+    assert cs.TRAIN_DROP == 0.1
