@@ -211,7 +211,9 @@ prefills beside its plain core (``dist_flash_shapes``);
 at its published size over (2, 2) held to one card and trained 10 bf16
 steps, (b) deepseek-v3's 3 dense and 1 MoE layer at its published width
 over (1, 4) trained 10 steps, (c) ``pipeline_apply`` over 4 stages, (d)
-qwen3-0.6b served over (2, 2) and (1, 4) against one card, (e) zamba2-2.7b
+qwen3-0.6b served over (2, 2) and (1, 4) against one card, with one row
+of an 8192-token prompt decoded over both (the caches' sequence over all
+four ranks), (e) zamba2-2.7b
 and xlstm-350m trained and served over both, (f) grok-1 with int8 moments
 over (1, 4), (g) its checkpoint restored onto (2, 2), (x) the dry run of
 llama3.2-1b's train step over (2, 2) against the four ranks' (collective
@@ -5422,7 +5424,7 @@ def dist_rank_smoke(rank: int, world: int, ckpt_dir: str) -> dict:
         for i in range(3):
             lg, caches = lm_decode_step(placed, cfg, toks, caches, i,
                                         mesh=mesh, dp_axes=dp,
-                                        model_axis=model)
+                                        model_axis=model, max_len=4)
             want, one = lm_decode_step(params, cfg, toks, one, i)
             lg = col.gather(lg, mesh, 0, dp)
             worst = max(worst, float((lg - want).abs().max()
@@ -5545,7 +5547,7 @@ def dist_rec_smoke(mesh) -> list[str]:
         for i in range(3):
             lg, caches = lm_decode_step(placed, cfg, toks, caches, i,
                                         mesh=mesh, dp_axes=dp,
-                                        model_axis=model)
+                                        model_axis=model, max_len=4)
             ref, one = lm_decode_step(params, cfg, toks, one, i)
             lg = col.gather(lg, mesh, 0, dp)
             worst = max(worst, float((lg - ref).abs().max()
@@ -5981,6 +5983,7 @@ def dist_rank_all(rank: int, world: int, card: str, sections: str,
     if "d" in sections:
         dist_serve_full(rank, dev, emit, LM_ARCH, LM_REQUESTS, LM_MAX_NEW,
                         timing=True)
+        dist_long_decode(rank, dev, emit)
         stamp_rank(rank, "(d) qwen3-0.6b served over (2, 2) and (1, 4)")
     if "e" in sections:
         for arch in DIST_REC:
@@ -6050,7 +6053,9 @@ def distributed_full_phase(card: str, sections: str) -> None:
 #     of max|logits| of one card's engine and the tokens equal, or apart
 #     only where one card's logits tie within 2 DIST_LOGIT_RTOL
 #     (``dist_margins``); in bf16 tok/s, engine step p50 and flash's
-#     launches beside one card's;
+#     launches beside one card's; then one row of a DIST_LONG_PROMPT-token
+#     prompt in fp32, prefilled and decoded DIST_LONG_NEW steps with the
+#     caches' sequence over all four ranks (``dist_long_decode``);
 # (e) zamba2-2.7b and xlstm-350m, not cut: one fp32 step (batch
 #     DIST_FP32_BATCH x TRAIN_SEQ, the moments drawn after the backward:
 #     ``dist_step_lean``) against one card's, loss within DIST_LOSS_RTOL,
@@ -6083,6 +6088,7 @@ def distributed_full_phase(card: str, sections: str) -> None:
 #     step of (f) with DIST_STEPS int8 steps of one card and of (1, 4) side
 #     by side (``dist_grok_one_layer(curves=True)``).
 DIST_FULL_TIMEOUT_S = 3300
+DIST_LONG_PROMPT, DIST_LONG_NEW = 8192, 16
 DIST_SHAPES = ((2, 2), (1, 4))
 DIST_REC = ("zamba2-2.7b", "xlstm-350m")
 DIST_REC_REQUESTS, DIST_REC_MAX_NEW = 8, 16
@@ -6256,6 +6262,123 @@ def dist_serve_full(rank, dev, emit, arch, n_req, max_new, *,
             f"{len(batch)} requests" if rank == 0 else ""))
         assert counts["flash_attention"] == len(batch) * full.n_layers, \
             counts
+
+
+def dist_long_run(cfg, params, prompt, max_len, toks=None, mesh=None):
+    """One row's prefill of ``prompt`` into caches of ``max_len``
+    positions, then a decode step a token: ``toks`` (teacher-forced), or
+    each step's greedy token.  -> (the prefill's and each step's logits,
+    fp32 ``(1, V)``, the tokens fed, the caches, the last step's
+    collective bytes a device (``Tally``; on ``mesh``))."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.transformer import lm_decode_step, lm_prefill
+    kw = {}
+    if mesh is not None:
+        dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
+    n = DIST_LONG_NEW if toks is None else len(toks)
+    fed = []
+    with torch.no_grad():
+        lg, caches, _ = lm_prefill(params, cfg, prompt, max_len=max_len,
+                                   **kw)
+        out = [lg.float()]
+        for i in range(n):
+            tok = out[-1].argmax(-1) if toks is None else toks[i:i + 1]
+            fed.append(tok)
+            with col.tallied() as tally:
+                lg, caches = lm_decode_step(
+                    params, cfg, tok, caches, prompt.shape[1] + i,
+                    **(dict(kw, max_len=max_len) if kw else {}))
+            out.append(lg.float())
+    return out, torch.cat(fed), caches, tally.per_device()
+
+
+def dist_old_cache_bytes(cfg, mesh, b: int, max_len: int) -> int:
+    """A rank's attention caches of an all-attention model in the port's
+    layout before ``cache_specs``' one: its rows of ``b``, the sequence
+    whole, the kv heads its q heads read."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.attention import local_heads
+    from repro_torch.models.layers import dtype_of, shard_axes
+    from repro_torch.models.transformer import _batch_axes
+    dp, model, _ = mesh_axes(mesh)
+    with shard_axes(_batch_axes(b, dp, mesh), model, mesh) as ax:
+        rows = b // ax.dp_size
+        n_kv = len(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
+    item = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
+    return (2 * cfg.n_layers * rows * max_len * n_kv
+            * cfg.resolved_head_dim * item)
+
+
+def dist_long_decode(rank, dev, emit) -> None:
+    """(d)'s long context: qwen3-0.6b in fp32, one row of a
+    DIST_LONG_PROMPT-token prompt (numpy seed 0) prefilled and decoded
+    DIST_LONG_NEW steps over each of DIST_SHAPES (B = 1: the caches'
+    sequence over all four ranks, over dp + model on (2, 2) and over
+    model on (1, 4)), teacher-forced by one card's greedy tokens: every
+    step's logits within DIST_LOGIT_RTOL of max|one card|, the mesh's
+    greedy tokens one card's or apart at a tie within 2 DIST_LOGIT_RTOL
+    of one card's logits; each rank's cache bytes beside the layout
+    before ``cache_specs``' (``dist_old_cache_bytes``), and a decode
+    step's collective bytes at this context equal to one at 64
+    positions."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.step_analysis import held_bytes
+    from repro_torch.models.transformer import init_lm
+    cfg = dataclasses.replace(configs.get(LM_ARCH), dtype="float32")
+    max_len = DIST_LONG_PROMPT + DIST_LONG_NEW
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, DIST_LONG_PROMPT)), device=dev)
+    toks = torch.zeros(DIST_LONG_NEW, dtype=torch.long, device=dev)
+    want = None
+    if rank == 0:
+        want, fed, _, _ = dist_long_run(cfg, init_lm(0, cfg, device=dev),
+                                        prompt, max_len)
+        toks.copy_(fed)
+        free_cuda()
+    dist.broadcast(toks, 0)
+    for shape in DIST_SHAPES:
+        dist.barrier()
+        mesh = make_process_mesh(shape, ("data", "model"))
+        placed, _ = dist_place(init_lm(0, cfg, device=dev), mesh)
+        t0 = time.perf_counter()
+        got, _, caches, tally = dist_long_run(cfg, placed, prompt, max_len,
+                                              toks, mesh)
+        wall = time.perf_counter() - t0
+        held = [None] * mesh.size
+        dist.all_gather_object(held, (held_bytes(caches),
+                                      dist_old_cache_bytes(cfg, mesh, 1,
+                                                           max_len)))
+        del caches
+        _, _, _, short = dist_long_run(cfg, placed, prompt[:, :48], 64,
+                                       toks[:1], mesh)
+        del placed
+        free_cuda()
+        if rank != 0:
+            continue
+        rel = max(rel_err(g, w)[1] for g, w in zip(got, want))
+        mine = [int(g.argmax()) for g in got[:-1]]
+        apart = [i for i, (a, b) in enumerate(zip(mine, toks.tolist()))
+                 if a != b]
+        gaps = [float((want[i][0, toks[i]] - want[i][0, mine[i]])
+                      / want[i].abs().max()) for i in apart]
+        ties = sum(g <= 2 * DIST_LOGIT_RTOL for g in gaps)
+        same_coll = tally["total"] == short["total"]
+        emit(f"{LM_ARCH} fp32, one row of a {DIST_LONG_PROMPT}-token "
+             f"prompt over {shape} (the caches' sequence over 4 ranks), "
+             f"{DIST_LONG_NEW} decode steps teacher-forced by one card's "
+             f"greedy tokens: logits within {rel:.3e} of max|one card| "
+             f"(limit {DIST_LOGIT_RTOL:g}); greedy tokens equal on "
+             f"{DIST_LONG_NEW - len(apart)} of {DIST_LONG_NEW}, apart at a "
+             f"tie on {ties}; cache bytes a rank {[h[0] for h in held]} "
+             f"(the layout before: {[h[1] for h in held]}); a decode "
+             f"step's collective bytes {tally['total']} at {max_len} "
+             f"positions, {short['total']} at 64; wall {wall:.4f} s "
+             f"(host clock)",
+             rel <= DIST_LOGIT_RTOL and len(apart) == ties and same_coll)
 
 
 def dist_serve_line(what, run, kernels) -> str:

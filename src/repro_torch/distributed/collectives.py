@@ -41,7 +41,8 @@ import torch.distributed as dist
 
 __all__ = ["Sharded", "sharded_tree", "is_dtensor", "counted_here",
            "spec_of", "local", "materialize",
-           "gather", "take_block", "psum", "replicated_sum", "scale_grad",
+           "gather", "take_block", "psum", "pmax", "replicated_sum",
+           "scale_grad",
            "all_to_all", "ppermute", "axes_of", "Tally", "tallied", "note"]
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -237,11 +238,11 @@ def _scatter_axis(t, dim, mesh, axis):
     return out.movedim(0, dim)
 
 
-def _all_reduce(t, mesh, axes):
+def _all_reduce(t, mesh, axes, op=dist.ReduceOp.SUM):
     for axis in axes:
         if mesh.shape[axis] > 1:
             t = t.contiguous()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+            dist.all_reduce(t, op=op, group=mesh.group(axis))
             if _TALLY is not None:
                 _TALLY.add("all-reduce", 2 * _nbytes(t))
     return t
@@ -365,6 +366,16 @@ def psum(t, mesh, axes):
     return _Psum.apply(t, mesh, axes, True) if axes else t
 
 
+def pmax(t, mesh, axes):
+    """The max over ``axes`` (``jax.lax.pmax``), into a new tensor; not
+    differentiable (a split softmax's running max, which the reference's
+    autodiff does not differentiate through either)."""
+    axes = tuple(a for a in axes_of(axes) if mesh.shape[a] > 1)
+    if not axes:
+        return t
+    return _all_reduce(t.detach().clone(), mesh, axes, dist.ReduceOp.MAX)
+
+
 def replicated_sum(t, mesh, axes):
     """Sum over ``axes`` into a value every rank then holds and uses the
     same way (a loss, the pipeline's output): the backward passes each
@@ -389,9 +400,15 @@ def scale_grad(t, factor: float):
     return t if factor == 1 else _ScaleGrad.apply(t, factor)
 
 
-def _a2a(t, mesh, axis):
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t.contiguous(), group=mesh.group(axis))
+def _a2a(t, mesh, axis, splits=None):
+    if splits is None:
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=mesh.group(axis))
+    else:
+        sent, got = splits
+        out = t.new_empty((sum(got), *t.shape[1:]))
+        dist.all_to_all_single(out, t.contiguous(), list(got), list(sent),
+                               group=mesh.group(axis))
     if _TALLY is not None:
         _TALLY.add("all-to-all", _nbytes(out))
     return out
@@ -399,23 +416,28 @@ def _a2a(t, mesh, axis):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return _a2a(t, mesh, axis)
+    def forward(ctx, t, mesh, axis, splits):
+        ctx.mesh, ctx.axis, ctx.splits = mesh, axis, splits
+        return _a2a(t, mesh, axis, splits)
 
     @staticmethod
     def backward(ctx, g):
-        return _a2a(g, ctx.mesh, ctx.axis), None, None
+        back = None if ctx.splits is None else ctx.splits[::-1]
+        return _a2a(g, ctx.mesh, ctx.axis, back), None, None, None
 
 
-def all_to_all(t, mesh, axis):
+def all_to_all(t, mesh, axis, *, sent=None, got=None):
     """``jax.lax.all_to_all(t, axis, 0, 0, tiled=False)``: block ``i`` of
     dim 0 (``t.shape[0]`` is the axis size) goes to rank ``i`` of the
     axis, which puts it at this rank's index; equal splits, one
-    ``all_to_all_single``.  Its transpose is itself."""
+    ``all_to_all_single``.  With ``sent`` and ``got`` (rows of dim 0 per
+    rank of the axis, in its order) the splits are those: ``sent[i]``
+    rows go to rank ``i``, ``got[i]`` come from it, in rank order.  Its
+    transpose is itself, the splits swapped."""
     if mesh.shape[axis] == 1:
         return t
-    return _AllToAll.apply(t, mesh, axis)
+    splits = None if sent is None else (tuple(sent), tuple(got))
+    return _AllToAll.apply(t, mesh, axis, splits)
 
 
 def _shift(t, mesh, axis, step):

@@ -9,7 +9,8 @@ Scheme (train/prefill): FSDP+TP.  Every 2-D weight is sharded on its
 d_model dim over the fsdp axes and on its "wide" dim over the model axis;
 MoE experts are additionally expert-sharded over model (EP).  Batch is
 sharded over the dp axes.  Decode: KV caches are sequence-sharded over
-model (flash-decode) with batch over dp.
+model (flash-decode) with batch over dp; ``seq_block`` gives a rank its
+block of that sequence, which the model code reads.
 
 A dim is sharded only if divisible by the axis size — otherwise the rule
 degrades to replication on that dim (recorded by ``explain()``).
@@ -38,13 +39,15 @@ the bytes of each rank's block.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 
 import torch
 
 __all__ = ["param_spec", "param_specs", "batch_specs", "cache_specs",
-           "NamedSharding", "shardings", "device_put", "explain"]
+           "SeqBlock", "seq_block", "NamedSharding", "shardings",
+           "device_put", "explain"]
 
 
 def P(*entries) -> tuple:
@@ -187,6 +190,36 @@ def cache_specs(cache_shapes, mesh, *, dp=("data",), model="model"):
         return P(*([None] * nd))
 
     return _map_with_path(visit, cache_shapes)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """A rank's block ``[lo, hi)`` of a decode cache's sequence and the
+    mesh axes the sequence is cut over (outer first; ``()`` where it is
+    whole)."""
+    axes: tuple
+    lo: int
+    hi: int
+
+
+def seq_block(mesh, batch: int, max_len: int, *, dp=("data",),
+              model="model") -> SeqBlock:
+    """This rank's block of the sequence of a ``k``/``v``/``ckv``/``kr``
+    cache leaf of a global ``batch`` and ``max_len`` positions, by
+    ``cache_specs``' rule: over ``model`` where the batch divides over
+    ``dp``, over ``dp + model`` where it does not, whole where
+    ``max_len`` does not divide over those axes (or they hold one
+    rank).  ``mesh`` must be bound (``axis_index``)."""
+    entry = cache_specs({"k": (1, batch, max_len, 1, 1)}, mesh, dp=dp,
+                        model=model)["k"][2]
+    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    if _axsize(mesh, axes) == 1:
+        return SeqBlock((), 0, max_len)
+    index = 0
+    for a in axes:
+        index = index * mesh.shape[a] + mesh.axis_index(a)
+    size = max_len // _axsize(mesh, axes)
+    return SeqBlock(axes, index * size, (index + 1) * size)
 
 
 class NamedSharding:

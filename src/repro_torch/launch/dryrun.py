@@ -32,10 +32,12 @@ The records keep the reference's JSON keys and file names
 place the cell's tensors, ``compile_s`` the seconds of its step;
 ``xla_cost_analysis`` (there is no XLA here) repeats the counter's
 totals.  The port adds ``memory.peak_bytes``, ``argument_breakdown``,
-``flash_calls`` and ``cache_layout``: a decode cell's caches take the
-port's own layout (``init_caches(mesh=)``: each rank's batch rows and the
-kv heads its q heads read, the sequence whole), not the reference's
-``cache_specs``, which shards the sequence over ``model``.  Int8 moments
+``flash_calls`` and ``cache_layout``: a decode or prefill cell's caches
+take the reference's ``cache_specs`` layout (``init_caches(mesh=)``:
+each rank's batch rows, every kv head and its block of the sequence, over
+``model`` or over dp + model where the batch does not divide over dp;
+the recurrent states by heads, whose small leaves part from the spec as
+``init_caches`` states).  Int8 moments
 take the port's layout (``train/optim.py``: where a shard's edge cuts a
 256-element block, its codes are unpadded and its scales replicated over
 the axes that cut the last dim), where the reference's ``_opt_specs``
@@ -72,9 +74,10 @@ from repro_torch.train.step import build_train_step
 
 QUANTIZE_ABOVE = 30e9          # int8 Adam moments for >30B-param archs
 META = torch.device("meta")
-CACHE_LAYOUT = ("init_caches(mesh=): batch rows over dp, each rank's kv "
-                "heads (MLA's latent whole), recurrent states by heads; the "
-                "sequence whole on every rank")
+CACHE_LAYOUT = ("init_caches(mesh=): cache_specs' layout: batch rows over "
+                "dp, the sequence over model (dp + model where the batch "
+                "does not divide over dp), every kv head; recurrent states "
+                "by heads")
 
 
 # ----------------------------------------------------------------- specs ---
@@ -147,12 +150,13 @@ def batch_blocks(ins: dict, kind: str, mesh, *, dp, model) -> dict:
 def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                remat: bool = True, microbatches: int = 1,
                extra_tag: str = "", impl: str = "chunked", cfg=None,
-               mesh_shape=None, dims=None) -> dict:
+               mesh_shape=None, dims=None, counter=None) -> dict:
     """One step of one (arch, shape, mesh) cell on rank 0 of a fake group;
     return its record.  ``cfg``, ``mesh_shape`` (shape, axis names) and
     ``dims`` (``seq_len``, ``global_batch``) replace ``configs.get(arch)``,
     the production mesh and the shape's sizes (smaller cells: the tests,
-    the card's check)."""
+    the card's check); ``counter``, the ``StepCounter`` the step is
+    counted with (``launch/perf_probe.py`` reads its rows)."""
     cfg = cfg or configs.get(arch)
     sh = {**configs.SHAPES[shape], **(dims or {})}
     if shape == "long_500k" and not cfg.subquadratic:
@@ -196,9 +200,10 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
             def run():
                 with torch.no_grad():
                     return lm_decode_step(params, cfg, ins["tokens"],
-                                          caches, ins["length"], **kw)
+                                          caches, ins["length"], max_len=S,
+                                          **kw)
         t_place = time.time() - t0
-        with StepCounter() as sc:
+        with counter or StepCounter() as sc:
             out = run()
         t_step = time.time() - t0 - t_place
         memory = sc.memory(held, out)

@@ -21,6 +21,9 @@ the card's tensors or on ``meta`` tensors that hold shapes and no data
   collective (``collective_bytes``).  A gather is charged twice its
   result and an in-place scatter twice its source (the rows they touch),
   as the reference charges ``gather`` and ``dynamic-update-slice``.
+  ``rows`` keeps those bytes per ``(op name, operand shapes)`` (their sum
+  is ``bytes``) and ``row_calls`` the calls of each: what
+  ``launch/perf_probe.py`` ranks.
 - ``collective_bytes``: the per-kind bytes of ``distributed.collectives
   .Tally`` (the reference's ring model).
 - memory: each storage an op allocates (an op whose results alias none of
@@ -106,13 +109,20 @@ class _Ops(TorchDispatchMode):
         outs = _tensors(out)
         aliased = any(r.alias_info is not None
                       for r in func._schema.returns)
+        nbytes = 0
         if func in _GATHERS:
-            c.bytes += 2 * sum(map(tensor_bytes, outs))
+            nbytes = 2 * sum(map(tensor_bytes, outs))
         elif func in _SCATTERS:
-            c.bytes += 2 * tensor_bytes(args[_SCATTERS[func]])
+            nbytes = 2 * tensor_bytes(args[_SCATTERS[func]])
         elif not func.is_view:
-            c.bytes += sum(map(tensor_bytes, _tensors((args, kwargs))))
-            c.bytes += sum(map(tensor_bytes, outs))
+            nbytes = sum(map(tensor_bytes, _tensors((args, kwargs))))
+            nbytes += sum(map(tensor_bytes, outs))
+        if nbytes:
+            c.bytes += nbytes
+            key = (func.name(), tuple(tuple(_local(t).shape)
+                                      for t in _tensors((args, kwargs))))
+            c.rows[key] += nbytes
+            c.row_calls[key] += 1
         if not aliased:
             for t in outs:
                 c._allocated(t)
@@ -123,12 +133,15 @@ class StepCounter:
     """Count one step's FLOPs, HBM bytes, collective bytes and memory
     (module docstring): ``with StepCounter() as sc: step(...)``, then
     ``sc.flops``, ``sc.bytes``, ``sc.collective_bytes()``, ``sc.peak``,
-    ``sc.calls`` (aten and custom op calls by name) and
-    ``sc.memory(arguments, outputs)``."""
+    ``sc.calls`` (aten and custom op calls by name), ``sc.rows`` and
+    ``sc.row_calls`` (bytes and calls per ``(op name, operand shapes)``;
+    ``sc.top_rows(n)``) and ``sc.memory(arguments, outputs)``."""
 
     def __init__(self):
         self.bytes = 0
         self.calls: Counter = Counter()
+        self.rows: Counter = Counter()
+        self.row_calls: Counter = Counter()
         self.live = self.peak = 0
         self._held: dict[int, int] = {}
         self._flops = FlopCounterMode(
@@ -170,6 +183,15 @@ class StepCounter:
     def flops_by_op(self) -> dict:
         return {str(k): int(v) for k, v in
                 self._flops.get_flop_counts().get("Global", {}).items()}
+
+    def top_rows(self, n: int | None = None) -> list:
+        """``(bytes, calls, op name, operand shapes)`` of the ``n`` rows
+        that moved the most bytes (all of them with ``n`` None), most
+        first."""
+        rows = sorted(((b, self.row_calls[k], *k)
+                       for k, b in self.rows.items()),
+                      key=lambda r: (-r[0], r[2], r[3]))
+        return rows if n is None else rows[:n]
 
     def collective_bytes(self) -> dict:
         return self._tally.per_device()

@@ -3,7 +3,8 @@
 Port of ``src/repro/models/attention.py``: ``naive_attention``,
 ``decode_attention``, ``init_gqa``, ``gqa_project``, ``gqa_forward``,
 ``_pos_vec``, ``gqa_decode``, and MLA (DeepSeek's multi-head latent
-attention): ``init_mla``, ``_mla_qkr``, ``mla_forward`` and ``mla_decode``.
+attention): ``init_mla``, ``_mla_qkr``, ``mla_forward`` and ``mla_decode``;
+the decode over sequence blocks has no counterpart file (below).
 Activations keep the reference's
 ``(B, S, H, hd)`` layout.  The reference's four implementations of the
 attention core (``impl``):
@@ -57,6 +58,21 @@ heads are those its q heads read, each repeated per q head where the
 rank's heads cut a group unevenly.  MLA's latent projections (``wdq``,
 ``wdkv``) are read whole, so the shared latent and rope key are the same
 on every model rank.
+
+A decode step under a mesh reads caches in the reference's
+``cache_specs`` layout (``sharding.seq_block``): a rank holds its block
+of the sequence, every kv head (MLA: the latent).  XLA derives the
+reference's partial softmaxes from those shardings; here they are
+spelled out: q is gathered over the model axis to every head, the new k
+and v to every kv head (each once), the rank whose block holds a row's
+position writes it, each rank runs a softmax over its block
+(``gqa_block_partial`` / ``mla_block_partial``), and the blocks meet in
+a max and a sum all-reduce (``combine_blocks``); the rank keeps its
+heads' rows for the output projection.  A step moves q, the new row and
+the ``(m, l, acc)`` triple, whatever ``max_len``.  Over one block (the
+sequence whole) the rank's q heads attend to their kv heads as without
+a mesh.  A prefill sends each layer's k and v rows to their blocks
+(``cache_block_rows``).
 """
 from __future__ import annotations
 
@@ -64,11 +80,13 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.models.layers import (dot, head_part, head_rms_norm,
-                                       init_linear, psum_model, rms_norm,
-                                       rope, weight, wide)
+                                       head_shares, init_linear,
+                                       mesh_axes_active, psum_model,
+                                       rms_norm, rope, weight, wide)
 
 NEG = -1e30
 
@@ -264,15 +282,20 @@ def local_heads(n_heads: int, n_kv: int):
     rank's heads cut a group unevenly.  All heads without a mesh context, or
     where the model axis is wider than the head count."""
     lo, hi = head_part(n_heads, uneven=True)
+    return lo, hi, _kv_of(n_heads, n_kv, lo, hi)
+
+
+def _kv_of(n_heads: int, n_kv: int, lo: int, hi: int):
+    """The kv heads q heads ``[lo, hi)`` read (``local_heads``' rule)."""
     if (lo, hi) == (0, n_heads):
-        return lo, hi, range(n_kv)
+        return range(n_kv)
     g = n_heads // n_kv
     kv = [h // g for h in range(lo, hi)]
     distinct = range(kv[0], kv[-1] + 1)
     per, rest = divmod(hi - lo, len(distinct))
     if not rest and kv == [h for h in distinct for _ in range(per)]:
-        return lo, hi, distinct
-    return lo, hi, kv
+        return distinct
+    return kv
 
 
 def _head_cols(heads, width: int, device):
@@ -413,57 +436,287 @@ def _pos_vec(length, b, device):
     return lv.reshape(-1, 1).expand(b, 1)
 
 
-def gqa_decode(params, x, cache_k, cache_v, length, cfg):
+def _live(start: int, n: int, length):
+    """``(B, n)``: which of a cache block's ``n`` positions from global
+    position ``start`` lie below each row's ``length`` ``(B,)``."""
+    pos = start + torch.arange(n, device=length.device)
+    return pos[None] < length.reshape(-1, 1)
+
+
+def _block_partial(s, live, v, context: str):
+    """A sequence block's share of a softmax: scores ``s`` ``(..., n)``
+    masked to ``NEG`` outside ``live``; returns their max ``m`` (``NEG``
+    where no key is live), ``l``, the sum of ``exp(s - m)`` over the live
+    keys (0 where none is), and ``acc``, ``einsum(context, p, v)`` of
+    those weights."""
+    s = torch.where(live, s, NEG)
+    m = s.amax(-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum(context, p, v)
+
+
+def combine_blocks(m, l, acc, pmax, psum):
+    """The split softmax's combine across sequence blocks (each holding
+    ``_block_partial``'s ``m``, ``l``, ``acc``): ``M = pmax(m)``, then one
+    ``psum`` of ``[l·e^(m−M), acc·e^(m−M)]`` packed together; returns the
+    sum of ``acc`` over that of ``l`` (divided by 1 where no key is live
+    anywhere).  A block with no live key adds exactly 0: ``e^(NEG − M)``
+    underflows to 0 beside any live score.  ``pmax`` and ``psum`` reduce
+    over the blocks (collectives over the axes that cut the sequence)."""
+    w = torch.exp(m - pmax(m))
+    packed = psum(torch.cat([(l * w)[..., None], acc * w[..., None]], -1))
+    total = packed[..., :1]
+    return packed[..., 1:] / torch.where(total == 0, 1.0, total)
+
+
+def _reducers(block):
+    """``combine_blocks``' reductions over the axes of ``block``
+    (``sharding.SeqBlock``) of the active mesh."""
+    mesh = mesh_axes_active().mesh
+    return (lambda t: col.pmax(t, mesh, block.axes),
+            lambda t: col.psum(t, mesh, block.axes))
+
+
+def _head_index(held, width: int, want) -> list[int]:
+    """Where each head of ``want`` sits in the model ranks' heads
+    concatenated (rank ``k``'s ``held[k]`` padded to ``width``): at the
+    first rank that holds it."""
+    where: dict = {}
+    for k, heads in enumerate(held):
+        for i, h in enumerate(heads):
+            where.setdefault(h, k * width + i)
+    return [where[h] for h in want]
+
+
+def _pad_heads(t, width: int):
+    """``t`` ``(B, S, n, ...)`` with zero heads appended up to ``width``."""
+    if t.shape[2] == width:
+        return t
+    pad = t.new_zeros((*t.shape[:2], width - t.shape[2], *t.shape[3:]))
+    return torch.cat([t, pad], 2)
+
+
+def _select_heads(g, idx):
+    """The heads ``idx`` of ``g`` (dim 2), ``g`` itself where they are
+    all of them in order."""
+    if idx == list(range(g.shape[2])):
+        return g
+    return g.index_select(2, torch.tensor(idx, device=g.device))
+
+
+def _gather_heads(t, held, want):
+    """``t`` ``(B, S, n, ...)`` holds this model rank's heads, ``held[k]``
+    those model rank ``k`` holds: the heads ``want``, each read from the
+    first rank that holds it, through one all-gather over the model axis
+    (each rank's heads padded to the most any rank holds)."""
+    ax = mesh_axes_active()
+    width = max(len(h) for h in held)
+    g = col.gather(_pad_heads(t, width), ax.mesh, 2, ax.model)
+    return _select_heads(g, _head_index(held, width, want))
+
+
+def _all_q(q, n_heads: int):
+    """This model rank's heads of ``q`` ``(B, S, heads, ...)`` as all
+    ``n_heads`` in the global order (itself where every rank holds them
+    all)."""
+    shares = head_shares(n_heads)
+    if shares[0] == (0, n_heads):
+        return q
+    return _gather_heads(q, [range(lo, hi) for lo, hi in shares],
+                         range(n_heads))
+
+
+def _kv_held(n_heads: int, n_kv: int) -> list:
+    """Each model rank's kv heads (``local_heads``), in the axis' order."""
+    return [_kv_of(n_heads, n_kv, lo, hi) for lo, hi in head_shares(n_heads)]
+
+
+def _all_kv(k, n_heads: int, n_kv: int):
+    """This model rank's kv heads of ``k`` ``(B, S, local kv, hd)`` as all
+    ``n_kv``, each once."""
+    if head_shares(n_heads)[0] == (0, n_heads):
+        return k
+    return _gather_heads(k, _kv_held(n_heads, n_kv), range(n_kv))
+
+
+def _heads(cache, kv):
+    """The kv heads ``kv`` (a range: a view; a list: a copy) of a cache
+    ``(B, S, n_kv, hd)``."""
+    if isinstance(kv, range):
+        return cache[:, :, kv.start:kv.stop]
+    return cache.index_select(2, torch.tensor(kv, device=cache.device))
+
+
+def cache_block_rows(t, block, cfg, *, latent: bool = False):
+    """A prefill's cache rows of one layer as this rank holds them in its
+    caches: its block ``[block.lo, min(block.hi, S))`` of the prompt's
+    positions, every kv head.  ``t`` is the layer's ``(b, S, local kv,
+    hd)`` (``gqa_project``'s heads), or with ``latent`` MLA's ``(b, S,
+    width)``, whole on every model rank.  Where the rank's q heads are all
+    of them, and for the latent, a slice.  Else one all-to-all over the
+    model axis: each rank sends each other rank of its model group the
+    prompt positions of that rank's block of its own kv heads, 1/model
+    of the rows, no sequence gathered whole; where the sequence is whole
+    (``block.axes`` empty), every kv head is gathered."""
+    b, S = t.shape[:2]
+    H, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if latent or head_shares(H)[0] == (0, H):
+        return t[:, block.lo:min(block.hi, S)]
+    held = _kv_held(H, n_kv)
+    if not block.axes:
+        return _gather_heads(t, held, range(n_kv))
+    ax = mesh_axes_active()
+    m, k = ax.model_size, ax.model_index
+    size = block.hi - block.lo
+    first = block.lo - k * size           # the model group's first block
+    sent = [max(0, min(size, S - first - j * size)) for j in range(m)]
+    if not sum(sent):
+        return t.new_zeros((b, 0, n_kv, t.shape[3]))
+    width = max(len(h) for h in held)
+    src = _pad_heads(t[:, first:first + sum(sent)], width)
+    got = col.all_to_all(src.transpose(0, 1), ax.mesh, ax.model, sent=sent,
+                         got=[sent[k]] * m)
+    hd = t.shape[3]
+    got = got.reshape(m, sent[k], b, width, hd).permute(2, 1, 0, 3, 4)
+    return _select_heads(got.reshape(b, sent[k], m * width, hd),
+                         _head_index(held, width, range(n_kv)))
+
+
+def gqa_decode(params, x, cache_k, cache_v, length, cfg, block=None):
     """x ``(B, 1, d)``; ``length`` int or ``(B,)``.  Writes the new k and v
     at row ``length`` of each cache in place (a row at or past the cache's
     end is dropped, as the reference's ``mode="drop"``) and returns
-    ``(out, cache_k, cache_v)``."""
+    ``(out, cache_k, cache_v)``.
+
+    ``block`` (``sharding.SeqBlock``; under a mesh context): the caches
+    hold this rank's block of the sequence, every kv head, as the
+    reference's ``cache_specs`` lays them out.  This rank's heads are
+    projected; the new k and v are gathered to every kv head and written
+    by the rank whose block holds the row's position.  Over one block
+    (the sequence whole) this rank's q heads attend to their kv heads as
+    without a mesh; over several, q is gathered to every head, each rank
+    runs a partial softmax over its block (``_block_partial``), the blocks
+    meet in two collectives (``combine_blocks``), and the rank keeps its
+    heads' rows for the output projection."""
     b = x.shape[0]
     positions = _pos_vec(length, b, x.device)
     q, k1, v1 = gqa_project(params, x, positions, cfg)
     rows = torch.arange(b, device=x.device)
-    _write_row(cache_k, rows, positions[:, 0], k1[:, 0])
-    _write_row(cache_v, rows, positions[:, 0], v1[:, 0])
-    out = decode_attention(q, cache_k, cache_v, positions[:, 0] + 1)
+    pos = positions[:, 0]
+    if block is None:
+        _write_row(cache_k, rows, pos, k1[:, 0])
+        _write_row(cache_v, rows, pos, v1[:, 0])
+        out = decode_attention(q, cache_k, cache_v, pos + 1)
+        return _out_proj(params, x, out, out.shape[-1]), cache_k, cache_v
+    H, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, k1.shape[-1]
+    kv1 = _all_kv(torch.cat([k1, v1], -1), H, n_kv)[:, 0]   # one gather
+    _write_row(cache_k, rows, pos, kv1[..., :hd], block.lo)
+    _write_row(cache_v, rows, pos, kv1[..., hd:], block.lo)
+    lo, hi, kv = local_heads(H, n_kv)
+    if not block.axes:
+        out = decode_attention(q, _heads(cache_k, kv), _heads(cache_v, kv),
+                               pos + 1)
+    else:
+        part = gqa_block_partial(_all_q(q, H), cache_k, cache_v, block.lo,
+                                 pos + 1)
+        out = combine_blocks(*part, *_reducers(block))
+        out = out.reshape(b, 1, H, -1)[:, :, lo:hi].to(x.dtype)
     return _out_proj(params, x, out, out.shape[-1]), cache_k, cache_v
 
 
-def _write_row(cache, rows, pos, new) -> None:
-    """Write ``new[b]`` at ``cache[b, pos[b]]`` in place; a row at or past
-    the cache's end is dropped (the reference's ``mode="drop"``)."""
-    max_len = cache.shape[1]
-    keep = (pos < max_len).reshape(-1, *([1] * (new.dim() - 1)))
-    at = (rows, pos.clamp(max=max_len - 1))
+def gqa_block_partial(q, k, v, start: int, length):
+    """A decode step's attention over one block of the sequence: q ``(B,
+    1, H, hd)`` every head; k, v ``(B, n, Hkv, hd)``, the block from
+    global position ``start``; ``length`` ``(B,)``.  Returns
+    ``_block_partial``'s ``(m, l, acc)`` per row, kv head and q head of
+    its group (``(B, Hkv, H / Hkv)``, ``acc`` with ``v``'s width last),
+    fp32 (``wide``), for ``combine_blocks``."""
+    b, _, H, hd = q.shape
+    n_kv = k.shape[2]
+    qa = wide(q).reshape(b, n_kv, H // n_kv, hd)
+    s = torch.einsum("bhgd,bhkd->bhgk", qa, _heads_major(k)) \
+        * (1.0 / math.sqrt(hd))
+    live = _live(start, k.shape[1], length)[:, None, None]
+    return _block_partial(s, live, _heads_major(v), "bhgk,bhkd->bhgd")
+
+
+def _heads_major(t):
+    """A cache block ``(B, n, Hkv, d)`` as ``(B, Hkv, n, d)``, contiguous,
+    in fp32 (``wide``): one copy, the cast and the transpose together,
+    which the products then read as batched matrices without another."""
+    dtype = torch.float64 if t.dtype == torch.float64 else torch.float32
+    return t.transpose(1, 2).to(dtype, memory_format=torch.contiguous_format)
+
+
+def mla_block_partial(q_abs, q_rope, ckv, kr, start: int, length,
+                      qk_dim: int):
+    """``gqa_block_partial`` in MLA's latent space: ``q_abs`` ``(B, 1, H,
+    kv_lora)`` and ``q_rope`` ``(B, 1, H, rope)`` every head, the block of
+    ``ckv`` ``(B, n, kv_lora)`` and ``kr`` ``(B, n, rope)`` (fp32);
+    scores over ``sqrt(qk_dim)``.  ``(m, l, acc)`` per row and head
+    (``(B, H, 1)``; ``acc``, the latent context, ``kv_lora`` wide)."""
+    s = torch.einsum("bthk,bsk->bhts", q_abs, ckv)
+    s = s + torch.einsum("bthr,bsr->bhts", q_rope, kr)
+    s = s / math.sqrt(qk_dim)
+    live = _live(start, ckv.shape[1], length)[:, None, None]
+    return _block_partial(s, live, ckv, "bhts,bsk->bhtk")
+
+
+def _write_row(cache, rows, pos, new, lo: int = 0) -> None:
+    """Write ``new[b]`` at ``cache[b, pos[b] - lo]`` in place: the cache
+    holds positions ``[lo, lo + n)``.  A row outside them is dropped:
+    at or past the last block's end, as the reference's ``mode="drop"``;
+    in another block, whose rank writes it."""
+    n = cache.shape[1]
+    at_pos = pos - lo
+    keep = ((at_pos >= 0) & (at_pos < n)).reshape(
+        -1, *([1] * (new.dim() - 1)))
+    at = (rows, at_pos.clamp(0, n - 1))
     cache.index_put_(at, torch.where(keep, new, cache[at]))
 
 
-def mla_decode(params, x, cache_ckv, cache_kr, length, cfg):
+def mla_decode(params, x, cache_ckv, cache_kr, length, cfg, block=None):
     """Absorbed decode in the compressed space.  x ``(B, 1, d)``; caches
     ckv ``(B, S, kv_lora)`` and kr ``(B, S, rope)``, written in place at
     row ``length`` (dropped at or past the end); ``length`` int or
     ``(B,)``.  Scores ``= (q_nope W_uk) ckvᵀ + q_rope krᵀ``, the context
     stays rank ``kv_lora`` until ``W_uv``; fp32 (``wide``).  Returns
-    ``(out, cache_ckv, cache_kr)``."""
+    ``(out, cache_ckv, cache_kr)``.  ``block``: as ``gqa_decode``'s, in
+    the latent space: over several blocks ``q_abs`` and ``q_rope`` are
+    gathered to every head, each rank scores its block of ``ckv`` and
+    ``kr``, the blocks combine, and ``W_uv`` maps this rank's heads'
+    context."""
     m = cfg.mla
     B = x.shape[0]
     positions = _pos_vec(length, B, x.device)
     qn, qr, ckv1, kr1 = _mla_qkr(params, x, positions, cfg)
     H = qn.shape[2]
     rows = torch.arange(B, device=x.device)
-    _write_row(cache_ckv, rows, positions[:, 0], ckv1[:, 0])
-    _write_row(cache_kr, rows, positions[:, 0], kr1[:, 0, 0])
+    start = 0 if block is None else block.lo
+    _write_row(cache_ckv, rows, positions[:, 0], ckv1[:, 0], start)
+    _write_row(cache_kr, rows, positions[:, 0], kr1[:, 0, 0], start)
     wukv = _wukv(params, cfg).reshape(m.kv_lora_rank, H,
                                       m.nope_head_dim + m.v_head_dim)
     w_uk = wide(wukv[..., :m.nope_head_dim])         # (kv_lora, H, nope)
     w_uv = wide(wukv[..., m.nope_head_dim:])         # (kv_lora, H, v)
     ckv, kr = wide(cache_ckv), wide(cache_kr)
     q_abs = torch.einsum("bthn,khn->bthk", wide(qn), w_uk)
-    s = torch.einsum("bthk,bsk->bhts", q_abs, ckv)
-    s = s + torch.einsum("bthr,bsr->bhts", wide(qr), kr)
-    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    lv = torch.as_tensor(length, device=x.device).reshape(-1, 1, 1, 1)
-    mask = torch.arange(ckv.shape[1], device=x.device)[None, None, None] <= lv
-    p = torch.softmax(torch.where(mask, s, NEG), -1)
-    ctx = torch.einsum("bhts,bsk->bthk", p, ckv)
+    if block is None or not block.axes:
+        s = torch.einsum("bthk,bsk->bhts", q_abs, ckv)
+        s = s + torch.einsum("bthr,bsr->bhts", wide(qr), kr)
+        s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+        lv = torch.as_tensor(length, device=x.device).reshape(-1, 1, 1, 1)
+        mask = torch.arange(ckv.shape[1], device=x.device)[
+            None, None, None] <= lv
+        p = torch.softmax(torch.where(mask, s, NEG), -1)
+        ctx = torch.einsum("bhts,bsk->bthk", p, ckv)
+    else:
+        qa = _all_q(torch.cat([q_abs, wide(qr)], -1), cfg.n_heads)
+        part = mla_block_partial(
+            qa[..., :m.kv_lora_rank], qa[..., m.kv_lora_rank:], ckv, kr,
+            block.lo, positions[:, 0] + 1, m.nope_head_dim + m.rope_head_dim)
+        lo, hi = head_part(cfg.n_heads, uneven=True)
+        ctx = combine_blocks(*part, *_reducers(block))[:, lo:hi]
+        ctx = ctx.transpose(1, 2)                    # (B, 1, H, kv_lora)
     out = torch.einsum("bthk,khv->bthv", ctx, w_uv).to(x.dtype)
     return _out_proj(params, x, out, m.v_head_dim), cache_ckv, cache_kr

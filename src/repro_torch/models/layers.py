@@ -149,10 +149,26 @@ def model_part(n: int) -> tuple[int, int]:
     ax = _AXES.get()
     if ax is None:
         return 0, n
-    m, k = ax.model_size, ax.model_index
+    return _share(n, ax.model_size, ax.model_index)
+
+
+def _share(n: int, m: int, k: int) -> tuple[int, int]:
+    """Rank ``k``'s share of ``n`` items over ``m`` ranks (``model_part``)."""
     base, extra = divmod(n, m)
     lo = k * base + min(k, extra)
     return lo, lo + base + (k < extra)
+
+
+def head_shares(n: int) -> list[tuple[int, int]]:
+    """Every model rank's ``head_part(n, uneven=True)``, in the model
+    axis' order; ``[(0, n)]`` without a mesh context."""
+    ax = _AXES.get()
+    if ax is None:
+        return [(0, n)]
+    m = ax.model_size
+    if n < m:
+        return [(0, n)] * m
+    return [_share(n, m, k) for k in range(m)]
 
 
 def head_part(n: int, *, uneven: bool = False,

@@ -53,11 +53,12 @@ rank's heads where they divide (``models/ssm.py``), zamba2's shared
 blocks as attention blocks, each super-step's block a view of the placed
 stack.  Activations between blocks hold the rank's rows whole on the
 model axis.  Outputs and decode caches are the rank's rows
-(``init_caches(mesh=)``: its rows, its heads' kv, its recurrent heads'
-states).  ``lm_loss`` is the global batch's mean over every label ``!=
--1`` (each rank's sum over the global count, not a mean of per-rank
-means; rows held whole on the dp ranks count once) and its backward gives
-each rank its shards' grads of that global loss
+(``init_caches(mesh=)``: its rows; of the attention caches every kv head
+and its block of the sequence, the reference's ``cache_specs`` layout;
+its recurrent heads' states).  ``lm_loss`` is the global batch's mean
+over every label ``!= -1`` (each rank's sum over the global count, not a
+mean of per-rank means; rows held whole on the dp ranks count once) and
+its backward gives each rank its shards' grads of that global loss
 (``distributed.collectives``).
 
 Differences from the reference: ``impl`` is an argument only (no
@@ -81,10 +82,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as col
 from repro_torch.models import ssm
-from repro_torch.models.attention import (_mla_qkr, _pos_vec, gqa_attend,
+from repro_torch.distributed.sharding import seq_block
+from repro_torch.models.attention import (_mla_qkr, _pos_vec,
+                                          cache_block_rows, gqa_attend,
                                           gqa_decode, gqa_project, init_gqa,
-                                          init_mla, local_heads, mla_attend,
-                                          mla_decode)
+                                          init_mla, mla_attend, mla_decode)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy_sum, dot, dtype_of,
                                        init_linear, init_mlp,
@@ -454,8 +456,7 @@ def lm_loss(params, cfg: ModelConfig, batch, *, mesh=None,
 
 
 # ================================================================== caches ==
-def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False,
-              n_kv=None):
+def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False):
     if mla:
         m = cfg.mla
         return {name: torch.zeros((n, batch, max_len, width), dtype=dtype,
@@ -463,8 +464,8 @@ def _kv_cache(n, cfg, batch, max_len, dtype, device, *, mla=False,
                 for name, width in (("ckv", m.kv_lora_rank),
                                     ("kr", m.rope_head_dim))}
     hd = cfg.resolved_head_dim
-    return {name: torch.zeros((n, batch, max_len, n_kv or cfg.n_kv_heads,
-                               hd), dtype=dtype, device=device)
+    return {name: torch.zeros((n, batch, max_len, cfg.n_kv_heads, hd),
+                              dtype=dtype, device=device)
             for name in ("k", "v")}
 
 
@@ -478,25 +479,40 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     block's state leaves with a
     leading ``L`` for a recurrent stage (fp32 states, ``ssm.acc``; conv
     tails in ``dtype``), and ``"shared": {"k", "v"}`` with one slab per
-    shared-block application (``n_layers // shared_attn_every``).  Under a
-    mesh: this rank's rows of a global ``batch`` (all of them where
-    ``batch`` does not divide over the dp axes), the kv heads its q heads
-    read (MLA's latent whole; every kv head where the model axis is wider
-    than the head count) and its recurrent heads' states
-    (``models/ssm.py``)."""
+    shared-block application (``n_layers // shared_attn_every``).
+
+    Under a mesh, the reference's ``cache_specs`` layout: this rank's rows
+    of a global ``batch`` (all of them where ``batch`` does not divide over
+    the dp axes), and of the attention leaves (GQA's and the shared
+    blocks' ``k`` and ``v``, MLA's ``ckv`` and ``kr``) every kv head and
+    this rank's block of the sequence (``sharding.seq_block``:
+    ``max_len`` over ``model``, over dp + model where the batch does not
+    divide over dp, whole where ``max_len`` does not divide).  The
+    recurrent states keep the port's layout by heads (``models/ssm.py``),
+    which is the spec's where the heads divide over ``model``; leaf by
+    leaf, the rest: Mamba2's ``ssm`` is whole where a split of its heads
+    would cut a B/C group (the spec cuts the heads all the same), and its
+    ``conv`` tail holds this rank's heads' ``x`` channels and their
+    groups' B/C channels (the spec cuts the concatenated channels into
+    equal blocks); mLSTM's ``conv`` tail and sLSTM's ``c``, ``n``, ``m``
+    and ``h`` are whole (the spec cuts them over ``model``).  At
+    ``decode_32k`` over (16, 16) these leaves hold 0.03% (zamba2-2.7b) and
+    0.3% (xlstm-350m) more bytes than the spec's."""
     check_mesh(cfg, mesh)
     if mesh is None:
         return _init_caches(cfg, batch, max_len, dtype, device)
+    block = seq_block(mesh, batch, max_len, dp=dp_axes, model=model_axis)
     dp_axes = _batch_axes(batch, dp_axes, mesh)
     with shard_axes(dp_axes, model_axis, mesh) as ax:
         return _init_caches(cfg, batch // ax.dp_size, max_len, dtype,
-                            device)
+                            device, block)
 
 
-def _init_caches(cfg, batch, max_len, dtype, device):
-    """``init_caches`` of ``batch`` rows, under the caller's sharding
-    context."""
-    n_kv = len(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
+def _init_caches(cfg, batch, max_len, dtype, device, block=None):
+    """``init_caches`` of ``batch`` rows (the attention leaves ``block``'s
+    positions, else ``max_len``), under the caller's sharding context."""
+    if block is not None:
+        max_len = block.hi - block.lo
     dtype = dtype or dtype_of(cfg.dtype)
     caches = {}
     stages = build_stages(cfg)
@@ -505,7 +521,7 @@ def _init_caches(cfg, batch, max_len, dtype, device):
         if kind == "attn":
             caches[f"stage_{si}"] = _kv_cache(
                 L, cfg, batch, max_len, dtype, device,
-                mla=cfg.attn_type == "mla", n_kv=n_kv)
+                mla=cfg.attn_type == "mla")
             continue
         state = _REC_STATE[kind](cfg, batch, dtype, device=device)
         caches[f"stage_{si}"] = {
@@ -514,7 +530,7 @@ def _init_caches(cfg, batch, max_len, dtype, device):
     if cfg.shared_attn_every:
         n_apps = len(stages[0][2]) // cfg.shared_attn_every
         caches["shared"] = _kv_cache(n_apps, cfg, batch, max_len, dtype,
-                                     device, n_kv=n_kv)
+                                     device)
     return caches
 
 
@@ -525,45 +541,60 @@ def _store(stage_cache, li, state) -> None:
 
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, caches, length, *,
-                   mesh=None, dp_axes=("data",), model_axis="model"):
+                   mesh=None, dp_axes=("data",), model_axis="model",
+                   max_len: int | None = None):
     """One decode step.  tokens ``(b,)``; length int or ``(b,)`` (current
     context size, each row's position).  Writes the caches in place;
     returns ``(logits (b, V), caches)``.  Under a mesh, ``tokens`` and a
     ``(b,)`` length are the global batch's, the caches and logits this
-    rank's rows (``init_caches(mesh=)``); the MoE blocks take
+    rank's rows (``init_caches(mesh=)``, whose ``max_len`` a model with
+    attention must pass: a rank's caches hold its block of the sequence,
+    ``sharding.seq_block``); the attention blocks run the split softmax
+    over the sequence blocks (``models/attention.py``), the MoE blocks
     ``moe_apply``'s decode paths."""
     check_mesh(cfg, mesh)
     if mesh is None:
         return _decode(params, cfg, tokens, caches, length)
+    block = None
+    if "attn" in cfg.pattern or cfg.shared_attn_every:
+        if max_len is None:
+            raise ValueError("lm_decode_step(mesh=) needs max_len=, the "
+                             "caches' init_caches(max_len): each rank "
+                             "holds its block of their sequence")
+        block = seq_block(mesh, tokens.shape[0], max_len, dp=dp_axes,
+                          model=model_axis)
     params = col.sharded_tree(params, mesh)
     dp_axes = _batch_axes(tokens.shape[0], dp_axes, mesh)
     with shard_axes(dp_axes, model_axis, mesh):
-        return _decode(params, cfg, _rows(tokens), caches, _rows(length))
+        return _decode(params, cfg, _rows(tokens), caches, _rows(length),
+                       block)
 
 
-def _decode(params, cfg, tokens, caches, length):
+def _decode(params, cfg, tokens, caches, length, block=None):
     positions = _pos_vec(length, tokens.shape[0], tokens.device)
     x = _embed(params, cfg, tokens[:, None], None, positions)   # (b, 1, d)
     if cfg.shared_attn_every:
         for idx, kind, layers, shared in _super_steps(params, cfg):
             for li, p in layers:
                 x = _decode_stage(p, caches["stage_0"], li, x, length, cfg,
-                                  kind)
+                                  kind, block)
             x = _decode_stage(shared, caches["shared"], idx, x, length, cfg,
-                              "attn")
+                              "attn", block)
     else:
         for key, kind, li, p in _layers(params, cfg):
-            x = _decode_stage(p, caches[key], li, x, length, cfg, kind)
+            x = _decode_stage(p, caches[key], li, x, length, cfg, kind,
+                              block)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dot(x, _head(params, cfg))[:, 0], caches
 
 
-def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
+def _decode_stage(p, stage_cache, li, x, length, cfg, kind, block=None):
     """Layer ``li`` of a stage at one decode step (the body of the
     reference's scan): attention reads and writes its cache row
-    ``length`` (GQA's K/V, MLA's ckv/kr), then the MLP or the experts; a
-    recurrent block steps its state (``impl="seq"``, one token) and
-    writes it back."""
+    ``length`` (GQA's K/V, MLA's ckv/kr; ``block``, the caches' block of
+    the sequence under a mesh), then the MLP or the experts; a recurrent
+    block steps its state (``impl="seq"``, one token) and writes it
+    back."""
     if kind != "attn":
         state = {name: c[li] for name, c in stage_cache.items()}
         x, state = _rec_block(p, x, cfg, kind, impl="seq", state=state)
@@ -572,17 +603,18 @@ def _decode_stage(p, stage_cache, li, x, length, cfg, kind):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if "wdq" in p["attn"]:
         out, _, _ = mla_decode(p["attn"], h, stage_cache["ckv"][li],
-                               stage_cache["kr"][li], length, cfg)
+                               stage_cache["kr"][li], length, cfg, block)
     else:
         out, _, _ = gqa_decode(p["attn"], h, stage_cache["k"][li],
-                               stage_cache["v"][li], length, cfg)
+                               stage_cache["v"][li], length, cfg, block)
     x = x + out
     return x + _ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), cfg)[0]
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
                max_len: int, impl="chunked", rec_impl="chunked", mesh=None,
-               dp_axes=("data",), model_axis="model", last_index=None):
+               dp_axes=("data",), model_axis="model", last_index=None,
+               cache_batch: int | None = None):
     """Prefill: forward over the prompt, tokens ``(b, S)`` or embeddings
     ``(b, S, d_model)``, filling fresh decode caches.
 
@@ -595,32 +627,45 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     state absorbs them, so recurrent models are prefilled at their exact
     length); ``length`` is then ``last_index + 1``, else ``S``.  ``mesh``:
     sharded (module docstring); the logits, caches (``init_caches(mesh=)``'s
-    layout) and a ``(b,)`` length are this rank's rows.
+    layout) and a ``(b,)`` length are this rank's rows.  The attention
+    core runs on this rank's heads; each layer's k and v rows go to the
+    ranks whose blocks of the sequence hold them (``attention
+    .cache_block_rows``: one all-to-all over the model axis).
+    ``cache_batch``: the global batch whose ``init_caches(mesh=)`` layout
+    the caches' sequence takes (a serving pool's slots, into which a
+    one-row prefill is copied); the prompts' batch by default.
     """
     check_mesh(cfg, mesh)
     if mesh is None:
         return _prefill(params, cfg, tokens, embeds, max_len, impl,
                         rec_impl, last_index)
+    b = _inputs(tokens, embeds)[0]
+    block = seq_block(mesh, cache_batch or b, max_len, dp=dp_axes,
+                      model=model_axis)
     params = col.sharded_tree(params, mesh)
-    dp_axes = _batch_axes(_inputs(tokens, embeds)[0], dp_axes, mesh)
+    dp_axes = _batch_axes(b, dp_axes, mesh)
     with shard_axes(dp_axes, model_axis, mesh):
         return _prefill(params, cfg, _rows(tokens), _rows(embeds), max_len,
-                        impl, rec_impl, _rows(last_index))
+                        impl, rec_impl, _rows(last_index), block)
 
 
 def _prefill(params, cfg, tokens, embeds, max_len, impl, rec_impl,
-             last_index):
-    """``lm_prefill``'s body on this rank's rows, under the caller's
-    sharding context."""
+             last_index, block=None):
+    """``lm_prefill``'s body on this rank's rows (the caches' attention
+    leaves ``block``'s positions), under the caller's sharding context."""
     b, S, dev = _inputs(tokens, embeds)
     positions = torch.arange(S, device=dev)[None].expand(b, S)
     x = _embed(params, cfg, tokens, embeds, positions)
-    caches = _init_caches(cfg, b, max_len, params["embed"].dtype, dev)
+    caches = _init_caches(cfg, b, max_len, params["embed"].dtype, dev,
+                          block)
 
     def attn(p, x, cache, li):
         x, _, rows = _attn_block(p, x, positions, cfg, impl=impl)
         for name, t in rows.items():
-            cache[name][li, :, :S] = t
+            if block is not None:
+                t = cache_block_rows(t, block, cfg,
+                                     latent=name in ("ckv", "kr"))
+            cache[name][li, :, :t.shape[1]] = t
         return x
 
     def rec(p, x, cache, li, kind):

@@ -30,9 +30,11 @@ same placed parameters and submits the same requests.  The slots split
 over the dp axes in contiguous blocks (``_rows``): the pool is
 ``init_caches(mesh=)`` over the global ``slots``, each rank holding its
 dp block's rows (every slot where ``slots`` does not divide over the dp
-axes) and its model rank's heads.  A prompt's one-row prefill
-(``lm_prefill(mesh=)``: its row whole on every dp rank, tensor-parallel
-over the model axis) is spliced into the slot's row by the ranks whose
+axes), every kv head and its block of the sequence (``cache_specs``'
+layout), and its model rank's recurrent heads.  A prompt's one-row
+prefill (``lm_prefill(mesh=, cache_batch=slots)``: its row whole on every
+dp rank, tensor-parallel over the model axis, its caches in the pool's
+blocks of the sequence) is spliced into the slot's row by the ranks whose
 block holds it.  Prefill logits are taken from dp rank 0 and decode
 logits gathered over the dp axes, so every rank samples the same tokens
 from the same global logits (the generator seeded alike) and holds the
@@ -82,12 +84,14 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self.lengths = np.zeros((slots,), np.int64)
         self.last_tok = np.zeros((slots,), np.int64)
-        self._mesh_kw = {}
+        self._mesh_kw = self._decode_kw = self._prefill_kw = {}
         self._rows = (0, slots)
         self._dp = self._dp_all = ()
         if mesh is not None:
             self._mesh_kw = dict(mesh=mesh, dp_axes=dp_axes,
                                  model_axis=model_axis)
+            self._decode_kw = dict(self._mesh_kw, max_len=max_len)
+            self._prefill_kw = dict(self._mesh_kw, cache_batch=slots)
             self._dp_all = ((dp_axes,) if isinstance(dp_axes, str)
                             else tuple(dp_axes))
             self._dp = _batch_axes(slots, dp_axes, mesh)
@@ -137,13 +141,14 @@ class ServeEngine:
                 logits, caches1, _ = lm_prefill(
                     self.params, self.cfg, self._tensor(padded)[None],
                     max_len=self.max_len, impl=self.impl, last_index=S - 1,
-                    **self._mesh_kw)
+                    **self._prefill_kw)
             else:
                 # a recurrent state absorbs every token it sees: prefill
                 # at the exact prompt length
                 logits, caches1, _ = lm_prefill(
                     self.params, self.cfg, self._tensor(req.prompt)[None],
-                    max_len=self.max_len, impl=self.impl, **self._mesh_kw)
+                    max_len=self.max_len, impl=self.impl,
+                    **self._prefill_kw)
             lo, hi = self._rows
             if lo <= slot < hi:                           # the slot's row
                 for key, stage in self.caches.items():
@@ -193,7 +198,7 @@ class ServeEngine:
             return 0
         logits, self.caches = lm_decode_step(
             self.params, self.cfg, self._tensor(self.last_tok), self.caches,
-            self._tensor(self.lengths), **self._mesh_kw)
+            self._tensor(self.lengths), **self._decode_kw)
         toks = self._sample(self._global(logits)).tolist()
         self.lengths += [r is not None for r in self.active]
         self.last_tok[:] = toks

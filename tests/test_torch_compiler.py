@@ -194,7 +194,7 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.distributed.collectives, "
             "repro_torch.distributed.pipeline, "
             "repro_torch.launch.dryrun, repro_torch.launch.step_analysis, "
-            "repro_torch.launch.roofline\n"
+            "repro_torch.launch.roofline, repro_torch.launch.perf_probe\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

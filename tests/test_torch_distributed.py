@@ -17,6 +17,15 @@ Weights are the reference's ``init_lm`` carried across as numpy
     the global mean over the labels ``!= -1``, within 1e-6 relative of the
     one-device loss (a mean of per-shard means is visibly off here);
   * a sharded decode step's logits within 1e-5 of max|one-device|;
+  * the sequence-sharded decode caches (``cache_specs``' layout): llama
+    (GQA), deepseek-v3 (MLA and experts) and zamba2 (shared blocks) over
+    (2, 2) and (1, 4), a batch that divides over dp, B = 1 (the sequence
+    over all four ranks) and a ``max_len`` that does not divide (the
+    sequence whole), from per-row lengths in every block and one past
+    the end: logits within 1e-5 of max|reference| (the JAX package's
+    decode), each rank's cache block within 1e-5 of the reference leaf's
+    max, and one step's collective bytes per kind the same at two
+    ``max_len``s;
   * placements: each rank's block has the shape the spec cuts and the
     bytes ``explain()`` states.
 """
@@ -28,27 +37,32 @@ import sys
 import types
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import configs as rconfigs
 from repro.data import TokenPipeline as RefPipeline
+from repro.models.transformer import init_caches as ref_init_caches
 from repro.models.transformer import init_lm as ref_init
+from repro.models.transformer import lm_decode_step as ref_decode
 from repro.train import adamw as ref_adamw
 from repro.train import build_train_step as ref_build_train_step
 from repro_torch import configs
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.train import train
-from repro_torch.models.transformer import (check_mesh, init_caches,
-                                            init_lm, lm_decode_step, lm_loss)
+from repro_torch.models.transformer import (build_stages, check_mesh,
+                                            init_caches, init_lm,
+                                            lm_decode_step, lm_loss)
 from repro_torch.models.weights import from_reference, param_shapes
 from repro_torch.train import adamw, build_train_step
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
                        / "tools"))
 from ranks import run_ranks  # noqa: E402
-from torch_mesh_ranks import case_cfg, distributed_all  # noqa: E402
+from torch_mesh_ranks import (cache_part, case_cfg,  # noqa: E402
+                              distributed_all)
 
 CPU = torch.device("cpu")
 LOSS_RTOL = 1e-4
@@ -75,6 +89,17 @@ DECODE_CASES = [("llama3.2-1b", (2, 2), False),
                 ("deepseek-v3-671b", (1, 4), False),
                 ("deepseek-v3-671b", (2, 2), True),
                 ("heads10", (1, 4), False)]
+# (arch, shape, moe_1d, per-row start lengths, max_len, a second max_len
+# for the collective bytes): each row's positions in their own block, the
+# last row at max_len by the third step (dropped), B = 1 over all four
+# ranks, and 31 positions, which divide over no axis
+SEQ_DECODE_CASES = [c for a in ("llama3.2-1b", "deepseek-v3-671b",
+                                "zamba2-2.7b") for c in (
+    (a, (2, 2), False, (0, 9, 17, 30), 32, 64),
+    (a, (1, 4), False, (0, 9, 17, 30), 32, 64),
+    (a, (2, 2), False, (14,), 32, 64),
+    (a, (1, 4), False, (14,), 32, 64),
+    (a, (1, 4), False, (5, 6, 7, 29), 31, 63))]
 LOSS_SHAPES = ((2, 2), (4, 1), (1, 4))
 TRAIN_STEPS = 3
 
@@ -109,14 +134,20 @@ TOKENS = np.array([[3, 5, 7, 11], [13, 2, 250, 9], [0, 1, 2, 3]])
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    trees = {name: ref_params(name)[1] for name in STEP_ARCHS}
+def all_ranks():
+    trees = {name: ref_params(name)[1] for name in
+             STEP_ARCHS + ["zamba2-2.7b"]}
     cases = {"placements": (list(configs.ARCHS), SHAPES),
              "steps": STEP_CASES, "losses": LOSS_SHAPES,
-             "decodes": DECODE_CASES}
+             "decodes": DECODE_CASES + SEQ_DECODE_CASES}
     return run_ranks(distributed_all, 4, trees, the_batch(),
                      uneven_batch(), TOKENS, cases, threads=1,
-                     timeout_s=600)[0]
+                     timeout_s=600)
+
+
+@pytest.fixture(scope="module")
+def ranks(all_ranks):
+    return all_ranks[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,6 +328,45 @@ def test_sharded_decode_matches_one_device(ranks, case):
             want = want.numpy()
             assert np.abs(got[i] - want).max() \
                 <= DECODE_RTOL * np.abs(want).max(), i
+
+
+@pytest.mark.parametrize("case", SEQ_DECODE_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-"
+                                       f"b{len(c[3])}-len{c[4]}")
+def test_sequence_sharded_decode_matches_the_reference(all_ranks, case):
+    """Decode steps over caches in ``cache_specs``' layout give the JAX
+    package's logits on every rank, each rank holds the reference's
+    cache leaves' block (its rows, its positions, every kv head), and a
+    step's collective bytes do not grow with ``max_len``."""
+    name, _, _, start, max_len, _ = case
+    cfg, rp = ref_params(name)
+    params = jax.tree.map(jnp.asarray, rp)
+    b = len(start)
+    caches = ref_init_caches(cfg, b, max_len)
+    steps = []
+    for i, toks in enumerate(TOKENS[:, :b]):
+        want, caches = ref_decode(params, cfg, jnp.asarray(toks), caches,
+                                  jnp.asarray(start) + i)
+        steps.append(np.asarray(want))
+    want = np.stack(steps)
+    kinds = {f"stage_{i}": kind
+             for i, (kind, _, _) in enumerate(build_stages(case_cfg(name)))}
+    kinds["shared"] = "attn"
+    for r in all_ranks:
+        got, local, index, tallies = r["decodes"][case]
+        assert np.abs(got - want).max() <= DECODE_RTOL * np.abs(want).max()
+        assert set(local) == set(caches)
+        for key, stage in caches.items():
+            for leaf_name, leaf in stage.items():
+                leaf = np.asarray(leaf)
+                part = cache_part(leaf, index["rows"], index.get(
+                    kinds[key], {}).get(leaf_name))
+                assert local[key][leaf_name].shape == part.shape, \
+                    (key, leaf_name)
+                assert np.abs(local[key][leaf_name] - part).max() \
+                    <= DECODE_RTOL * max(np.abs(leaf).max(), 1e-30), \
+                    (key, leaf_name)
+        assert tallies[0] == tallies[1]
 
 
 # --------------------------------------------------------------- launcher --

@@ -9,6 +9,7 @@ forces host devices.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -185,31 +186,66 @@ def losses(rank, world, ref_tree, batch, shapes):
 
 def decodes(rank, world, ref_tree, tokens, cases):
     """Greedy-free decode steps from empty caches per case ``(arch,
-    shape, moe_1d)``: the global logits of each step."""
+    shape, moe_1d)``: the global logits of each step (caches of
+    ``len(tokens) + 1`` positions, lengths ``0, 1, ...``).  A case
+    ``(arch, shape, moe_1d, start, max_len, max_len2)`` decodes the first
+    ``len(start)`` columns of ``tokens`` from per-row lengths ``start``
+    (then ``start + 1``, ...) into caches of ``max_len`` positions, and
+    adds this rank's caches, ``local_index`` and one step's collective
+    bytes per kind (``Tally``) from lengths ``start`` at ``max_len`` and
+    at ``max_len2``.  Every rank returns its own."""
     out = {}
-    for arch, shape, moe_1d in cases:
+    for case in cases:
+        arch, shape, moe_1d = case[:3]
         cfg = case_cfg(arch)
         mesh = make_process_mesh(shape, AXES)
         dp, model, _ = mesh_axes(mesh)
+        kw = dict(mesh=mesh, dp_axes=dp, model_axis=model)
         pp, _ = placed(from_reference(cfg, ref_tree[arch], device="cpu"),
                        mesh)
-        b = tokens.shape[1]
-        caches = init_caches(cfg, b, tokens.shape[0] + 1, device="cpu",
-                             mesh=mesh, dp_axes=dp, model_axis=model)
+        if len(case) == 3:
+            toks_all, lengths = torch.as_tensor(tokens), None
+            max_len = tokens.shape[0] + 1
+        else:
+            start, max_len, max_len2 = case[3:]
+            toks_all = torch.as_tensor(tokens[:, :len(start)])
+            lengths = torch.as_tensor(start)
+        b = toks_all.shape[1]
+        caches = init_caches(cfg, b, max_len, device="cpu", **kw)
         if moe_1d:
             os.environ["REPRO_MOE_1D"] = "1"
         logits = []
         try:
             with torch.no_grad():
-                for i, toks in enumerate(torch.as_tensor(tokens)):
-                    lg, caches = lm_decode_step(pp, cfg, toks, caches, i,
-                                                mesh=mesh, dp_axes=dp,
-                                                model_axis=model)
-                    logits.append(col.gather(lg, mesh, 0, dp).numpy())
+                for i, toks in enumerate(toks_all):
+                    length = i if lengths is None else lengths + i
+                    lg, caches = lm_decode_step(pp, cfg, toks, caches,
+                                                length, max_len=max_len,
+                                                **kw)
+                    logits.append(_global_rows(lg, mesh, dp, b).numpy())
+                tallies = []
+                for n in ([] if lengths is None else [max_len, max_len2]):
+                    fresh = init_caches(cfg, b, n, device="cpu", **kw)
+                    with col.tallied() as tally:
+                        lm_decode_step(pp, cfg, toks_all[0], fresh, lengths,
+                                       max_len=n, **kw)
+                    tallies.append(tally.per_device())
         finally:
             os.environ.pop("REPRO_MOE_1D", None)
-        out[(arch, shape, moe_1d)] = np.stack(logits)
-    return out if rank == 0 else None
+        if lengths is None:
+            out[case] = np.stack(logits)
+        else:
+            out[case] = (np.stack(logits), _local_caches(caches),
+                         local_index(cfg, mesh, b, max_len), tallies)
+    return out if rank == 0 or any(len(c) > 3 for c in cases) else None
+
+
+def _global_rows(t, mesh, dp, b):
+    """A decode's rows of this rank as the global batch's: gathered over
+    the dp axes, or as they are where the batch does not divide over
+    them (every dp rank holds it whole)."""
+    n = math.prod(mesh.shape[a] for a in dp)
+    return col.gather(t, mesh, 0, dp) if b % n == 0 else t
 
 
 def train_launcher(rank, world, shape, steps, ckpt_dir):
@@ -380,20 +416,22 @@ def _flat(tree, path=""):
 
 
 # --------------------------------------------------------- test_mesh_serve --
-def local_index(cfg, mesh, b):
-    """Where a rank's caches of a global batch ``b`` sit in the one-device
-    caches: its rows ``(lo, hi)`` and, per stage kind, the dim and index
-    of its heads or channels (None: whole)."""
+def local_index(cfg, mesh, b, max_len):
+    """Where a rank's caches of a global batch ``b`` and ``max_len``
+    positions sit in the one-device caches: its rows ``(lo, hi)`` and,
+    per stage kind, the dim and index of its positions (the attention
+    leaves: ``sharding.seq_block``), heads or channels (None: whole)."""
     from repro_torch.models import layers, ssm
-    from repro_torch.models.attention import local_heads
     from repro_torch.models.layers import shard_axes
     from repro_torch.models.transformer import _batch_axes
     dp, model, _ = mesh_axes(mesh)
+    block = shd.seq_block(mesh, b, max_len, dp=dp, model=model)
     with shard_axes(_batch_axes(b, dp, mesh), model, mesh) as ax:
         n = b // ax.dp_size
         rows = (ax.dp_index * n, (ax.dp_index + 1) * n)
-        kv = list(local_heads(cfg.n_heads, cfg.n_kv_heads)[2])
-        out = {"rows": rows, "attn": {"k": (3, kv), "v": (3, kv)}}
+        seq = (2, list(range(block.lo, block.hi)))
+        out = {"rows": rows, "attn": dict.fromkeys(("k", "v", "ckv", "kr"),
+                                                   seq)}
         if cfg.ssm is not None:
             (lo, hi), _, _, chans = ssm._mamba2_part(cfg, "cpu")
             out["mamba2"] = {"ssm": (2, list(range(lo, hi))),
@@ -407,6 +445,16 @@ def local_index(cfg, mesh, b):
     return out
 
 
+def cache_part(leaf, rows, where):
+    """The part of a one-device cache leaf (numpy) that a rank holds:
+    ``rows`` on dim 1, then ``where = (dim, index)``, its positions, heads
+    or channels (None: whole; ``local_index``)."""
+    out = leaf[:, rows[0]:rows[1]]
+    if where is not None and where[1] is not None:
+        out = np.take(out, where[1], axis=where[0])
+    return out
+
+
 def _local_caches(caches):
     return {key: {name: t.detach().numpy().copy() for name, t in st.items()}
             for key, st in caches.items()}
@@ -416,24 +464,26 @@ def mesh_serve_all(rank, world, ref_trees, prompts, serve_cases, tokens,
                    prefill_cases):
     """Every rank body of ``test_torch_mesh_serve.py`` in one group:
     ``ServeEngine(mesh=)``'s greedy outputs per case ``(arch, shape,
-    slots)`` (every rank's, to check they agree), and ``lm_prefill(mesh=)``
+    slots)`` or ``(arch, shape, slots, max_len)`` (32 by default; every
+    rank's, to check they agree), and ``lm_prefill(mesh=)``
     of ``tokens`` per case ``(arch, shape)``: the logits gathered over the
     dp axes, each rank's caches and ``local_index``."""
     from repro_torch.models.transformer import lm_prefill
     from repro_torch.serve.engine import ServeEngine
     out = {"serve": {}, "prefill": {}}
-    for arch, shape, slots in serve_cases:
+    for case in serve_cases:
+        arch, shape, slots = case[:3]
         cfg = case_cfg(arch)
         mesh = make_process_mesh(shape, AXES)
         dp, model, _ = mesh_axes(mesh)
         pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
                        mesh)
-        eng = ServeEngine(cfg, pp, slots=slots, max_len=32, mesh=mesh,
-                          dp_axes=dp, model_axis=model)
+        eng = ServeEngine(cfg, pp, slots=slots, max_len=(case + (32,))[3],
+                          mesh=mesh, dp_axes=dp, model_axis=model)
         reqs = [eng.submit(p, max_new=5) for p in prompts]
         with torch.no_grad():
             eng.run()
-        out["serve"][(arch, shape, slots)] = [r.out for r in reqs]
+        out["serve"][case] = [r.out for r in reqs]
     toks = torch.as_tensor(tokens)
     for arch, shape in prefill_cases:
         cfg = case_cfg(arch)
@@ -448,7 +498,7 @@ def mesh_serve_all(rank, world, ref_trees, prompts, serve_cases, tokens,
             logits = col.gather(logits, mesh, 0, dp).numpy()
         out["prefill"][(arch, shape)] = (
             logits, _local_caches(caches), local_index(cfg, mesh,
-                                                       toks.shape[0]))
+                                                       toks.shape[0], 16))
     return out
 
 
@@ -504,15 +554,16 @@ def recurrent_mesh_all(rank, world, ref_trees, batch, tokens, cases):
         dp, model, _ = mesh_axes(mesh)
         pp, _ = placed(from_reference(cfg, ref_trees[arch], device="cpu"),
                        mesh)
-        b = tokens.shape[1]
-        caches = init_caches(cfg, b, tokens.shape[0] + 1, device="cpu",
-                             mesh=mesh, dp_axes=dp, model_axis=model)
+        b, max_len = tokens.shape[1], tokens.shape[0] + 1
+        caches = init_caches(cfg, b, max_len, device="cpu", mesh=mesh,
+                             dp_axes=dp, model_axis=model)
         logits = []
         with torch.no_grad():
             for i, toks in enumerate(torch.as_tensor(tokens)):
                 lg, caches = lm_decode_step(pp, cfg, toks, caches, i,
                                             mesh=mesh, dp_axes=dp,
-                                            model_axis=model)
+                                            model_axis=model,
+                                            max_len=max_len)
                 logits.append(col.gather(lg, mesh, 0, dp).numpy())
         out["decodes"][(arch, shape)] = (
             np.stack(logits),
